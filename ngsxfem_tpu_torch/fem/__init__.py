@@ -1,0 +1,1 @@
+"""fem of ngsxfem_tpu_torch (see the package docstring)."""

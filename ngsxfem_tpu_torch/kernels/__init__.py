@@ -1,0 +1,1 @@
+"""kernels of ngsxfem_tpu_torch (see the package docstring)."""

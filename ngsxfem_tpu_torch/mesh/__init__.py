@@ -1,0 +1,1 @@
+"""mesh of ngsxfem_tpu_torch (see the package docstring)."""

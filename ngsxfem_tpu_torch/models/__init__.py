@@ -1,0 +1,1 @@
+"""models of ngsxfem_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""ops of ngsxfem_tpu_torch (see the package docstring)."""
