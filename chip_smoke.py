@@ -22,18 +22,25 @@ Phases, one line each:
 1. environment: a CUDA card, its name and power limit from nvidia-smi;
 2. build: compile csrc/dia_cg.cu and csrc/ell_spmv.cu with nvcc for
    sm_90a, both at once;
-3. DIA-PCG kernel against its plain PyTorch version on the card (nx=16 and
-   48, iters 1/12/50): rel ||x_k - x_p|| <= 5e-4, |res_k - res_p| <= 5e-4
-   ||b||, two kernel runs bitwise equal, an asymmetric offset set raises;
+3. DIA-PCG kernel (one persistent cooperative kernel per call) against its
+   plain PyTorch version on the card: the flagship at nx=16, 48 and 64 and
+   seeded random exactly symmetric tables (1D, 2D and 3D lattice offsets,
+   n = 1 / 257 / 100,003, and two large ones whose launch plan stages only
+   part of the operator), iters 0/1/12/50: rel ||x_k - x_p|| <= 5e-4,
+   |res_k - res_p| <= 5e-4 ||b||, two kernel runs bitwise equal, an
+   asymmetric offset set raises; prints the launch plan at nx=48 and 64;
 4. the DIA path at nx=48 with the launch counters reset before it, then
    checks of mesh size, ncut, DIA symmetry, residuals, kernel vs
    ``krylov.cg`` + ``dia_matvec``, and the ``cg_ir`` residual;
-5. DIA-path times on the card with CUDA events (one warm-up, median of 5);
+5. DIA-path times on the card with CUDA events (one warm-up, median of 5),
+   and ``torch.profiler`` on PCG-50 calls: exactly one ``dia_cg`` device
+   kernel per call, device time per iteration (t(50) - t(0)) / 50;
 6. ELL kernel against its plain PyTorch version on the card: the nx=48 ELL
    table in f32 and f64 and seeded random padded tables (K = 1..32, n not
    a multiple of the block), bitwise equal and bitwise repeatable; int64
    cols, a wrong shape and a CPU x raise; the launch counter moves;
-7. the ELL path at nx=48 with the launch counters reset before it: ELL
+7. the ELL path at nx=48 with the launch counters reset before it, its
+   tables assembled with deterministic ``index_add_``: ELL
    operator == DIA operator after the dof renumbering (rel <= 1e-5),
    Jacobi-CG-50 on ELL == the DIA-PCG kernel's x (rel <= 5e-4), MG-CG on
    [12, 24, 48] to rel res <= 1e-8 in <= 16 iterations with a true f64
@@ -48,6 +55,7 @@ of JAX.  The line before the last is the kernel record
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -59,6 +67,8 @@ import numpy as np
 import torch
 
 NX = 48
+KERNEL_NX = (16, 48, 64)  # flagship sizes of phase 3
+KERNEL_ITERS = (0, 1, 12, 50)
 CG_ITERS = 50
 IR_OUTER, IR_INNER = 4, 120
 KERNEL_TOL = 5e-4     # f32 kernel vs plain (the reference's on-hardware bound)
@@ -107,6 +117,54 @@ def is_symmetric(V, offsets):
     offs = np.asarray(offsets)
     return all(np.array_equal(Vn[k][:n - o], Vn[int(np.flatnonzero(offs == -o)[0])][o:])
                for k, o in enumerate(offs) if o > 0)
+
+
+def lattice_offsets(dim, w):
+    """The 3**dim stencil offsets of a lattice with rows of width w."""
+    return np.array(sorted({sum(e * w**k for k, e in enumerate(es))
+                            for es in itertools.product((-1, 0, 1), repeat=dim)}))
+
+
+def random_dia(rng, n, offsets, device):
+    """Seeded exactly symmetric, diagonally dominant f32 DIA table
+    (diagonal 0.01 + the row's absolute off-diagonal sum), a rhs and the
+    Jacobi inverse diagonal."""
+    offs = [int(o) for o in offsets]
+    V = np.zeros((len(offs), n))
+    for k, o in enumerate(offs):
+        if 0 < o < n:
+            d = -rng.uniform(0.0, 1.0, n - o)
+            V[k, :n - o] = d
+            V[offs.index(-o), o:] = d
+    k0 = offs.index(0)
+    V[k0] = 0.01 + np.abs(V).sum(0)
+    V = torch.as_tensor(V, dtype=torch.float32, device=device)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device=device)
+    return V, b, 1.0 / V[k0]
+
+
+def dia_kernel_vs_plain(label, offs, V, b, dinv, iters_list):
+    """Kernel vs plain (rel, residual) and kernel vs kernel (bitwise) for
+    each iteration count.  Returns [(label, iters, rel, max|x_k - x_p|)]."""
+    from ngsxfem_tpu_torch.solvers import dia_cg
+
+    bn = float(torch.linalg.vector_norm(b))
+    out = []
+    for iters in iters_list:
+        xk, rk = dia_cg.dia_cg_fused(offs, V, b, dinv, iters)
+        xk2, rk2 = dia_cg.dia_cg_fused(offs, V, b, dinv, iters)
+        xp, rp = dia_cg.dia_cg_fused_plain(offs, V, b, dinv, iters)
+        torch.cuda.synchronize()
+        rel = float(torch.linalg.vector_norm(xk - xp)
+                    / torch.linalg.vector_norm(xp).clamp_min(1e-30))
+        check(rel <= KERNEL_TOL, f"{label} iters={iters}: rel {rel}")
+        check(abs(float(rk) - float(rp)) <= KERNEL_TOL * bn,
+              f"{label} iters={iters}: res {float(rk)} vs {float(rp)}")
+        check(torch.equal(xk, xk2) and torch.equal(rk, rk2),
+              f"{label} iters={iters}: two kernel runs differ")
+        out.append((label, iters, rel, float((xk - xp).abs().max())))
+    return out
 
 
 def time_ms(fn, reps=5):
@@ -368,32 +426,42 @@ def main():
         parts.append(f"csrc/{name}.cu -> {so.rsplit('/', 1)[-1]} in "
                      f"{build_s:.2f} s (registers per kernel: "
                      f"{', '.join(regs) or 'reused build'})")
-    print(f"[2 build] {'; '.join(parts)}; wall {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    info = dia_cg.device_info(dev)
+    print(f"[2 build] {'; '.join(parts)}; wall {time.perf_counter() - t0:.2f} s"
+          f" | dia_cg kernel: {info['registers']} registers, "
+          f"{info['static_smem']} B static shared memory, {info['local_bytes']}"
+          f" B local memory per thread; {info['sm_count']} SMs, "
+          f"{info['smem_bytes']} B dynamic shared memory per block, "
+          f"cooperative launch {bool(info['cooperative'])}", flush=True)
 
     # 3. kernel against its plain version on the card
+    t0 = time.perf_counter()
     before = dia_cg.launches
-    max_abs_err = 0.0
-    worst_rel = 0.0
-    for nx in (16, NX):
+    cases = []
+    plans = []
+    for nx in KERNEL_NX:
         _, struct, V, _, b, dinv, _ = flagship(nx, dev)
         offs = struct["offsets"]
-        bn = float(torch.linalg.vector_norm(b))
-        for iters in (1, 12, CG_ITERS):
-            xk, rk = dia_cg.dia_cg_fused(offs, V, b, dinv, iters)
-            xk2, rk2 = dia_cg.dia_cg_fused(offs, V, b, dinv, iters)
-            xp, rp = dia_cg.dia_cg_fused_plain(offs, V, b, dinv, iters)
-            torch.cuda.synchronize()
-            rel = float(torch.linalg.vector_norm(xk - xp)
-                        / torch.linalg.vector_norm(xp).clamp_min(1e-30))
-            check(rel <= KERNEL_TOL, f"nx={nx} iters={iters}: rel {rel}")
-            check(abs(float(rk) - float(rp)) <= KERNEL_TOL * bn,
-                  f"nx={nx} iters={iters}: res {float(rk)} vs {float(rp)}")
-            check(torch.equal(xk, xk2) and torch.equal(rk, rk2),
-                  f"nx={nx} iters={iters}: two kernel runs differ")
-            worst_rel = max(worst_rel, rel)
-            if nx == NX and iters == CG_ITERS:
-                max_abs_err = float((xk - xp).abs().max())
+        cases += dia_kernel_vs_plain(f"nx={nx}", offs, V, b, dinv, KERNEL_ITERS)
+        if nx >= NX:
+            plans.append(f"nx={nx} n={V.shape[1]}: "
+                         + dia_cg.cuda_plan(offs, V.shape[1], dev).describe())
+    rng = np.random.default_rng(2027)
+    for dim in (1, 2, 3):
+        for n in (1, 257, 100_003):
+            offs = lattice_offsets(dim, max(2, round(n ** (1 / dim))))
+            cases += dia_kernel_vs_plain(f"random {dim}D n={n}", offs,
+                                         *random_dia(rng, n, offs, dev),
+                                         KERNEL_ITERS)
+    # larger than the shared memory of the grid: only part of the operator
+    # (coefficients, the vectors, then the p window) is staged
+    for n, w in ((1_000_003, 101), (2_146_689, 129)):
+        offs = lattice_offsets(3, w)
+        plan = dia_cg.cuda_plan(offs, n, dev)
+        check(plan.staged_terms < len(offs), f"n={n}: the plan stages all")
+        plans.append(f"random 3D n={n}: " + plan.describe())
+        cases += dia_kernel_vs_plain(f"random 3D n={n}", offs,
+                                     *random_dia(rng, n, offs, dev), (1, 12))
     try:
         dia_cg.dia_cg_fused([-1, 0, 2], V[:3], b, dinv, 1)
     except ValueError:
@@ -401,10 +469,19 @@ def main():
     else:
         raise RuntimeError("check failed: asymmetric offsets did not raise")
     check(dia_cg.launches > before, "kernel launch counter did not move")
-    print(f"[3 kernel] nx=16,{NX} iters=1,12,{CG_ITERS}: worst rel "
-          f"{worst_rel:.3e} <= {KERNEL_TOL}, bitwise repeatable, "
-          f"max|x_k - x_p| at nx={NX} iters={CG_ITERS} = {max_abs_err:.3e}, "
-          f"asymmetric offsets raise", flush=True)
+    worst_rel = max(c[2] for c in cases)
+    worst_abs = max(c[3] for c in cases)
+    n_bitwise = sum(1 for c in cases if c[3] == 0.0)
+    max_abs_err = max(c[3] for c in cases if c[0] == f"nx={NX}")
+    print(f"[3 kernel] {len(cases)} cases (flagship nx={list(KERNEL_NX)} "
+          f"and seeded random tables, iters {list(KERNEL_ITERS)}): worst rel "
+          f"{worst_rel:.3e} <= {KERNEL_TOL}, max|x_k - x_p| {worst_abs:.3e} "
+          f"(at nx={NX} {max_abs_err:.3e}), kernel == plain bitwise in "
+          f"{n_bitwise}/{len(cases)} cases, bitwise repeatable, asymmetric "
+          f"offsets raise, {dia_cg.launches - before} launches, "
+          f"wall {time.perf_counter() - t0:.2f} s", flush=True)
+    for line in plans:
+        print(f"[3 plan] {line}", flush=True)
     del V, b, dinv
 
     # 4. the DIA path, launch counters reset just before it
@@ -462,12 +539,27 @@ def main():
     ir_ms = time_ms(lambda: cg_ir(mv32, mv64, b, M=lambda r: dinv * r,
                                   outer=IR_OUTER, inner=IR_INNER))
     eps = model.mesh.ne / ((asm_ms + pcg_ms) / 1e3)
+    dev_us = {}
+    for iters in (0, CG_ITERS):
+        kern, _ = device_kernels(
+            lambda it=iters: dia_cg.dia_cg_fused(offs, V, b, dinv, it), 5)
+        names = list(kern)
+        check(len(names) == 1 and "dia_cg" in names[0] and kern[names[0]][0] == 5,
+              f"PCG-{iters}: expected one dia_cg device kernel per call, got "
+              f"{ {k[:60]: c for k, (c, _) in kern.items()} }")
+        dev_us[iters] = kern[names[0]][1] / 5
+    per_iter_us = (dev_us[CG_ITERS] - dev_us[0]) / CG_ITERS
     print(f"[5 times] {card()} | host setup {setup_s:.3f} s | assembly "
           f"{asm_ms:.3f} ms | PCG-{CG_ITERS} kernel {pcg_ms:.3f} ms | "
           f"PCG-{CG_ITERS} plain (dia_cg_fused_plain) {plain_ms:.3f} ms | "
           f"PCG-{CG_ITERS} krylov.cg+dia_matvec {cg_ms:.3f} ms | cg_ir "
           f"{ir_ms:.3f} ms | assembly+PCG-{CG_ITERS} {eps:.4g} elements/s",
           flush=True)
+    print(f"[5 pcg profile] {card()} | one dia_cg device kernel per call | "
+          f"device time PCG-{CG_ITERS} {dev_us[CG_ITERS]:.3f} us, PCG-0 "
+          f"{dev_us[0]:.3f} us, per iteration {per_iter_us:.3f} us "
+          f"({dia_cg.cuda_plan(offs, model.ndof, dev).barriers_per_iter} grid "
+          f"barriers per iteration)", flush=True)
 
     # 6. the ELL kernel against its plain version on the card
     before = ell_spmv.launches
@@ -505,12 +597,19 @@ def main():
           f"wall {time.perf_counter() - t0:.2f} s", flush=True)
     del cases, V48, cols48
 
-    # 7. the ELL path, launch counters reset just before it
+    # 7. the ELL path, launch counters reset just before it.  Its tables
+    # are assembled with deterministic index_add_: with atomic-order sums the
+    # f32 MG-CG check below passed in 12-15 iterations or stalled near 1e-6
+    # from one assembly to the next (the solve itself is deterministic).
     dia_cg.launches = 0
     ell_spmv.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ell = ell_path(dev, model, dict(struct, V=V), x)
+    torch.use_deterministic_algorithms(True)
+    try:
+        ell = ell_path(dev, model, dict(struct, V=V), x)
+    finally:
+        torch.use_deterministic_algorithms(False)
     ell_main_s = time.perf_counter() - t0
     ell_launches = ell_spmv.launches
     dia_launches_ell = dia_cg.launches

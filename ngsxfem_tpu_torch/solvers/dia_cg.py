@@ -1,31 +1,45 @@
 """Fused fixed-budget Jacobi-PCG on the symmetric offset-diagonal operator.
 
 Counterpart of ``ngsxfem_tpu/solvers/pallas_cg.py``.  On a CUDA tensor,
-``dia_cg_fused`` runs the whole loop through the hand-written Hopper kernel
+``dia_cg_fused`` runs the whole loop as one persistent cooperative kernel,
 ``csrc/dia_cg.cu`` (see the note at the top of that file for its design and
-what bounds it); on a CPU tensor it runs ``dia_cg_fused_plain``, the same
-algorithm in PyTorch.  There is no fallback between the two: a CUDA tensor
-reaches the kernel or the call raises.
+what bounds it), launched with the plan of ``_plan``; on a CPU tensor it
+runs ``dia_cg_fused_plain``, the same algorithm in PyTorch.  There is no
+fallback between the two: a CUDA tensor reaches the kernel or the call
+raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .krylov import _vdot
 
-# calls of `dia_cg_fused` that went to the CUDA kernel (one per call, however
-# many device kernels the call launches); read and reset by chip_smoke.py
+# calls of `dia_cg_fused` that went to the CUDA kernel (one device kernel per
+# call); read and reset by chip_smoke.py
 launches = 0
 
+MAX_TERMS = 32  # offsets the kernel takes (csrc/dia_cg.cu kMaxTerms)
+THREADS = 1024  # threads per block (csrc/dia_cg.cu kThreads)
+
 _LIB = None
+_INFO = {}  # device index -> dia_cg_f32_device_info
+_XCH = {}   # (device index, stream) -> [exchange words, next tag]
+_LAUNCH = {}  # (device index, offsets, n) -> (plan, rows, offs, slots)
+
+
+def _key(offsets):
+    """The offset set as a tuple of ints (the key of the host caches)."""
+    return tuple(int(o) for o in np.asarray(offsets).tolist())
 
 
 def _upper(offsets):
     """Host split of a symmetric offset set into (main-diag idx, [(idx, o>0)])."""
-    offs = [int(o) for o in np.asarray(offsets).tolist()]
+    offs = list(_key(offsets))
     if sorted(offs) != sorted(-o for o in offs):
         raise ValueError("DIA offset set is not symmetric; fused CG "
                          "requires a symmetric operator")
@@ -34,14 +48,19 @@ def _upper(offsets):
     return k0, pos
 
 
+@functools.lru_cache(maxsize=None)
+def _terms_of(offs):
+    k0, pos = _upper(offs)
+    row = {o: k for k, o in pos}
+    row[0] = k0
+    return tuple((row[abs(o)], o) for o in offs)
+
+
 def _terms(offsets):
     """The offsets in table order, each with the table row it reads: the
     main diagonal for 0, the positive-offset diagonal of |o| otherwise (a
     negative offset is applied as the transpose of its mirror)."""
-    k0, pos = _upper(offsets)
-    row = {o: k for k, o in pos}
-    row[0] = k0
-    return [(row[abs(int(o))], int(o)) for o in np.asarray(offsets).tolist()]
+    return list(_terms_of(_key(offsets)))
 
 
 def _sym_dia_matvec(vals, terms, p):
@@ -91,47 +110,189 @@ def dia_cg_fused_plain(offsets, vals, b, dinv, iters):
     return x, torch.sqrt(_vdot(r, r))
 
 
+@dataclass(frozen=True)
+class Plan:
+    """Launch plan of the cooperative kernel (see ``_plan``)."""
+
+    grid: int         # blocks, all co-resident, at most one per SM
+    threads: int      # threads per block
+    chunk: int        # rows per block: block j owns [j chunk, (j+1) chunk)
+    halo: int         # the staged p window reaches this far beyond the rows
+    win: int          # floats of shared memory for the window (0: none)
+    stage_vec: bool   # x, r, dinv and Ap of the block's rows staged
+    slots: tuple      # per term: its shared-memory coefficient slot or -1
+    smem: int         # dynamic shared memory per block, bytes
+    o_max: int        # largest |offset|
+    barriers_per_iter: int = 2  # grid-wide exchanges, csrc/dia_cg.cu
+
+    @property
+    def staged_terms(self):
+        return sum(1 for sl in self.slots if sl >= 0)
+
+    @property
+    def full(self):
+        """Every coefficient and the whole halo staged: the kernel instance
+        without bounds checks (csrc/dia_cg.cu decides the same way)."""
+        return (self.win > 0 and self.staged_terms == len(self.slots)
+                and self.halo >= self.o_max)
+
+    def rows(self, j, n):
+        """Rows [start, end) of block j."""
+        return j * self.chunk, min(n, (j + 1) * self.chunk)
+
+    def window(self, j, n):
+        """Staged p window [lo, hi) of block j (empty when none is)."""
+        if not self.win:
+            return 0, 0
+        s, e = self.rows(j, n)
+        return max(0, s - self.halo), min(n, e + self.halo)
+
+    def describe(self):
+        return (f"grid {self.grid} x {self.threads} threads, {self.chunk} rows "
+                f"per block, {self.smem} B dynamic shared memory: "
+                f"{self.staged_terms}/{len(self.slots)} coefficient slices, "
+                f"p window halo {self.halo}/{self.o_max}"
+                f"{'' if self.win else ' (no window)'}, x/r/dinv/Ap "
+                f"{'staged' if self.stage_vec else 'in global memory'}"
+                f"{' (all staged)' if self.full else ''}; "
+                f"{self.barriers_per_iter} grid barriers per iteration")
+
+
+def _plan(n, offsets, sm_count, smem_bytes, threads=THREADS):
+    """Launch plan for n rows, the offset set, `sm_count` SMs and
+    `smem_bytes` of dynamic shared memory per block.
+
+    One block per SM at most, and no more blocks than rows / threads, so that
+    a block's threads each own about one row and a grid barrier waits on as
+    few blocks as will do.  Rows are cut into equal contiguous chunks.  Shared
+    memory goes, in this order, to the p window (the block's rows, then a
+    halo of up to the largest offset on each side: a column outside it costs
+    two L2 reads per term), to the block's x, r, dinv and Ap, and to the
+    coefficient slices of the terms in table order (one slice costs one L2
+    read per row and term when left out).  What does not fit is read from
+    global memory by the same kernel.
+    """
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    terms = _terms(offsets)
+    if len(terms) > MAX_TERMS:
+        raise ValueError(f"{len(terms)} offsets; the kernel takes at most "
+                         f"{MAX_TERMS}")
+    o_max = max(abs(o) for _, o in terms)
+    grid = max(1, min(int(sm_count), -(-n // threads)))
+    chunk = -(-n // grid)
+    grid = -(-n // chunk)
+    budget = int(smem_bytes) // 4
+    halo = win = 0
+    if chunk <= budget:
+        halo = min(o_max, n, (budget - chunk) // 2)
+        win = chunk + 2 * halo
+        budget -= win
+    stage_vec = 4 * chunk <= budget
+    if stage_vec:
+        budget -= 4 * chunk
+    n_slots = min(len(terms), budget // chunk)
+    slots = tuple(q if q < n_slots else -1 for q in range(len(terms)))
+    smem = 4 * ((4 * chunk if stage_vec else 0) + n_slots * chunk + win)
+    return Plan(grid, threads, chunk, halo, win, stage_vec, slots, smem, o_max)
+
+
+def _bind(lib):
+    """Set the ctypes signatures of a build of csrc/dia_cg.cu."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.dia_cg_f32.restype = I
+    lib.dia_cg_f32.argtypes = [P, I, I, P, P, P, I, I, I, I, I, I, I,
+                               P, P, I, P, P, P, ctypes.c_uint, P, P]
+    lib.dia_cg_f32_exchange_words.restype = I
+    lib.dia_cg_f32_exchange_words.argtypes = []
+    lib.dia_cg_f32_device_info.restype = I
+    lib.dia_cg_f32_device_info.argtypes = [P]
+    lib.dia_cg_f32_error_string.restype = ctypes.c_char_p
+    lib.dia_cg_f32_error_string.argtypes = [I]
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from ..kernels.build import load
 
-        lib = load("dia_cg")
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.dia_cg_f32.restype = I
-        lib.dia_cg_f32.argtypes = [P, I, I, P, P, P, P, I,
-                                   P, P, P, P, P, P, P, P]
-        lib.dia_cg_f32_num_partials.restype = I
-        lib.dia_cg_f32_num_partials.argtypes = [I]
-        lib.dia_cg_f32_error_string.restype = ctypes.c_char_p
-        lib.dia_cg_f32_error_string.argtypes = [I]
-        _LIB = lib
+        _LIB = _bind(load("dia_cg"))
     return _LIB
 
 
-def _dia_cg_cuda(terms, vals, b, dinv, iters):
+def _raise(lib, what, err):
+    raise RuntimeError(f"{what} failed: "
+                       f"{lib.dia_cg_f32_error_string(err).decode()}")
+
+
+def device_info(device):
+    """The kernel's view of a CUDA device: SMs, dynamic shared memory per
+    block, cooperative launch, and the kernel's max threads per block,
+    registers, static shared memory and local memory (spills) per thread."""
+    device = torch.device(device)
+    idx = torch.cuda.current_device() if device.index is None else device.index
+    if idx not in _INFO:
+        lib = _lib()
+        buf = (ctypes.c_int * 7)()
+        with torch.cuda.device(idx):
+            err = lib.dia_cg_f32_device_info(ctypes.addressof(buf))
+        if err != 0:
+            _raise(lib, "dia_cg_f32_device_info", err)
+        _INFO[idx] = dict(zip(("sm_count", "smem_bytes", "cooperative",
+                               "max_threads", "registers", "static_smem",
+                               "local_bytes"), list(buf)))
+    return _INFO[idx]
+
+
+def cuda_plan(offsets, n, device):
+    """The plan ``dia_cg_fused`` launches for n rows on a CUDA device."""
+    info = device_info(device)
+    return _plan(n, offsets, info["sm_count"], info["smem_bytes"],
+                 min(THREADS, info["max_threads"]))
+
+
+def _dia_cg_cuda(offsets, terms, vals, b, dinv, iters, lib=None):
+    """Launch the kernel (or `lib`, another build of the same source)."""
     global launches
-    lib = _lib()
+    lib = lib or _lib()
     n = b.shape[0]
-    rows = np.ascontiguousarray([k for k, _ in terms], dtype=np.int32)
-    offs = np.ascontiguousarray([o for _, o in terms], dtype=np.int32)
+    key = (b.device.index, _key(offsets), n)
+    if key not in _LAUNCH:
+        plan = cuda_plan(offsets, n, b.device)
+        _LAUNCH[key] = (
+            plan, np.ascontiguousarray([k for k, _ in terms], dtype=np.int32),
+            np.ascontiguousarray([o for _, o in terms], dtype=np.int32),
+            np.ascontiguousarray(plan.slots, dtype=np.int32))
+    plan, rows, offs, slots = _LAUNCH[key]
     x = torch.empty_like(b)
-    r, z, p, Ap = torch.empty((4, n), dtype=b.dtype, device=b.device)
-    parts = torch.empty(lib.dia_cg_f32_num_partials(n), dtype=torch.float64,
-                        device=b.device)
-    scal = torch.empty(4, dtype=b.dtype, device=b.device)
+    work = torch.empty((5, n), dtype=b.dtype, device=b.device)
+    res = torch.empty((), dtype=b.dtype, device=b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
+        xch = _XCH.get((b.device.index, stream))
+        if xch is None:
+            words = torch.zeros(lib.dia_cg_f32_exchange_words(),
+                                dtype=torch.int64, device=b.device)
+            xch = _XCH[(b.device.index, stream)] = [words, 1]
+        # each call's exchanges carry tags above the previous call's on this
+        # buffer; before the 32-bit tags would wrap, the buffer is re-zeroed
+        tag0 = xch[1]
+        if tag0 + 2 * iters >= 2**32:
+            xch[0].zero_()
+            tag0 = 1
+        xch[1] = tag0 + 2 * iters + 1
         err = lib.dia_cg_f32(
-            vals.data_ptr(), n, len(terms), rows.ctypes.data,
-            offs.ctypes.data, b.data_ptr(), dinv.data_ptr(), iters,
-            x.data_ptr(), r.data_ptr(), z.data_ptr(), p.data_ptr(),
-            Ap.data_ptr(), parts.data_ptr(), scal.data_ptr(), stream)
+            vals.data_ptr(), n, len(terms), rows.ctypes.data, offs.ctypes.data,
+            slots.ctypes.data, plan.grid, plan.threads, plan.chunk, plan.halo,
+            plan.win, int(plan.stage_vec), plan.staged_terms,
+            b.data_ptr(), dinv.data_ptr(), iters, x.data_ptr(), work.data_ptr(),
+            xch[0].data_ptr(), tag0, res.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("dia_cg_f32 kernel launch failed: "
-                           f"{lib.dia_cg_f32_error_string(err).decode()}")
+        _raise(lib, "dia_cg_f32 cooperative launch", err)
     launches += 1
-    return x, scal[3]
+    return x, res
 
 
 def dia_cg_fused(offsets, vals, b, dinv, iters):
@@ -176,4 +337,4 @@ def dia_cg_fused(offsets, vals, b, dinv, iters):
         raise ValueError(f"no dia_cg_fused kernel for device {b.device}")
     if vals.dtype != torch.float32:
         raise ValueError(f"the CUDA kernel takes float32, got {vals.dtype}")
-    return _dia_cg_cuda(terms, vals, b, dinv, iters)
+    return _dia_cg_cuda(offsets, terms, vals, b, dinv, iters)
