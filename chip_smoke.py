@@ -5,7 +5,8 @@
 
 The flagship is 3D fictitious-domain Poisson with Nitsche terms and
 facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
-117,649 dofs, float32).  Two paths run through it:
+117,649 dofs, float32).  Three paths run through it (and general cut
+quadrature, phase 9, beside it):
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -15,7 +16,10 @@ facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
   nx = 12, 24, 48 -> ``ELLMatrix`` / ``ell_matvec`` (hand-written CUDA
   kernel) -> Jacobi-CG-50 through ``CGSolver`` -> ``FunctionalELLMG``
   (cut multigrid, ``prepare_host``) as the preconditioner of ``krylov.cg``
-  to 1e-8.
+  to 1e-8;
+- the quadrature path: ``UnfittedPoisson.elmats`` / ``apply`` / ``rhs`` /
+  ``solve`` from cut quadrature rules (no hand-written kernel: no TPU
+  kernel lies on this path).
 
 Phases, one line each:
 
@@ -47,7 +51,24 @@ Phases, one line each:
    relative residual <= 1e-4, and ELL-kernel launches > 0;
 8. ELL-path times on the card: SpMV kernel per call (mean of 200), its
    plain version, ``torch.sparse_csr_tensor @ x`` (cuSPARSE, a yardstick
-   only), the bound, assembly per level, ``prepare_host``, MG-CG.
+   only), the bound, assembly per level, ``prepare_host``, MG-CG;
+9. general cut quadrature through ``Integrate`` on the card, f64: the
+   reference suite's exactness cases (error <= 5e-15 (k+1)^2, the plane on
+   256 x 256 meshes to 1e-12), the ball r=0.4 on tets nx = 16, 32, 64 and
+   hexes nx = 12, 24, 48 (order 4, NEG volume and IF area EOC >= 1.75,
+   NEG + POS = 1, element_wise sums), f32 vs f64 at tets nx=64 (rel
+   <= 1e-5), the README's Quick start, the autograd dV/dr of the ball
+   (against 4 pi r^2 and a central difference) and ``CutInfo`` at tets
+   nx=64 against a host sign count;
+10. the quadrature path of the flagship at nx=48: ``apply`` == the DIA
+   operator of ``assemble_vals_lattice`` (f64 rel <= 1e-11, f32 <= 1e-5),
+   ``rhs`` against ``Integrate`` over NEG (1e-12), ``solve()`` in f32 (its
+   recursion residual within 1e-2 of the true f64 residual), and the
+   symmetry of the order-2 operator at nx=24 (<= 1e-6, f32);
+11. times of ``Integrate``, ``CutInfo``, ``elmats``, ``apply``, the
+   operator's matvec and ``solve()`` with CUDA events and
+   ``torch.profiler`` (device kernels, busy time, idle share), and the
+   peak memory of phases 9-11.
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -400,6 +421,299 @@ def ell_path(device, model48, dia, x_dia):
             "mgcg_wall_s": mgcg_wall_s}
 
 
+# --- phases 9-11: general cut quadrature and the quadrature path ----------
+
+EXACT_TOL = 5e-15      # x (order + 1)^2, the reference suite's bound
+SPHERE_R = 0.4
+SPHERE_NX = {"tet": (16, 32, 64), "hex": (12, 24, 48)}
+EOC_MIN = 1.75
+ORDER2_NX = 24
+QUAD_OP_TOL = {torch.float64: 1e-11, torch.float32: 1e-5}
+
+
+def _mesh(T, et, n):
+    if et == "segm":
+        return T.Make1DMesh(n)
+    if et in ("trig", "quad"):
+        return T.MakeStructured2DMesh(quads=et == "quad", nx=n, ny=n)
+    return T.MakeStructured3DMesh(hexes=et == "hex", nx=n, ny=n, nz=n)
+
+
+def _p1(T, mesh, lset_cf, device, dtype=torch.float64):
+    gf = T.GridFunction(T.H1(mesh, order=1, device=device), dtype=dtype)
+    T.InterpolateToP1(lset_cf, gf)
+    return gf
+
+
+def cut_exactness(device):
+    """The reference suite's exactness cases (tests/test_straightcutrule.py:
+    17-137, tests/test_quadchallenges.py) on the card, f64.  Returns (cases,
+    worst error / bound) and raises past the bound."""
+    import ngsxfem_tpu_torch as T
+
+    x, y, z = T.x, T.y, T.z
+    worst, n = 0.0, 0
+
+    def case(et, N, lset_cf, f, order, dt, ref, policy=None, tol=None):
+        nonlocal worst, n
+        mesh = _mesh(T, et, N)
+        ld = {"levelset": _p1(T, mesh, lset_cf, device),
+              "domain_type": getattr(T, dt)}
+        if policy:
+            ld["quad_dir_policy"] = policy
+        got = T.Integrate(ld, f, mesh, order=order)
+        bound = tol if tol is not None else EXACT_TOL * (order + 1) ** 2
+        check(abs(got - ref) <= bound,
+              f"exactness {et} N={N} order={order} {dt}: {got} vs {ref}")
+        worst = max(worst, abs(got - ref) / bound)
+        n += 1
+        return got
+
+    xa = 0.78522
+    for alpha in (2, 4, 8):
+        for dt, ref in (("POS", xa ** (alpha + 1) / (alpha + 1)),
+                        ("NEG", (1 - xa ** (alpha + 1)) / (alpha + 1)),
+                        ("IF", xa ** alpha)):
+            case("segm", 1, xa - x, x ** alpha, alpha, dt, ref)
+    for et in ("trig", "quad"):
+        for N in (1, 10):
+            for order in (2, 4, 8):
+                for dt, ref in (("NEG", 7 / 8), ("POS", 1 / 8),
+                                ("IF", 1 / np.sqrt(2))):
+                    case(et, N, 1 - 2 * x - 2 * y, T.CoefficientFunction(1),
+                         order, dt, ref)
+        for order in (2, 4, 8):
+            for alpha in (0, 1, 2):
+                vp = 2 ** (-alpha - 2) / (alpha * alpha + 3 * alpha + 2)
+                for c in (x, y):
+                    for dt, ref in (("POS", vp), ("NEG", 1 / (alpha + 1) - vp)):
+                        case(et, 1, 1 - 2 * x - 2 * y, c ** alpha, order, dt,
+                             ref)
+        for eps in (1e-1, 1e-2, 5e-3, 1e-3, 0):
+            for lcf in (1 - 2 * x + eps * (y - 0.5), 1 - 2 * y + eps * (x - 0.5)):
+                for dt, ref in (("NEG", 0.5), ("POS", 0.5),
+                                ("IF", np.sqrt(1 + eps * eps / 4))):
+                    case(et, 1, lcf, T.CoefficientFunction(1), 2, dt, ref)
+    plane3 = 1 - 2 * x - 2 * y - 2 * z
+    for et in ("tet", "hex"):
+        for order in (2, 4, 8):
+            for dt, ref in (("POS", 1 / 48), ("NEG", 47 / 48),
+                            ("IF", np.sqrt(3) / 8)):
+                case(et, 1, plane3, T.CoefficientFunction(1), order, dt, ref)
+                if et == "hex":
+                    case(et, 2, plane3, 1.0, order, dt, ref)
+        for alpha in (0, 1, 2):
+            vp = 2 ** (-alpha - 3) / (alpha ** 3 + 6 * alpha ** 2 + 11 * alpha + 6)
+            for c in (x, y, z):
+                for dt, ref in (("POS", vp), ("NEG", 1 / (alpha + 1) - vp)):
+                    case(et, 1, plane3, c ** alpha, 4, dt, ref)
+                    if et == "hex":
+                        case(et, 5, plane3, c ** alpha, 4, dt, ref,
+                             policy="OPTIMAL")
+    vp = 2 ** (-5) / (8 + 24 + 22 + 6)
+    case("hex", 2, plane3, x ** 2, 4, "POS", vp, policy="OPTIMAL")
+    # the trilinear TPMC level set (tests/test_quadchallenges.py:77-135)
+    tpmc = x * ((7 * y - 13) * z + 6) + y * (3 - 8 * z) + 8 * z - 4
+    for order in (2, 4, 6):
+        neg = case("hex", 1, tpmc, 1.0, order, "NEG", 0.5167820912197415,
+                   tol=0.75)
+        pos = case("hex", 1, tpmc, 1.0, order, "POS", 0.4825797907263282,
+                   tol=0.75)
+        check(abs(neg + pos - 1.0) <= 1e-12, f"TPMC order {order}: NEG+POS")
+    for order in (2, 4):
+        for dt, ref, tol in (("NEG", 0.51681, 1e-3), ("POS", 0.48319, 1e-3),
+                             ("IF", 1.82169, 5e-3)):
+            case("hex", 10, tpmc, 1.0, order, dt, ref, tol=tol)
+    # the plane on 256 x 256 meshes (131,072 triangles, 65,536 quads)
+    for et in ("trig", "quad"):
+        for dt, ref in (("NEG", 7 / 8), ("POS", 1 / 8), ("IF", 1 / np.sqrt(2))):
+            case(et, 256, 1 - 2 * x - 2 * y, 1.0, 4, dt, ref, tol=1e-12)
+    return n, worst
+
+
+def sphere_levels(device):
+    """Order-4 NEG volume and IF area of the ball r=0.4 at the centre of the
+    unit cube on tets and hexes (SPHERE_NX): errors, EOC, NEG + POS, and
+    element_wise sums.  Returns the rows and the finest tet mesh with its
+    level set (reused by the CutInfo check and phase 11)."""
+    import ngsxfem_tpu_torch as T
+
+    c = T.sqrt((T.x - 0.5) ** 2 + (T.y - 0.5) ** 2 + (T.z - 0.5) ** 2) - SPHERE_R
+    exact = {"NEG": 4 / 3 * np.pi * SPHERE_R ** 3, "IF": 4 * np.pi * SPHERE_R ** 2}
+    rows = []
+    for et, nxs in SPHERE_NX.items():
+        err = {"NEG": [], "IF": []}
+        for nx in nxs:
+            mesh = _mesh(T, et, nx)
+            lset = _p1(T, mesh, c, device)
+            if et == "tet":
+                finest = (mesh, lset)
+            got = {}
+            for dt in ("NEG", "POS", "IF"):
+                ld = {"levelset": lset, "domain_type": getattr(T, dt)}
+                got[dt] = T.Integrate(ld, 1.0, mesh, order=4)
+                ew = T.Integrate(ld, 1.0, mesh, order=4, element_wise=True)
+                check(abs(float(ew.sum()) - got[dt]) <= 1e-12 * got[dt],
+                      f"{et} nx={nx} {dt}: element_wise sum")
+            check(abs(got["NEG"] + got["POS"] - 1.0) <= 1e-12,
+                  f"{et} nx={nx}: NEG + POS = {got['NEG'] + got['POS']}")
+            for dt in err:
+                err[dt].append(abs(got[dt] - exact[dt]))
+        eoc = {dt: float(np.log(e[-2] / e[-1]) / np.log(2)) for dt, e in err.items()}
+        for dt in eoc:
+            check(eoc[dt] >= EOC_MIN, f"{et} {dt}: EOC {eoc[dt]} < {EOC_MIN}")
+        rows.append((et, nxs, err, eoc, peak_gib(device)))
+    return rows, finest
+
+
+def autograd_check(device):
+    """dV/dr of the ball through the cut rule by torch.autograd at tets
+    nx=32, r=0.31 (tests/test_misc.py:331-343): near 4 pi r^2, and equal to
+    the central difference (f64, eps 1e-5).  Returns (grad, fd)."""
+    from ngsxfem_tpu_torch.mesh.mesh import map_points, det_and_inv
+    from ngsxfem_tpu_torch.mesh.structured import MakeStructured3DMesh
+    from ngsxfem_tpu_torch.ops.straightcut import cut_rule_element
+
+    m = MakeStructured3DMesh(hexes=False, nx=32, ny=32, nz=32)
+    dist = torch.as_tensor(np.sqrt(((m.vertices_np - 0.5) ** 2).sum(1))[m.elements_np],
+                           device=device)
+    coords = torch.as_tensor(m.vertices_np[m.elements_np], device=device)
+
+    def vol(r):
+        rule = cut_rule_element("tet", dist - r, 2)
+        _, J = map_points("tet", coords, rule.pts)
+        return (rule.w * (rule.side == 0) * det_and_inv(J)[0].abs()).sum()
+
+    r = torch.tensor(0.31, dtype=torch.float64, device=device, requires_grad=True)
+    vol(r).backward()
+    g = float(r.grad)
+    with torch.no_grad():
+        fd = float((vol(torch.tensor(0.31 + 1e-5, dtype=torch.float64, device=device))
+                    - vol(torch.tensor(0.31 - 1e-5, dtype=torch.float64,
+                                       device=device))) / 2e-5)
+    check(abs(g - 4 * np.pi * 0.31 ** 2) < 0.03, f"dV/dr {g} vs 4 pi r^2")
+    check(abs(g - fd) <= 1e-6 * abs(fd), f"dV/dr {g} vs central difference {fd}")
+    return g, fd
+
+
+def cutinfo_check(mesh, lset):
+    """CutInfo at the finest tet level: element counts equal a numpy sign
+    count of the eps-guarded vertex values, ratios in [0, 1], and the
+    facets with neighbours (HASNEG, IF) are non-empty and lie between such
+    elements.  Returns (NEG, POS, IF counts, marked facets)."""
+    import ngsxfem_tpu_torch as T
+    from ngsxfem_tpu_torch.integrate import vertex_local_ids
+
+    ci = T.CutInfo(mesh, lset)
+    v = lset.vec.NumPy()[lset.space.el2dof_np[:, vertex_local_ids(mesh.et, 1)]]
+    v = np.where(np.abs(v) < 1e-14, 1e-14, v)
+    neg, pos = (v < 0).any(1), (v > 0).any(1)
+    counts = tuple(ci.GetElementsOfType(getattr(T, dt)).NumSet()
+                   for dt in ("NEG", "POS", "IF"))
+    host = (int((neg & ~pos).sum()), int((pos & ~neg).sum()), int((neg & pos).sum()))
+    check(counts == host, f"CutInfo counts {counts} != host {host}")
+    r = ci.GetCutRatios()
+    check(bool(((r >= 0) & (r <= 1)).all()), "cut ratios outside [0, 1]")
+    hn, hi = ci.GetElementsOfType(T.HASNEG), ci.GetElementsOfType(T.IF)
+    f = T.GetFacetsWithNeighborTypes(mesh, a=hn, b=hi)
+    check(f.NumSet() > 0, "no facets with neighbours (HASNEG, IF)")
+    f2e = mesh.facet2el_np[f.np]
+    check(bool(((f2e >= 0).all(1) & hn.np[f2e].all(1) & hi.np[f2e].any(1)).all()),
+          "a marked facet is not between HASNEG and IF elements")
+    return counts, f.NumSet()
+
+
+def quad_flagship(device, model, struct, V32):
+    """Phase 10: the quadrature path of the flagship at nx=48 against the
+    lattice DIA operator, its rhs against Integrate, solve() in f32, and the
+    order-2 symmetry probe at nx=24.  Returns what phase 10 prints."""
+    import ngsxfem_tpu_torch as T
+    from ngsxfem_tpu_torch.models.poisson import UnfittedPoisson
+    from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
+
+    out = {}
+    offs = struct["offsets"]
+    perm = torch.as_tensor(struct["perm"], device=device)
+    perm_inv = torch.as_tensor(struct["perm_inv"], device=device)
+    v64 = torch.as_tensor(model.mesh.vertices_np, dtype=torch.float64, device=device)
+    l64 = torch.as_tensor(model.lset_np, dtype=torch.float64, device=device)
+    V64, _ = model.assemble_vals_lattice(v64, l64, struct)
+    xr = np.random.default_rng(12).standard_normal(model.ndof)
+    for dt, (v, l, V) in ((torch.float64, (v64, l64, V64)),
+                          (torch.float32, (model.vertices, model.lset, V32))):
+        x = torch.as_tensor(xr, dtype=dt, device=device)
+        y = model.apply(v, l, x)
+        yd = dia_matvec(offs, V, x[perm_inv])[perm]
+        rel = float(torch.linalg.vector_norm(y - yd) / torch.linalg.vector_norm(yd))
+        check(rel <= QUAD_OP_TOL[dt], f"quadrature vs DIA operator {dt}: rel {rel}")
+        out[f"op_{str(dt)[6:]}"] = rel
+
+    # rhs: sum and a random projection against Integrate over NEG
+    one = lambda p: torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
+    b = model.rhs(v64, l64, one)
+    mesh = model.mesh
+    lset = T.GridFunction(T.H1(mesh, order=1, device=device))
+    lset.vec.data = l64[torch.as_tensor(model.p1dof2vertex, device=device)]
+    ld = {"levelset": lset, "domain_type": T.NEG}
+    vol = T.Integrate(ld, 1.0, mesh, order=5)
+    u = T.GridFunction(T.H1(mesh, order=1, device=device))
+    u.vec.data = torch.as_tensor(xr, device=device)
+    proj = T.Integrate(ld, u, mesh, order=5)
+    out["rhs_sum"] = (float(b.sum()), vol)
+    out["rhs_proj"] = (float(b @ u.vec.data), proj)
+    check(abs(float(b.sum()) - vol) <= 1e-12 * vol, f"sum(rhs) {float(b.sum())} vs {vol}")
+    check(abs(float(b @ u.vec.data) - proj) <= 1e-12 * abs(b).sum().item(),
+          f"x.rhs {float(b @ u.vec.data)} vs Integrate(NEG, u_x) {proj}")
+
+    # solve() in f32 with its defaults; its recursion residual against the
+    # true residual of x in f64 on the f64 operator
+    t0 = time.perf_counter()
+    x, k, res = model.solve()
+    sync(device)
+    out["solve_s"] = time.perf_counter() - t0
+    check(bool(torch.isfinite(x).all()), "solve(): non-finite x")
+    b32 = model.rhs(model.vertices, model.lset, one)
+    true64 = float(torch.linalg.vector_norm(
+        b32.double() - model.apply(v64, l64, x.double())))
+    out["solve"] = (k, float(res), true64, float(torch.linalg.vector_norm(b32)))
+    check(abs(float(res) - true64) <= 1e-2 * true64,
+          f"solve(): recursion residual {float(res)} vs true f64 {true64}")
+
+    # order 2: symmetry of the f32 operator (bench.py:651-656), the dots
+    # accumulated in f64 as krylov._vdot does (an f32 dot alone gives ~5e-7)
+    m2 = UnfittedPoisson(nx=ORDER2_NX, dim=3, order=2, dtype=torch.float32,
+                         device=device)
+    op = m2.operator(m2.vertices, m2.lset)
+    uu = torch.cos(torch.arange(m2.ndof, dtype=torch.float32, device=device))
+    vv = torch.sin(torch.arange(m2.ndof, dtype=torch.float32, device=device))
+    dot = lambda a, b: float(torch.dot(a.double(), b.double()))
+    uav, vau = dot(uu, op(vv)), dot(vv, op(uu))
+    sym = abs(uav - vau) / max(abs(uav), 1e-30)
+    check(sym <= 1e-6, f"order-2 symmetry probe {sym}")
+    out["sym2"] = (m2.ndof, sym)
+    return out
+
+
+def peak_gib(device):
+    """Peak device memory since the last call, in GiB (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0.0
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    torch.cuda.reset_peak_memory_stats(device)
+    return peak
+
+
+def profiled(fn):
+    """(median ms by CUDA events, device kernels, device busy ms, idle share,
+    the three kernels with the most device time) of one call of `fn`."""
+    ms = time_ms(fn)
+    kern, wall = device_kernels(fn, 1)
+    busy = sum(us for _, us in kern.values()) / 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:3]
+    return (ms, sum(c for c, _ in kern.values()), busy, 1 - busy / wall,
+            "; ".join(f"{k[:50]} x{c} {us / 1e3:.3f} ms" for k, (c, us) in top))
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -709,6 +1023,99 @@ def main():
           f"{1 - mg_busy / mg_wall:.3f}); top kernels by device time: "
           + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for k, (c, us) in mg_top),
           flush=True)
+
+    # 9. general cut quadrature and Integrate on the card (f64)
+    import ngsxfem_tpu_torch as T
+
+    del ell
+    torch.cuda.synchronize()
+    peak_gib(dev)
+    t0 = time.perf_counter()
+    n_exact, worst_exact = cut_exactness(dev)
+    exact_s = time.perf_counter() - t0
+    print(f"[9 exactness] {n_exact} cases of the reference suite (segm/trig/"
+          f"quad/tet/hex, orders 2-8, NEG/POS/IF, eps-challenges, TPMC, the "
+          f"plane on 256 x 256 trig and quad meshes): worst error / bound "
+          f"{worst_exact:.3e}, peak memory {peak_gib(dev):.2f} GiB, wall "
+          f"{exact_s:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    rows, (mesh64, lset64) = sphere_levels(dev)
+    for et, nxs, err, eoc, peak in rows:
+        print(f"[9 sphere] {et} nx={list(nxs)} order 4: NEG volume errors "
+              + ", ".join(f"{e:.3e}" for e in err["NEG"])
+              + f" (EOC {eoc['NEG']:.3f}), IF area errors "
+              + ", ".join(f"{e:.3e}" for e in err["IF"])
+              + f" (EOC {eoc['IF']:.3f}); NEG + POS = 1 and element_wise sums "
+              f"to 1e-12; peak memory {peak:.2f} GiB", flush=True)
+    lset64_32 = T.GridFunction(lset64.space, dtype=torch.float32)
+    lset64_32.vec.data = lset64.vec.data
+    f32_rel = {}
+    for dt in ("NEG", "IF"):
+        a64 = T.Integrate({"levelset": lset64, "domain_type": getattr(T, dt)},
+                          1.0, mesh64, order=4)
+        a32 = T.Integrate({"levelset": lset64_32, "domain_type": getattr(T, dt)},
+                          1.0, mesh64, order=4)
+        f32_rel[dt] = abs(a32 - a64) / a64
+        check(f32_rel[dt] <= 1e-5, f"f32 vs f64 {dt} at tets nx=64: {f32_rel[dt]}")
+    mesh = T.MakeStructured2DMesh(quads=False, nx=32, ny=32)
+    lsetp1 = T.GridFunction(T.H1(mesh, order=1))
+    T.InterpolateToP1(T.sqrt(T.x * T.x + T.y * T.y) - 0.5, lsetp1)
+    area = T.Integrate({"levelset": lsetp1, "domain_type": T.NEG},
+                       T.CoefficientFunction(1.0), mesh, order=4)
+    check(abs(area - np.pi / 16) < 1e-3 and lsetp1.vec.data.is_cuda,
+          f"Quick start area {area}")
+    peaks = {"f32 vs f64 and Quick start": peak_gib(dev)}
+    grad, fd = autograd_check(dev)
+    peaks["autograd"] = peak_gib(dev)
+    counts, nfacets = cutinfo_check(mesh64, lset64)
+    peaks["CutInfo"] = peak_gib(dev)
+    sphere_s = time.perf_counter() - t0
+    print(f"[9 integrate] tets nx=64 ({mesh64.ne} elements): f32 vs f64 rel "
+          f"NEG {f32_rel['NEG']:.3e} IF {f32_rel['IF']:.3e}; Quick start area "
+          f"{area:.12f} (pi/16 = {np.pi / 16:.12f}); autograd dV/dr at r=0.31 "
+          f"{grad:.10f} vs central difference {fd:.10f} (4 pi r^2 = "
+          f"{4 * np.pi * 0.31 ** 2:.6f}); CutInfo NEG/POS/IF {counts} = host "
+          f"count, {nfacets} facets between HASNEG and IF; peak memory GiB "
+          + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+          + f"; wall {sphere_s:.2f} s", flush=True)
+
+    # 10. the quadrature path of the flagship at nx=48
+    t0 = time.perf_counter()
+    q = quad_flagship(dev, model, struct, V)
+    k, res, true64, bn = q["solve"]
+    print(f"[10 quad flagship] nx={NX}: apply vs DIA operator rel f64 "
+          f"{q['op_float64']:.3e} f32 {q['op_float32']:.3e}; sum(rhs) "
+          f"{q['rhs_sum'][0]:.15f} vs Integrate(NEG, 1) {q['rhs_sum'][1]:.15f}; "
+          f"x.rhs {q['rhs_proj'][0]:.12e} vs Integrate(NEG, u_x) "
+          f"{q['rhs_proj'][1]:.12e}; solve() f32: {k} iterations, recursion "
+          f"res {res:.4e} vs true f64 res {true64:.4e} (||b|| {bn:.4e}), "
+          f"{q['solve_s']:.2f} s; order 2 nx=24 ({q['sym2'][0]} dofs) f32 "
+          f"symmetry {q['sym2'][1]:.3e}; peak memory {peak_gib(dev):.2f} "
+          f"GiB; wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 11. times on the card
+    timed = []
+    for dt, gf in (("f64", lset64), ("f32", lset64_32)):
+        for dom in ("NEG", "IF"):
+            ld = {"levelset": gf, "domain_type": getattr(T, dom)}
+            timed.append((f"Integrate {dom} order 4 tets nx=64 {dt}",
+                          profiled(lambda ld=ld: T.Integrate(ld, 1.0, mesh64,
+                                                             order=4))))
+    timed.append(("CutInfo tets nx=64 f64",
+                  profiled(lambda: T.CutInfo(mesh64, lset64))))
+    timed.append((f"UnfittedPoisson.elmats nx={NX} f32", profiled(
+        lambda: model.elmats(model.vertices, model.lset))))
+    xa = torch.ones(model.ndof, dtype=torch.float32, device=dev)
+    timed.append((f"UnfittedPoisson.apply nx={NX} f32", profiled(
+        lambda: model.apply(model.vertices, model.lset, xa))))
+    mv = model.operator(model.vertices, model.lset)
+    timed.append((f"operator matvec alone nx={NX} f32", profiled(lambda: mv(xa))))
+    timed.append((f"UnfittedPoisson.solve() nx={NX} f32", profiled(model.solve)))
+    for name, (ms, nk, busy, idle, top) in timed:
+        print(f"[11 times] {card()} | {name}: {ms:.3f} ms (median of 5), "
+              f"{nk} device kernels, device busy {busy:.3f} ms, idle share "
+              f"{idle:.3f}; top: {top}", flush=True)
+    print(f"[11 times] peak memory {peak_gib(dev):.2f} GiB", flush=True)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{

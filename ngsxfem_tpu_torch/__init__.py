@@ -6,15 +6,33 @@ which stays the reference the port is tested against.  This package imports
 every entry point that makes tensors runs on the first CUDA card unless it
 is given ``device="cpu"``.
 
-Two slices of the flagship 3D fictitious-domain Poisson are ported:
+Ported so far: the flagship 3D fictitious-domain Poisson
 ``UnfittedPoisson`` (host setup, lattice assembly into a DIA table, one-pass
-assembly into an ELL table), the DIA operator and the fused Jacobi-PCG
+assembly into an ELL table, the quadrature-assembled ``elmats``/``apply``/
+``rhs``/``solve``), the DIA operator and the fused Jacobi-PCG
 ``dia_cg_fused``, the ELL operator ``ELLMatrix`` (product ``ell_matvec``),
-the Krylov solvers and the functional cut multigrid ``FunctionalELLMG``.
+the Krylov solvers, the functional cut multigrid ``FunctionalELLMG``, and
+general straight-cut quadrature: meshes, ``H1``, CoefficientFunctions, P1
+level-set ``GridFunction``s, ``CutInfo`` and ``Integrate`` — enough that
+``from ngsxfem_tpu_torch import *`` runs the README's Quick start.
 ``dia_cg_fused`` and ``ell_matvec`` run hand-written CUDA kernels for
 Hopper on CUDA tensors.
 """
 from .config import config
+from .domaintype import (DOMAIN_TYPE, COMBINED_DOMAIN_TYPE, NEG, POS, IF,
+                         CDOM_NO, CDOM_NEG, CDOM_POS, UNCUT, HASNEG, HASPOS,
+                         ANY)
+from .mesh.structured import (Make1DMesh, MakeStructured2DMesh,
+                              MakeStructured3DMesh)
+from .fem.space import BitArray, H1
+from .fem.gridfunction import GridFunction, InterpolateToP1, grad
+from .cf.coefficient import (CoefficientFunction, Parameter, IfPos, Norm, x,
+                             y, z, sin, cos, tan, exp, log, sqrt, atan, sinh,
+                             cosh, fabs, floor, ceil, specialcf)
+from .integrate import Integrate, Integrate_X_special_args
+from .geom.cutinfo import (CutInfo, GetFacetsWithNeighborTypes,
+                           GetElementsWithNeighborFacets, GetDofsOfFacets,
+                           IndicatorCF, CutRatioGF, BitArrayCF)
 from .models.poisson import UnfittedPoisson
 from .solvers.sparse import DIAMatrix, ELLMatrix, SparseMatrix, dia_matvec
 from .solvers.ell_spmv import ell_matvec, ell_matvec_plain
@@ -22,7 +40,19 @@ from .solvers.krylov import CGSolver, cg, cg_ir, jacobi_preconditioner
 from .solvers.dia_cg import dia_cg_fused, dia_cg_fused_plain
 from .solvers.mg import FunctionalELLMG
 
-__all__ = ["config", "UnfittedPoisson", "DIAMatrix", "ELLMatrix",
+FIRST, OPTIMAL, FALLBACK = "FIRST", "OPTIMAL", "FALLBACK"
+
+__all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
+           "IF", "CDOM_NO", "CDOM_NEG", "CDOM_POS", "UNCUT", "HASNEG",
+           "HASPOS", "ANY", "FIRST", "OPTIMAL", "FALLBACK", "Make1DMesh",
+           "MakeStructured2DMesh", "MakeStructured3DMesh", "BitArray", "H1",
+           "GridFunction", "InterpolateToP1", "grad", "CoefficientFunction",
+           "Parameter", "IfPos", "Norm", "x", "y", "z", "sin", "cos", "tan",
+           "exp", "log", "sqrt", "atan", "sinh", "cosh", "fabs", "floor",
+           "ceil", "specialcf", "Integrate", "Integrate_X_special_args",
+           "CutInfo", "GetFacetsWithNeighborTypes",
+           "GetElementsWithNeighborFacets", "GetDofsOfFacets", "IndicatorCF",
+           "CutRatioGF", "BitArrayCF", "UnfittedPoisson", "DIAMatrix", "ELLMatrix",
            "SparseMatrix", "dia_matvec", "ell_matvec", "ell_matvec_plain",
            "CGSolver", "cg", "cg_ir", "jacobi_preconditioner", "dia_cg_fused",
            "dia_cg_fused_plain", "FunctionalELLMG"]

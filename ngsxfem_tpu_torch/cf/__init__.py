@@ -1,0 +1,1 @@
+"""cf of ngsxfem_tpu_torch (see the package docstring)."""

@@ -20,9 +20,10 @@ class _Config:
     """Mutable global defaults."""
 
     def __init__(self):
-        # floating dtype of the flagship model when none is given (the
-        # reference's UnfittedPoisson defaults to float32 as well)
-        self.dtype = torch.float32
+        # floating dtype of geometry, quadrature and dof vectors when none is
+        # given: float64, as the reference package runs with x64 on; the
+        # flagship UnfittedPoisson asks for float32 in its own signature
+        self.dtype = torch.float64
         # ABSOLUTE epsilon used to snap near-zero level-set vertex values to
         # +eps (sign-collapsing, exactly like the reference guard:
         # straightcutrule.cpp:553-554, spacetimecutrule.cpp:132)

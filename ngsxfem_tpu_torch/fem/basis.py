@@ -1,9 +1,10 @@
 """Nodal Lagrange bases (host tables).
 
-Counterpart of ``ngsxfem_tpu/fem/basis.py:27,63,99,116``: the
-monomial-coefficient matrix per (element type, order),
-``shape_i(p) = sum_m mono_m(p) * C[m, i]``, with classical equispaced
-Lagrange nodes, and its evaluation on numpy arrays or tensors.
+Counterpart of ``ngsxfem_tpu/fem/basis.py``: the monomial-coefficient
+matrix per (element type, order), ``shape_i(p) = sum_m mono_m(p) * C[m, i]``,
+with classical equispaced Lagrange nodes, its evaluation on numpy arrays or
+tensors, the reference gradients ``dshapes`` (tensors) and the facet node
+sets.
 """
 from __future__ import annotations
 
@@ -88,5 +89,59 @@ def shapes(et: str, order: int, pts):
     return mono @ C
 
 
+def eval_dmonomials(exps, pts, axis: int):
+    """d(mono)/d(pts[axis]) (..., nm) at tensor pts (..., d)."""
+    nm, d = exps.shape
+    cols = []
+    for m in range(nm):
+        e_ax = int(exps[m, axis])
+        if e_ax == 0:
+            cols.append(torch.zeros(pts.shape[:-1], dtype=pts.dtype,
+                                    device=pts.device))
+            continue
+        v = torch.full(pts.shape[:-1], float(e_ax), dtype=pts.dtype,
+                       device=pts.device)
+        for j in range(d):
+            e = int(exps[m, j]) - (1 if j == axis else 0)
+            if e > 0:
+                v = v * pts[..., j] ** e
+        cols.append(v)
+    return torch.stack(cols, dim=-1)
+
+
+def dshapes(et: str, order: int, pts):
+    """Reference gradients at tensor pts (..., d) -> (..., nd, d)."""
+    b = lagrange_element(et, order)
+    C = torch.as_tensor(b["coeff"], dtype=pts.dtype, device=pts.device)
+    d = pts.shape[-1]
+    grads = [eval_dmonomials(b["exps"], pts, ax) @ C for ax in range(d)]
+    return torch.stack(grads, dim=-1)
+
+
 def ndof_el(et: str, order: int) -> int:
     return lagrange_element(et, order)["nodes"].shape[0]
+
+
+def facet_local_nodes(et: str, order: int, interior_only: bool = False):
+    """Per local facet: local Lagrange node ids belonging to the facet.
+
+    interior_only=False: the facet closure, nodes with no support on any
+    off-facet vertex.  interior_only=True: nodes supported on every facet
+    vertex as well, the NT_FACET dofs (NGSolve GetDofNrs(NodeId(NT_FACET,
+    f)) analog)."""
+    from ..mesh.mesh import FACET_VERTS, geom_shapes
+
+    b = lagrange_element(et, order)
+    N = geom_shapes(et, b["nodes"])  # (ndl, nv) host numpy
+    sup = N > 1e-9
+    out = []
+    for fvs in FACET_VERTS[et]:
+        mask = np.ones(len(N), dtype=bool)
+        for v in range(N.shape[1]):
+            if v in fvs:
+                if interior_only:
+                    mask &= sup[:, v]
+            else:
+                mask &= ~sup[:, v]
+        out.append(np.nonzero(mask)[0])
+    return out

@@ -1,0 +1,1 @@
+"""geom of ngsxfem_tpu_torch (see the package docstring)."""

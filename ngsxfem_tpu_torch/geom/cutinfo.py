@@ -1,0 +1,198 @@
+"""Cut topology bookkeeping — CutInfo and the facet/element/dof set algebra.
+
+Counterpart of ``ngsxfem_tpu/geom/cutinfo.py`` (reference: CutInformation,
+Update at ``xfem/cutinfo.cpp:54-188``; facet/dof algebra ``:191-329``):
+element and vertex classification and the cut ratios (from the order-0 cut
+rule on the cut elements) are batched tensor reductions on the device of
+the level set; the results, and all mark sets, are host numpy arrays
+(``BitArray``), as in the reference.  The space-time branch is not ported (ROADMAP A13).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..domaintype import NEG, POS, IF, as_cdt
+from ..fem.space import BitArray, _arr
+from ..cf.coefficient import ElementValuesCF, FacetValuesCF
+from ..ops.straightcut import cut_rule_element, eps_guard
+from ..integrate import ensure_p1_levelset, lset_vertex_values, _p1_vertex_dofs
+
+VOL = "VOL"
+BND = "BND"
+
+
+def _classify(et, vals):
+    """Eps-guard, sign classification and order-0 cut ratios of (E, nvel)
+    vertex values: (has_neg, has_pos, NEG ratio, guarded values).  The cut
+    rule runs on the cut elements only: on an uncut one it gives the ratio
+    exactly 1 (NEG) or 0 (POS)."""
+    vg = eps_guard(vals)
+    has_neg = (vg < 0).any(1)
+    has_pos = (vg > 0).any(1)
+    ratio = has_neg.to(vals.dtype)
+    cut = torch.nonzero(has_neg & has_pos)[:, 0]
+    rule = cut_rule_element(et, vals[cut], 0)
+    ratio[cut] = (rule.w * (rule.side == 0)).sum(1) / rule.w.sum(1)
+    return has_neg, has_pos, ratio, vg
+
+
+def _dt(has_neg, has_pos):
+    """Host int8 domain type per row from the device sign masks."""
+    has_neg, has_pos = has_neg.cpu().numpy(), has_pos.cpu().numpy()
+    return np.where(has_neg & has_pos, int(IF),
+                    np.where(has_neg, int(NEG), int(POS))).astype(np.int8)
+
+
+class CutInfo:
+    """Per-mesh cut bookkeeping (cf. xfem/cutinfo.hpp:21-92).  A level set
+    that is not a P1 GridFunction is interpolated to P1 on ``device`` (the
+    card unless the caller asks for the CPU)."""
+
+    def __init__(self, mesh, levelset=None, time_order=-1, device=None):
+        self.mesh = mesh
+        self.device = device
+        self.dt_of_elem = None
+        self.cut_ratio = None
+        if levelset is not None:
+            self.Update(levelset, time_order=time_order)
+
+    def Update(self, levelset, time_order=-1, heapsize=None):
+        if time_order >= 0:
+            raise NotImplementedError(
+                "space-time CutInfo is not ported yet (ROADMAP A13)")
+        mesh = self.mesh
+        levelset = ensure_p1_levelset(levelset, mesh, self.device)
+        self._lset_gf = levelset
+        has_neg, has_pos, ratio, vg = _classify(mesh.et,
+                                                lset_vertex_values(levelset))
+        self.dt_of_elem = _dt(has_neg, has_pos)
+        self.cut_ratio = ratio.cpu().numpy()
+
+        # vertex domain classification (dom_of_node analog, cutinfo.cpp:151-186)
+        els = mesh.device_view(vg.device, vg.dtype)[1].reshape(-1)
+        vneg = torch.zeros(mesh.nv, dtype=torch.int32, device=vg.device)
+        vpos = torch.zeros(mesh.nv, dtype=torch.int32, device=vg.device)
+        vneg.index_add_(0, els, (vg < 0).to(torch.int32).reshape(-1))
+        vpos.index_add_(0, els, (vg > 0).to(torch.int32).reshape(-1))
+        self.dt_of_vertex = _dt(vneg > 0, vpos > 0)
+
+        # facet classification from its elements (used by facet set queries)
+        f2e = mesh.facet2el_np
+        dtl = self.dt_of_elem[f2e[:, 0]]
+        dtr = np.where(f2e[:, 1] >= 0, self.dt_of_elem[np.maximum(f2e[:, 1], 0)], dtl)
+        bits_l = np.left_shift(1, dtl.astype(np.int32))
+        bits_r = np.left_shift(1, dtr.astype(np.int32))
+        self.cdt_of_facet = (bits_l | bits_r).astype(np.int8)
+
+        # boundary ("BND") element classification + ratios: the reference
+        # Update loops VOL and BND (xfem/cutinfo.cpp:54-188); BND elements are
+        # the boundary facets, classified by the codim-1 cut rule
+        self._update_bnd(levelset)
+
+    def _update_bnd(self, levelset):
+        from ..mesh.mesh import FACET_ET
+
+        mesh = self.mesh
+        bf = mesh.boundary_facets_np
+        if len(bf) == 0:
+            self.dt_of_belem = np.zeros(0, dtype=np.int8)
+            self.cut_ratio_bnd = np.zeros(0)
+            return
+        vdofs = _p1_vertex_dofs(levelset.space)
+        idx = torch.as_tensor(vdofs[mesh.facets_np[bf]], dtype=torch.int64,
+                              device=levelset.device)
+        has_neg, has_pos, ratio, _ = _classify(FACET_ET[mesh.et],
+                                               levelset.vec.data[idx])
+        self.dt_of_belem = _dt(has_neg, has_pos)
+        self.cut_ratio_bnd = ratio.cpu().numpy()
+
+    # -- queries -------------------------------------------------------------
+    def GetElementsOfType(self, dt=IF, VOL_or_BND=VOL) -> BitArray:
+        cdt = int(as_cdt(dt))
+        dts = self.dt_of_elem if VOL_or_BND == VOL else self.dt_of_belem
+        bits = np.left_shift(1, dts.astype(np.int32))
+        return BitArray((bits & cdt) == bits)
+
+    def GetFacetsOfType(self, dt=IF) -> BitArray:
+        cdt = int(as_cdt(dt))
+        # facet marked if its combined type is contained in the query mask
+        return BitArray((self.cdt_of_facet & ~cdt) == 0)
+
+    def GetCutRatios(self, VOL_or_BND=VOL):
+        return self.cut_ratio if VOL_or_BND == VOL else self.cut_ratio_bnd
+
+    def GetElementsWithThresholdContribution(self, dt=NEG, threshold=1.0):
+        r = self.cut_ratio if int(dt) == int(NEG) else 1.0 - self.cut_ratio
+        return BitArray(r >= threshold)
+
+
+# -- facet / element set algebra (cf. xfem/cutinfo.cpp:191-329) -------------
+
+
+def GetFacetsWithNeighborTypes(mesh, a, b=None, bnd_val_a=True, bnd_val_b=True,
+                               use_and=True, ngsxfemcompat=True) -> BitArray:
+    """Facets whose neighbor elements satisfy (a_left & b_right)|(b_left & a_right)
+    (or the OR-version with use_and=False)."""
+    a = _arr(a)
+    b = a if b is None else _arr(b)
+    f2e = mesh.facet2el_np
+    e1 = f2e[:, 0]
+    e2 = f2e[:, 1]
+    interior = e2 >= 0
+    a1 = a[e1]
+    b1 = b[e1]
+    a2 = np.where(interior, a[np.maximum(e2, 0)], bnd_val_a)
+    b2 = np.where(interior, b[np.maximum(e2, 0)], bnd_val_b)
+    if use_and:
+        return BitArray((a1 & b2) | (b1 & a2))
+    return BitArray((a1 | b2) & (b1 | a2))
+
+
+def GetElementsWithNeighborFacets(mesh, facets) -> BitArray:
+    f = _arr(facets)
+    out = np.zeros(mesh.ne, dtype=bool)
+    f2e = mesh.facet2el_np
+    sel = np.nonzero(f)[0]
+    for s in range(2):
+        es = f2e[sel, s]
+        out[es[es >= 0]] = True
+    return BitArray(out)
+
+
+def GetDofsOfFacets(space, facet_mask) -> BitArray:
+    """Dofs associated with marked facets (xfem/cutinfo.cpp:306-329): for
+    H1, the facet-interior Lagrange dofs (the NT_FACET node dofs, empty for
+    order 1 on simplices, as in NGSolve)."""
+    from ..fem.basis import facet_local_nodes
+
+    mask = _arr(facet_mask)
+    out = np.zeros(space.ndof, dtype=bool)
+    lfn = facet_local_nodes(space.mesh.et, space.order, interior_only=True)
+    m = space.mesh
+    fids = np.nonzero(mask)[0]
+    e = m.facet2el_np[fids, 0]
+    lf = m.facet2elloc_np[fids, 0]
+    for loc, ids in enumerate(lfn):
+        sel = lf == loc
+        if len(ids) and sel.any():
+            out[space.el2dof_np[e[sel]][:, ids].ravel()] = True
+    return BitArray(out)
+
+
+def IndicatorCF(mesh, ba, facets=False):
+    """1 on marked elements/facets else 0 (python/__init__.py:380)."""
+    vals = _arr(ba).astype(np.float64)
+    if facets:
+        return FacetValuesCF(vals, mesh)
+    return ElementValuesCF(vals, mesh)
+
+
+def CutRatioGF(cutinfo: CutInfo):
+    """Element-wise cut ratio CF (python/__init__.py:397)."""
+    return ElementValuesCF(cutinfo.cut_ratio, cutinfo.mesh)
+
+
+def BitArrayCF(ba, mesh=None):
+    """CF = 1 on marked elements else 0 (utils/bitarraycf.hpp:10-21)."""
+    return ElementValuesCF(_arr(ba).astype(np.float64), mesh)

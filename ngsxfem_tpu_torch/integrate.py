@@ -1,10 +1,32 @@
-"""Element-local node bookkeeping (the part of ``ngsxfem_tpu/integrate.py``
-the flagship needs)."""
+"""Numerical integration over implicit domains — the `Integrate` entry point.
+
+Counterpart of ``ngsxfem_tpu/integrate.py`` (the reference's ``IntegrateX``,
+``cutint/python_cutint.cpp:20-122``): instead of a per-element loop
+building one rule at a time, all elements of a tier get padded cut-rule
+tensors (ops/straightcut.py) and the integral is one batched
+evaluate-multiply-reduce, eagerly on the device of the level set.
+
+Two tiers, as in the reference's default path: elements that the level set
+does not cut take the element's standard rule, and only the cut elements
+(found exactly with ``torch.nonzero``) run the cut-rule construction.  Out of
+scope here, and raising ``NotImplementedError``: ``subdivlvl > 0`` and
+space-time integrals (``time_order >= 0``; ROADMAP A8b), and
+``deformation=`` (ROADMAP A11).
+"""
 from __future__ import annotations
 
-import numpy as np
+import warnings
 
+import numpy as np
+import torch
+
+from .config import config, resolve_device
+from .domaintype import DOMAIN_TYPE, NEG, POS, IF
+from .cf.coefficient import wrap
+from .cf.context import EvalCtx, eval_pure
 from .fem.basis import lagrange_element
+from .ops.gauss import reference_rule
+from .ops.straightcut import cut_rule_element, eps_guard
 
 
 def vertex_local_ids(et: str, order: int):
@@ -21,3 +43,232 @@ def vertex_local_ids(et: str, order: int):
         assert d[j] < 1e-12, "vertex node missing"
         ids.append(j)
     return np.array(ids, dtype=np.int32)
+
+
+def _is_p1(gf):
+    from .fem.gridfunction import GridFunction
+    from .fem.space import H1
+
+    return (isinstance(gf, GridFunction) and isinstance(gf.space, H1)
+            and gf.space.order == 1)
+
+
+def lset_vertex_values(lset_gf):
+    """Per-element level-set vertex values (E, nvel) from a P1 GridFunction."""
+    if not _is_p1(lset_gf):
+        raise TypeError(
+            "levelset must be a GridFunction on H1(order=1); "
+            "use InterpolateToP1 first (cf. reference CreateCutIntegrationRule)"
+        )
+    sp = lset_gf.space
+    vperm = torch.as_tensor(vertex_local_ids(sp.mesh.et, 1), dtype=torch.int64,
+                            device=lset_gf.device)
+    return lset_gf.vec.data[sp.el2dof_on(lset_gf.device)[:, vperm]]
+
+
+def _p1_vertex_dofs(space):
+    """vertex id -> P1 dof id (host numpy), cached on the space."""
+    vd = getattr(space, "_p1_vertex_dofs_np", None)
+    if vd is None:
+        vperm = vertex_local_ids(space.mesh.et, 1)
+        vd = np.zeros(space.mesh.nv, dtype=np.int32)
+        vd[space.mesh.elements_np] = space.el2dof_np[:, vperm]
+        space._p1_vertex_dofs_np = vd
+    return vd
+
+
+def ensure_p1_levelset(levelset, mesh, device=None):
+    """Route non-P1 level sets to the straight-cut path by interpolation.
+
+    The reference shortcut (``CF2GFForStraightCutRule``,
+    cutint/xintegration.cpp:91-103) requires a P1 GridFunction and otherwise
+    falls back to its legacy adaptive engine, which is not reproduced: a
+    CoefficientFunction level set is interpolated to P1 on ``device`` (with
+    a warning), the same geometry approximation as InterpolateToP1 + straight
+    cut.  A P1 GridFunction is returned as it is."""
+    if _is_p1(levelset):
+        return levelset
+    from .fem.gridfunction import GridFunction, InterpolateToP1
+    from .fem.space import H1
+
+    warnings.warn(
+        "level set is not a P1 GridFunction; interpolating to P1 for the "
+        "straight-cut rule (the reference would route to its legacy "
+        "adaptive engine here, cutint/xintegration.cpp:91-103, which is "
+        "not reproduced)", stacklevel=3)
+    gf = GridFunction(H1(mesh, order=1), device=resolve_device(device))
+    InterpolateToP1(levelset, gf)
+    return gf
+
+
+def normalize_levelset_domain(levelset_domain: dict):
+    ld = dict(levelset_domain)
+    ld.setdefault("subdivlvl", 0)
+    ld.setdefault("force_intorder", -1)
+    ld["quad_dir_policy"] = str(ld.get("quad_dir_policy", "OPTIMAL"))
+    if ld["quad_dir_policy"] not in ("FIRST", "OPTIMAL", "FALLBACK"):
+        raise ValueError(
+            f"unknown quad_dir_policy {ld['quad_dir_policy']!r}; "
+            "expected FIRST, OPTIMAL or FALLBACK"
+        )
+    lvl = int(ld["subdivlvl"])
+    if lvl < 0:
+        raise ValueError("subdivlvl must be >= 0")
+    ld["subdivlvl"] = lvl
+    return ld
+
+
+def _not_ported(subdivlvl=0, time_order=-1, deformation=None):
+    """Raise for the features of the reference's quadrature that the port
+    does not have yet."""
+    if subdivlvl > 0:
+        raise NotImplementedError(
+            "subdivlvl > 0 (subdivision quadrature) is not ported yet "
+            "(ROADMAP A8b)")
+    if time_order >= 0:
+        raise NotImplementedError(
+            "space-time integrals (time_order >= 0) are not ported yet "
+            "(ROADMAP A8b)")
+    if deformation is not None:
+        raise NotImplementedError(
+            "mesh deformations are not ported yet (ROADMAP A11)")
+
+
+def _rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if, nref,
+                      elem_ids=None):
+    """Rule tensors -> (ctx, physical weights, validity mask): IF rules get
+    the ``‖J⁻ᵀn_ref‖·|detJ|`` interface weighting, NEG/POS rules the side
+    selection x ``|detJ|``.  ``elem_ids`` restricts the rows to an element
+    subset."""
+    if dt == IF:
+        ctx = EvalCtx(mesh, pts_if, nref=nref, elem_ids=elem_ids)
+        w_ref = w_if
+        w_phys = w_ref * ctx.detJ.abs() * ctx.if_scale
+    else:
+        ctx = EvalCtx(mesh, pts, elem_ids=elem_ids)
+        w_ref = w * (side == int(dt)).to(w.dtype)
+        w_phys = w_ref * ctx.detJ.abs()
+    return ctx, w_phys, w_ref > 0
+
+
+def two_tier_tiers(mesh, lgf, dt, order, policy):
+    """Two-tier cut quadrature tiers [(ctx, w_phys (R,Q), mask, elem_ids)]:
+    the standard rule on the uncut elements of the requested side (NEG/POS
+    only), and the cut rule on the cut elements, each set taken exactly with
+    ``torch.nonzero``.  The cut-rule construction then scales with the
+    interface, not the volume."""
+    dt = int(dt)
+    if dt not in (int(NEG), int(POS), int(IF)):
+        raise ValueError(
+            f"two-tier cut quadrature supports NEG/POS/IF, got {dt}")
+    vals = eps_guard(lset_vertex_values(lgf))
+    has_neg = (vals < 0).any(1)
+    has_pos = (vals > 0).any(1)
+    tiers = []
+    if dt != int(IF):
+        sel = (has_neg & ~has_pos) if dt == int(NEG) else (has_pos & ~has_neg)
+        ids = torch.nonzero(sel)[:, 0]
+        rp, rw = reference_rule(mesh.et, order)
+        pts = torch.as_tensor(rp, dtype=vals.dtype, device=vals.device)[None]
+        ctx = EvalCtx(mesh, pts, elem_ids=ids)
+        w = torch.as_tensor(rw, dtype=vals.dtype, device=vals.device) \
+            * ctx.detJ.abs()
+        w = w.expand(len(ids), len(rw))
+        tiers.append((ctx, w, torch.ones_like(w, dtype=torch.bool), ids))
+    cut_ids = torch.nonzero(has_neg & has_pos)[:, 0]
+    rule = cut_rule_element(mesh.et, vals[cut_ids], order, policy)
+    tiers.append((*_rule_ctx_weights(mesh, dt, *rule, elem_ids=cut_ids),
+                  cut_ids))
+    return tiers
+
+
+def _two_tier_integrate(mesh, cf, lgf, dt, order, policy, ew):
+    """Two-tier cut integration of a CoefficientFunction over the tiers of
+    ``two_tier_tiers``: per-element sums (ne,) when ``ew``, else the 0-d
+    integral."""
+    tiers = two_tier_tiers(mesh, lgf, dt, order, policy)
+    total_e = torch.zeros(mesh.ne, dtype=lgf.dtype, device=lgf.device)
+    for ctx, w, mask, ids in tiers:
+        f = torch.broadcast_to(eval_pure(cf, ctx), w.shape)
+        total_e.index_add_(0, ids, (torch.where(mask, f, 0.0) * w).sum(1))
+    return total_e if ew else total_e.sum()
+
+
+def _cut_ctx_and_weights(mesh, lset_gf, domain_type, order, time_order=-1,
+                         quad_dir_policy="OPTIMAL", deformation=None,
+                         subdivlvl=0):
+    """(ctx, physical weights, validity mask) of the cut rule on every
+    element of the mesh (one tier; ``two_tier_tiers`` splits it)."""
+    _not_ported(subdivlvl, time_order, deformation)
+    dt = DOMAIN_TYPE(int(domain_type))
+    rule = cut_rule_element(mesh.et, lset_vertex_values(lset_gf), order,
+                            quad_dir_policy)
+    return _rule_ctx_weights(mesh, dt, *rule)
+
+
+def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
+              region_wise=False, element_wise=False, heapsize=None,
+              deformation=None, time_order=-1, device=None, **kwargs):
+    """Integrate `cf` over the mesh or an implicitly-defined subdomain.
+
+    Mirrors the reference Python API (``python/__init__.py:312-378``):
+      Integrate(levelset_domain={"levelset": lsetp1, "domain_type": NEG|POS|IF},
+                cf=f, mesh=mesh, order=k)
+    A non-dict first positional is the integrand (NGSolve-style
+    ``Integrate(cf, mesh)``).  Runs on the device of the level set's
+    GridFunction; with a CoefficientFunction level set, or no level set, on
+    ``device`` (the card unless the caller asks for the CPU).  Returns a
+    float, with ``element_wise`` a (ne,) tensor, with ``region_wise`` one
+    numpy value per material.
+    """
+    if levelset_domain is not None and not isinstance(levelset_domain, dict):
+        if cf is not None and mesh is None:
+            levelset_domain, cf, mesh = None, levelset_domain, cf
+        elif cf is None:
+            levelset_domain, cf = None, levelset_domain
+    if cf is None or mesh is None:
+        raise TypeError("Integrate needs cf and mesh")
+    if region_wise:
+        # per-material sums in material-id order, from the element_wise
+        # vector (the reference passes region_wise to NGSolve materials,
+        # python/__init__.py:358)
+        if element_wise:
+            raise ValueError(
+                "region_wise and element_wise are mutually exclusive")
+        element_wise = True
+    cf = wrap(cf)
+    if cf.has_proxy:
+        raise TypeError("cannot Integrate an expression containing trial/test functions")
+    if cf.dims != ():
+        raise TypeError("Integrate expects a scalar integrand")
+
+    if levelset_domain is None:
+        _not_ported(deformation=deformation)
+        dev = resolve_device(device)
+        rp, rw = reference_rule(mesh.et, order)
+        pts = torch.as_tensor(rp, dtype=config.dtype, device=dev)[None]
+        ctx = EvalCtx(mesh, pts)
+        w = torch.as_tensor(rw, dtype=config.dtype, device=dev) * ctx.detJ.abs()
+        f = torch.broadcast_to(eval_pure(cf, ctx), (mesh.ne, len(rw)))
+        out = (f * w).sum(1)
+        if not element_wise:
+            out = out.sum()
+    else:
+        ld = normalize_levelset_domain(levelset_domain)
+        time_order = ld.get("time_order", time_order)
+        _not_ported(ld["subdivlvl"], time_order, deformation)
+        o = order if ld["force_intorder"] < 0 else ld["force_intorder"]
+        lgf = ensure_p1_levelset(ld["levelset"], mesh, device)
+        out = _two_tier_integrate(mesh, cf, lgf, int(ld["domain_type"]), o,
+                                  ld["quad_dir_policy"], element_wise)
+    if region_wise:
+        ew = out.detach().cpu().numpy()
+        ids = mesh.mat_of_el_np
+        return np.array([float(ew[ids == i].sum())
+                         for i in mesh.material_ids()])
+    return out if element_wise else float(out)
+
+
+def Integrate_X_special_args(levelset_domain, cf, mesh, order=5, **kw):
+    """Reference-compat alias (python/__init__.py:281)."""
+    return Integrate(levelset_domain, cf, mesh, order=order, **kw)

@@ -1,14 +1,17 @@
-"""Structure-of-arrays meshes: host tables.
+"""Structure-of-arrays meshes: host tables and batched geometry maps.
 
-Counterpart of ``ngsxfem_tpu/mesh/mesh.py:73-240``, host part only.  A mesh
-is a set of flat numpy arrays (vertices ``(nv, d)``, element->vertex
-``(ne, nvel)``, facet->vertex, facet<->element adjacency) built once on the
-host.  It holds no tensor, so it takes no device: the models that run on a
-device make their own tensor views of these tables once.
+Counterpart of ``ngsxfem_tpu/mesh/mesh.py``.  A mesh is a set of flat numpy
+arrays (vertices ``(nv, d)``, element->vertex ``(ne, nvel)``, facet->vertex,
+facet<->element adjacency) built once on the host.  It takes no device:
+``device_view`` makes (once per device and dtype) the vertex and element
+tensors that the quadrature evaluates geometry from.  The geometry maps
+(``geom_shapes``, ``geom_dshapes``, ``map_points``, ``det_and_inv``) work on
+batched tensors; ``geom_shapes`` also on numpy arrays for host setup.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops.gauss import ET_DIM, ET_NVERT
 
@@ -28,6 +31,24 @@ FACET_VERTS = {
     ],
 }
 
+FACET_ET = {"segm": "point", "trig": "segm", "quad": "segm", "tet": "trig", "hex": "quad"}
+
+# local edges (1D sub-entities)
+EDGE_VERTS = {
+    "segm": [(0, 1)],
+    "trig": [(0, 1), (1, 2), (0, 2)],
+    "quad": [(0, 1), (1, 2), (2, 3), (0, 3)],
+    "tet": [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)],
+    "hex": [
+        (0, 1), (1, 2), (2, 3), (0, 3),
+        (4, 5), (5, 6), (6, 7), (4, 7),
+        (0, 4), (1, 5), (2, 6), (3, 7),
+    ],
+}
+
+# element types whose geometry map is affine (constant Jacobian)
+SIMPLICES = ("segm", "trig", "tet")
+
 
 class Mesh:
     """A single-element-type unstructured mesh held as flat host arrays."""
@@ -41,6 +62,25 @@ class Mesh:
         self.nv = self.vertices_np.shape[0]
         self.ne = self.elements_np.shape[0]
         self._build_facets()
+        # one material (id 1, as NGSolve numbers them) for every element
+        self.mat_of_el_np = np.ones(self.ne, dtype=np.int32)
+        self._views = {}
+
+    def material_ids(self):
+        """Ascending material ids of the elements."""
+        return sorted(int(i) for i in np.unique(self.mat_of_el_np))
+
+    def device_view(self, device, dtype):
+        """(vertices (nv, d) of ``dtype``, elements (ne, nvel) int64) on
+        ``device``, made once per device and dtype."""
+        key = (str(torch.device(device)), dtype)
+        view = self._views.get(key)
+        if view is None:
+            view = (torch.as_tensor(self.vertices_np, dtype=dtype, device=device),
+                    torch.as_tensor(self.elements_np, dtype=torch.int64,
+                                    device=device))
+            self._views[key] = view
+        return view
 
     def _build_facets(self):
         fv = np.array(FACET_VERTS[self.et], dtype=np.int32)  # (nfel, nvf)
@@ -86,24 +126,30 @@ class Mesh:
         return f"Mesh(et={self.et}, nv={self.nv}, ne={self.ne}, nfacets={self.nfacets})"
 
 
+def _stack(arrs, axis):
+    if torch.is_tensor(arrs[0]):
+        return torch.stack(arrs, dim=axis)
+    return np.stack(arrs, axis=axis)
+
+
 def geom_shapes(et: str, pts):
-    """Vertex shape functions N (..., nv) at reference points pts (..., d)
-    (host numpy; the reference's ``geom_shapes(..., xp=np)``)."""
+    """Vertex shape functions N (..., nv) at reference points pts (..., d),
+    on numpy arrays or tensors."""
     if et == "segm":
         x = pts[..., 0]
-        return np.stack([1 - x, x], axis=-1)
+        return _stack([1 - x, x], -1)
     if et == "trig":
         x, y = pts[..., 0], pts[..., 1]
-        return np.stack([1 - x - y, x, y], axis=-1)
+        return _stack([1 - x - y, x, y], -1)
     if et == "quad":
         x, y = pts[..., 0], pts[..., 1]
-        return np.stack([(1 - x) * (1 - y), x * (1 - y), x * y, (1 - x) * y], axis=-1)
+        return _stack([(1 - x) * (1 - y), x * (1 - y), x * y, (1 - x) * y], -1)
     if et == "tet":
         x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
-        return np.stack([1 - x - y - z, x, y, z], axis=-1)
+        return _stack([1 - x - y - z, x, y, z], -1)
     if et == "hex":
         x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
-        return np.stack(
+        return _stack(
             [
                 (1 - x) * (1 - y) * (1 - z),
                 x * (1 - y) * (1 - z),
@@ -114,6 +160,148 @@ def geom_shapes(et: str, pts):
                 x * y * z,
                 (1 - x) * y * z,
             ],
-            axis=-1,
+            -1,
         )
     raise ValueError(et)
+
+
+def geom_dshapes(et: str, pts):
+    """d(N)/d(ref) (..., nv, d) at reference points pts (..., d) (tensors)."""
+    if et in SIMPLICES:
+        d = ET_DIM[et]
+        # rows: vertex 0 -> -1 in every direction, vertex k -> e_{k-1}
+        g = torch.cat([-torch.ones(1, d, dtype=pts.dtype, device=pts.device),
+                       torch.eye(d, dtype=pts.dtype, device=pts.device)])
+        return g.expand(pts.shape[:-1] + (d + 1, d))
+    st = lambda a: torch.stack(a, -1)
+    if et == "quad":
+        x, y = pts[..., 0], pts[..., 1]
+        return torch.stack(
+            [
+                st([-(1 - y), -(1 - x)]),
+                st([(1 - y), -x]),
+                st([y, x]),
+                st([-y, (1 - x)]),
+            ],
+            dim=-2,
+        )
+    if et == "hex":
+        x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+        return torch.stack(
+            [
+                st([-(1 - y) * (1 - z), -(1 - x) * (1 - z), -(1 - x) * (1 - y)]),
+                st([(1 - y) * (1 - z), -x * (1 - z), -x * (1 - y)]),
+                st([y * (1 - z), x * (1 - z), -x * y]),
+                st([-y * (1 - z), (1 - x) * (1 - z), -(1 - x) * y]),
+                st([-(1 - y) * z, -(1 - x) * z, (1 - x) * (1 - y)]),
+                st([(1 - y) * z, -x * z, x * (1 - y)]),
+                st([y * z, x * z, x * y]),
+                st([-y * z, (1 - x) * z, (1 - x) * y]),
+            ],
+            dim=-2,
+        )
+    raise ValueError(et)
+
+
+def small_matmul(a, b):
+    """a @ b for a short contraction (k <= ~10), with broadcasting batch
+    dims, as k elementwise multiply-adds in order.  On the card a batched
+    matmul of millions of tiny matrices runs as a library GEMM/GEMV that
+    is many times slower than these memory-bound elementwise kernels."""
+    out = a[..., :, 0, None] * b[..., 0, None, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k, None] * b[..., k, None, :]
+    return out
+
+
+def _det(J):
+    d = J.shape[-1]
+    if d == 1:
+        return J[..., 0, 0]
+    if d == 2:
+        return J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+    if d == 3:
+        return (
+            J[..., 0, 0] * (J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1])
+            - J[..., 0, 1] * (J[..., 1, 0] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 0])
+            + J[..., 0, 2] * (J[..., 1, 0] * J[..., 2, 1] - J[..., 1, 1] * J[..., 2, 0])
+        )
+    raise ValueError(d)
+
+
+def _inv(J, detJ):
+    d = J.shape[-1]
+    if d == 1:
+        return 1.0 / J
+    st = lambda a: torch.stack(a, -1)
+    if d == 2:
+        a, b, c, dd = J[..., 0, 0], J[..., 0, 1], J[..., 1, 0], J[..., 1, 1]
+        inv = torch.stack([st([dd, -b]), st([-c, a])], dim=-2)
+        return inv / detJ[..., None, None]
+    if d == 3:
+        # adjugate / det
+        m = J
+        c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
+        c01 = m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2]
+        c02 = m[..., 0, 1] * m[..., 1, 2] - m[..., 0, 2] * m[..., 1, 1]
+        c10 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
+        c11 = m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0]
+        c12 = m[..., 0, 2] * m[..., 1, 0] - m[..., 0, 0] * m[..., 1, 2]
+        c20 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
+        c21 = m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1]
+        c22 = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+        adj = torch.stack([st([c00, c01, c02]), st([c10, c11, c12]),
+                           st([c20, c21, c22])], dim=-2)
+        return adj / detJ[..., None, None]
+    raise ValueError(d)
+
+
+def det_and_inv(J):
+    detJ = _det(J)
+    return detJ, _inv(J, detJ)
+
+
+def multilinear_grad(et: str, v, pts):
+    """Gradient (B, Q, d) of the bilinear (QUAD) / trilinear (HEX)
+    interpolant of corner values v (B, nv) at reference points pts
+    (B|1, Q, d), from its monomial coefficients
+    (straightcutrule.cpp:503-526 GetCoeffsFromVals)."""
+    if et == "quad":
+        v0, v1, v2, v3 = (v[:, i, None] for i in range(4))
+        c10, c01, c11 = v1 - v0, v3 - v0, v2 - v1 - v3 + v0
+        x, y = pts[..., 0], pts[..., 1]
+        return torch.stack([c10 + c11 * y, c01 + c11 * x], dim=-1)
+    v0, v1, v2, v3, v4, v5, v6, v7 = (v[:, i, None] for i in range(8))
+    c100, c010, c001 = v1 - v0, v3 - v0, v4 - v0
+    c110 = v2 - v1 - v3 + v0
+    c101 = v5 - v1 - v4 + v0
+    c011 = v7 - v3 - v4 + v0
+    c111 = v6 - v2 - v5 - v7 + v1 + v3 + v4 - v0
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    return torch.stack([c100 + c110 * y + c101 * z + c111 * y * z,
+                        c010 + c110 * x + c011 * z + c111 * x * z,
+                        c001 + c101 * x + c011 * y + c111 * x * y], dim=-1)
+
+
+def map_jacobian(et: str, elem_coords, ref_pts):
+    """J (E, Q, g, d) of the geometry map at ref_pts (E|1, Q, d); on
+    simplices, whose map is affine, once per element: (E, 1, g, d),
+    broadcasting against the point axis (the reference materializes it per
+    point).  QUAD/HEX rows come from ``multilinear_grad``, without an
+    (E, Q, nv, d) table of shape gradients."""
+    if et in SIMPLICES:
+        dN = geom_dshapes(et, ref_pts[..., :1, :])  # (E|1, 1, nv, d)
+        return small_matmul(elem_coords.transpose(-1, -2)[:, None], dN)
+    return torch.stack([multilinear_grad(et, elem_coords[:, :, g], ref_pts)
+                        for g in range(elem_coords.shape[-1])], dim=-2)
+
+
+def map_points(et: str, elem_coords, ref_pts):
+    """Map reference points to physical space.
+
+    elem_coords (E, nv, g) element vertex coordinates, ref_pts (E, Q, d), or
+    (1, Q, d) for one point set shared by all elements ->
+    (phys (E, Q, g), J as ``map_jacobian`` gives it).
+    """
+    phys = small_matmul(geom_shapes(et, ref_pts), elem_coords)  # (E, Q, g)
+    return phys, map_jacobian(et, elem_coords, ref_pts)

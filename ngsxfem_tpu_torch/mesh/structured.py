@@ -1,10 +1,11 @@
 """Structured mesh generators (host, numpy).
 
 Counterpart of ``ngsxfem_tpu/mesh/structured.py`` (``ngsolve.meshes``'
-``MakeStructured2DMesh`` / ``MakeStructured3DMesh``) without the ``mapping``
-and ``periodic`` options and the boundary-condition ids, which the flagship
-does not read.  Vertices are numbered lexicographically (x slowest), which
-is what the lattice assembly of ``models/poisson.py`` relies on.
+``Make1DMesh`` / ``MakeStructured2DMesh`` / ``MakeStructured3DMesh``, with
+the ``mapping`` of the unit box) without the ``periodic`` option and the
+boundary-condition ids, which nothing ported reads yet.  Vertices are
+numbered lexicographically (x slowest), which is what the lattice assembly
+of ``models/poisson.py`` relies on.
 """
 from __future__ import annotations
 
@@ -13,7 +14,21 @@ import numpy as np
 from .mesh import Mesh
 
 
-def MakeStructured2DMesh(quads=True, nx=10, ny=10):
+def _mapped(verts, mapping):
+    """Vertices mapped pointwise by ``mapping(x[, y[, z]]) -> tuple``."""
+    if mapping is None:
+        return verts
+    return np.array([np.atleast_1d(mapping(*v)) for v in verts],
+                    dtype=np.float64)
+
+
+def Make1DMesh(n: int, mapping=None):
+    verts = np.linspace(0.0, 1.0, n + 1)[:, None]
+    elems = np.stack([np.arange(n), np.arange(n) + 1], axis=1).astype(np.int32)
+    return Mesh("segm", _mapped(verts, mapping), elems)
+
+
+def MakeStructured2DMesh(quads=True, nx=10, ny=10, mapping=None):
     xs = np.linspace(0.0, 1.0, nx + 1)
     ys = np.linspace(0.0, 1.0, ny + 1)
     X, Y = np.meshgrid(xs, ys, indexing="ij")
@@ -32,10 +47,10 @@ def MakeStructured2DMesh(quads=True, nx=10, ny=10):
         t2 = np.stack([v00, v11, v01], axis=1)
         elems = np.concatenate([t1[:, None], t2[:, None]],
                                axis=1).reshape(-1, 3).astype(np.int32)
-    return Mesh("quad" if quads else "trig", verts, elems)
+    return Mesh("quad" if quads else "trig", _mapped(verts, mapping), elems)
 
 
-def MakeStructured3DMesh(hexes=True, nx=10, ny=10, nz=10):
+def MakeStructured3DMesh(hexes=True, nx=10, ny=10, nz=10, mapping=None):
     xs = np.linspace(0.0, 1.0, nx + 1)
     ys = np.linspace(0.0, 1.0, ny + 1)
     zs = np.linspace(0.0, 1.0, nz + 1)
@@ -60,4 +75,4 @@ def MakeStructured3DMesh(hexes=True, nx=10, ny=10, nz=10):
         kuhn = np.array([(0, 1, 2, 6), (0, 1, 5, 6), (0, 3, 2, 6),
                          (0, 3, 7, 6), (0, 4, 5, 6), (0, 4, 7, 6)])
         elems = c[:, kuhn].reshape(-1, 4).astype(np.int32)
-    return Mesh("hex" if hexes else "tet", verts, elems)
+    return Mesh("hex" if hexes else "tet", _mapped(verts, mapping), elems)

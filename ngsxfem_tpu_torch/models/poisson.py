@@ -3,16 +3,20 @@
 PyTorch counterpart of ``ngsxfem_tpu/models/poisson.py`` (the reference's
 ``py_tutorials/fictdom_ghostpen.py`` workload): level-set geometry, cut-cell
 stiffness on the NEG domain, Nitsche terms on the implicit boundary and
-facet-patch ghost penalty, assembled by the lattice path into a DIA table
-``V (n_off, n)`` in vertex-lexicographic numbering, or by the one-pass SoA
-path (``assemble_vals_soa1``) into an ELL value table ``(ndof, K)`` in dof
-numbering (``ell_structure``), the operator of the ELL solvers and the cut
-multigrid.
+facet-patch ghost penalty.  Three routes build the operator:
 
-The closed-form kernels work on lists of (E,)-shaped tensors, exactly as the
-reference's SoA kernels do, and run eagerly on whatever device the inputs
-live on.  Host index tables stay numpy; the model holds ``vertices`` and
-``lset`` as buffers on its device.
+- the lattice path (``assemble_vals_lattice``) into a DIA table
+  ``V (n_off, n)`` in vertex-lexicographic numbering, and the one-pass SoA
+  path (``assemble_vals_soa1``) into an ELL value table ``(ndof, K)`` in
+  dof numbering (``ell_structure``), both from the closed-form P1 kernels
+  ``cut_poisson_flat_soa``/``ghost_penalty_flat_soa``, which work on lists
+  of (E,)-shaped tensors as the reference's SoA kernels do;
+- the quadrature path: element matrices from cut quadrature rules
+  (``cut_poisson_elmats``, ``ghost_penalty_elmats``, any order), applied
+  matrix-free by ``apply`` and solved by ``solve``.
+
+Everything runs eagerly on the device of its inputs.  Host index tables stay
+numpy; the model holds ``vertices`` and ``lset`` as buffers on its device.
 """
 from __future__ import annotations
 
@@ -22,11 +26,115 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import config, resolve_device
-from ..ops.gauss import ET_DIM
-from ..fem.basis import ndof_el, lagrange_element
+from ..config import resolve_device
+from ..ops.gauss import ET_DIM, reference_rule
+from ..fem.basis import ndof_el, lagrange_element, shapes, dshapes
 from ..integrate import vertex_local_ids
-from ..ops.straightcut import eps_guard_list
+from ..mesh.mesh import map_points, det_and_inv, small_matmul
+from ..ops.straightcut import cut_rule_element, eps_guard, eps_guard_list
+
+
+def cut_poisson_elmats(et: str, order: int, coords, vals, lam_nitsche=20.0):
+    """Element matrices of the fictitious-domain Poisson operator.
+
+    coords (E, nv, d) element vertex coords, vals (E, nv) level-set values.
+    Returns (E, nd, nd): NEG-domain stiffness + symmetric Nitsche terms on the
+    zero set (the batched analog of SymbolicCutBFI volume+interface assembly,
+    reference xfem/symboliccutbfi.cpp:73-276).
+    """
+    d = ET_DIM[et]
+    rule = cut_rule_element(et, vals, 2 * order)
+
+    # NEG volume: grad u . grad v
+    _, J = map_points(et, coords, rule.pts)
+    detJ, Jinv = det_and_inv(J)
+    Gp = small_matmul(dshapes(et, order, rule.pts), Jinv)  # (E,Q,nd,d)
+    Wn = rule.w * (rule.side == 0) * detJ.abs()
+    A = torch.einsum("eq,eqig,eqjg->eij", Wn, Gp, Gp)
+
+    # interface Nitsche: -dn(u) v - dn(v) u + lam/h u v   (outward normal of NEG)
+    _, Ji = map_points(et, coords, rule.pts_if)
+    detJi, Jiinv = det_and_inv(Ji)
+    nphys = small_matmul(rule.nref[..., None, :], Jiinv)[..., 0, :]
+    nn = torch.linalg.vector_norm(nphys, dim=-1, keepdim=True)
+    nphys = nphys / torch.where(nn < 1e-30, 1.0, nn)
+    Wi = rule.w_if * detJi.abs() * nn[..., 0]
+    B = shapes(et, order, rule.pts_if)  # (E,Qi,nd)
+    Gip = small_matmul(dshapes(et, order, rule.pts_if), Jiinv)
+    dn = (Gip * nphys[:, :, None, :]).sum(-1)  # (E,Qi,nd)
+    # mesh size from element volume
+    h = detJ[:, :1].abs() ** (1.0 / d)  # (E,1)
+    lam = lam_nitsche * order * order / h[:, 0].clamp_min(1e-30)  # (E,)
+    # symmetric by construction: the Nitsche cross term is computed once and
+    # transposed, and the whole matrix is symmetrized
+    C = torch.einsum("eq,eqi,eqj->eij", Wi, dn, B)
+    A = A - C - C.transpose(1, 2)
+    A = A + torch.einsum("e,eq,eqi,eqj->eij", lam, Wi, B, B)
+    return 0.5 * (A + A.transpose(1, 2))
+
+
+def cut_poisson_rhs_elvecs(et: str, order: int, coords, vals, f_fn):
+    """Element load vectors  int_NEG f v  with f_fn(phys_pts)->values."""
+    rule = cut_rule_element(et, vals, 2 * order + ET_DIM[et])
+    phys, J = map_points(et, coords, rule.pts)
+    detJ, _ = det_and_inv(J)
+    Wn = rule.w * (rule.side == 0) * detJ.abs()
+    B = shapes(et, order, rule.pts)
+    return torch.einsum("eq,eq,eqi->ei", Wn, f_fn(phys), B)
+
+
+def _uncut_rule(et, order, coords):
+    """Standard rule of degree `order` on whole elements: (phys (E,Q,d),
+    |detJ| weights (E,Q), Jinv, reference points (1,Q,d))."""
+    rp, rw = reference_rule(et, order)
+    rp = torch.as_tensor(rp, dtype=coords.dtype, device=coords.device)[None]
+    rw = torch.as_tensor(rw, dtype=coords.dtype, device=coords.device)
+    phys, J = map_points(et, coords, rp)
+    detJ, Jinv = det_and_inv(J)
+    return phys, (rw * detJ.abs()).expand(phys.shape[:2]), Jinv, rp
+
+
+def ghost_penalty_elmats(et: str, order: int, coords1, coords2, gamma=0.1):
+    """Facet-patch ghost penalty  gamma/h^2 (u-u_other)(v-v_other)  per facet.
+
+    coords1/coords2 (F, nv, d): the two neighbor elements of each marked
+    facet.  Returns (F, 2nd, 2nd) on the stacked [self; other] dof axis (the
+    batched analog of SymbolicFacetPatchBFI, xfem/symboliccutbfi.cpp:1104-1413;
+    neighbor mapping is affine-exact for simplicial meshes).
+    """
+    d = ET_DIM[et]
+    rp, rw = reference_rule(et, 2 * order)
+    rp = torch.as_tensor(rp, dtype=coords1.dtype, device=coords1.device)
+    rw = torch.as_tensor(rw, dtype=coords1.dtype, device=coords1.device)
+    F, nq = coords1.shape[0], rp.shape[0]
+    base = rp[None].expand(F, nq, d)
+
+    def into_other(coords_from, coords_to, refpts):
+        phys, _ = map_points(et, coords_from, refpts)
+        c = torch.full((F, 1, d), 0.25 if et in ("trig", "tet") else 0.5,
+                       dtype=coords1.dtype, device=coords1.device)
+        cp, Jc = map_points(et, coords_to, c)
+        _, Jcinv = det_and_inv(Jc)
+        return small_matmul(phys - cp, Jcinv[:, 0].transpose(-1, -2)) + c
+
+    p12 = into_other(coords1, coords2, base)
+    p21 = into_other(coords2, coords1, base)
+
+    _, J1 = map_points(et, coords1, base)
+    _, J2 = map_points(et, coords2, base)
+    det1, _ = det_and_inv(J1)
+    det2, _ = det_and_inv(J2)
+    w = torch.cat([(det1.abs() * rw).expand(F, nq),
+                   (det2.abs() * rw).expand(F, nq)], dim=1)
+
+    B1 = torch.cat([shapes(et, order, base), shapes(et, order, p21)], dim=1)
+    B2 = torch.cat([shapes(et, order, p12), shapes(et, order, base)], dim=1)
+    Bj = torch.cat([B1, -B2], dim=2)  # (F, 2nq, 2nd): u - u_other
+
+    h = det1[:, :1].abs() ** (1.0 / d)
+    scale = gamma / (h[:, 0] ** 2).clamp_min(1e-30)
+    out = torch.einsum("f,fq,fqi,fqj->fij", scale, w, Bj, Bj)
+    return 0.5 * (out + out.transpose(1, 2))  # exact symmetry
 
 
 def _soa_corner_arrays(vertices, elements, lset_vertex=None):
@@ -339,14 +447,13 @@ class UnfittedPoisson(nn.Module):
     so a moved level set needs no rebuild.
     """
 
-    def __init__(self, nx=16, dim=3, order=1, dtype=None, lam_nitsche=20.0,
-                 gamma_gp=0.1, radius=0.4, *, device=None):
+    def __init__(self, nx=16, dim=3, order=1, dtype=torch.float32,
+                 lam_nitsche=20.0, gamma_gp=0.1, radius=0.4, *, device=None):
         super().__init__()
         from ..mesh.structured import MakeStructured2DMesh, MakeStructured3DMesh
         from ..fem.space import H1
 
         device = resolve_device(device)
-        dtype = config.dtype if dtype is None else dtype
         self.dim, self.order, self.dtype = dim, order, dtype
         self.nx = nx
         self.lam_nitsche, self.gamma_gp = lam_nitsche, gamma_gp
@@ -520,17 +627,122 @@ class UnfittedPoisson(nn.Module):
         }
 
     def gp_mats(self, vertices):
-        """Ghost-penalty patch matrices (F, 2nv, 2nv) of the frozen band, from
-        the closed-form ``ghost_penalty_flat_soa`` (the reference holds it
-        equal to its quadrature ``ghost_penalty_elmats`` to 1e-12,
-        tests/test_model_poisson.py:154-171); rows and columns in the
-        stacked [e2d[gp_e1]; e2d[gp_e2]] order of the gp slots."""
+        """Ghost-penalty patch matrices (F, 2nd, 2nd) of the frozen band,
+        rows and columns in the stacked [e2d[gp_e1]; e2d[gp_e2]] order of
+        the gp slots.  Order 1 takes the closed-form
+        ``ghost_penalty_flat_soa`` (the reference holds it equal to its
+        quadrature ``ghost_penalty_elmats`` to 1e-12,
+        tests/test_model_poisson.py:154-171), higher orders the quadrature."""
+        if self.order != 1:
+            dev = vertices.device
+            return ghost_penalty_elmats(
+                self.et, self.order,
+                vertices[self._index(self.elements[self.gp_e1], dev)],
+                vertices[self._index(self.elements[self.gp_e2], dev)],
+                self.gamma_gp)
         x1, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e1])
         x2, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e2])
         A = ghost_penalty_flat_soa(self.et, x1, x2, self.gamma_gp)
         n2 = len(A)
         return torch.stack([torch.stack([A[i][j] for j in range(n2)], -1)
                             for i in range(n2)], -2)
+
+    # -- the quadrature path -------------------------------------------------
+    def _tiers(self, lset_vertex):
+        """(eps-guarded element vertex values, ids of the uncut NEG
+        elements, ids of the cut elements), the sets taken exactly."""
+        dev = lset_vertex.device
+        vals = eps_guard(lset_vertex[self._index(self.elements, dev)])
+        has_neg = (vals < 0).any(1)
+        has_pos = (vals > 0).any(1)
+        return (vals, torch.nonzero(has_neg & ~has_pos)[:, 0],
+                torch.nonzero(has_neg & has_pos)[:, 0])
+
+    def elmats(self, vertices, lset_vertex):
+        """Element matrices (ne, nd, nd) of the cut operator from quadrature
+        rules, in two tiers: the standard rule's stiffness on uncut NEG
+        elements, ``cut_poisson_elmats`` on cut ones, zero on POS ones (the
+        reference builds the cut rule on every element; the result is the
+        same to rounding)."""
+        dev = vertices.device
+        coords = vertices[self._index(self.elements, dev)]
+        vals, neg, cut = self._tiers(lset_vertex)
+        A = torch.zeros((self.mesh.ne, self.nd, self.nd), dtype=vertices.dtype,
+                        device=dev)
+        _, W, Jinv, rp = _uncut_rule(self.et, max(2 * self.order - 2, 0),
+                                     coords[neg])
+        Gp = small_matmul(dshapes(self.et, self.order, rp), Jinv)
+        An = torch.einsum("eq,eqig,eqjg->eij", W, Gp, Gp)
+        A[neg] = 0.5 * (An + An.transpose(1, 2))
+        A[cut] = cut_poisson_elmats(self.et, self.order, coords[cut],
+                                    vals[cut], self.lam_nitsche)
+        return A
+
+    def _gp_dofs(self, dev):
+        """(F, 2nd) stacked dof map of the ghost-penalty facets."""
+        if not hasattr(self, "_gp_dmap"):
+            self._gp_dmap = np.concatenate([self.el2dof[self.gp_e1],
+                                            self.el2dof[self.gp_e2]], axis=1)
+        return self._index(self._gp_dmap, dev)
+
+    def operator(self, vertices, lset_vertex):
+        """The matrix-free operator x -> A x of the quadrature path: element
+        and ghost-penalty matrices built once, identity rows on the dofs
+        inactive under ``lset_vertex``, NaN once the ghost-penalty band of
+        ``lset_vertex`` leaves the frozen one (``_band_guard``)."""
+        dev = vertices.device
+        A = self.elmats(vertices, lset_vertex)
+        G = self.gp_mats(vertices)
+        e2d = self._index(self.el2dof, dev)
+        dmap = self._gp_dofs(dev)
+        act = self.active_dof_mask(lset_vertex)
+        guard = self._band_guard(lset_vertex, vertices.dtype)
+
+        def matvec(x):
+            y = torch.zeros_like(x)
+            # (A * x_e).sum(-1), not a batched matvec: on the card that is
+            # a library GEMV over 663,552 4x4 blocks at nx=48, 7x slower
+            y.index_add_(0, e2d.reshape(-1),
+                         (A * x[e2d][:, None, :]).sum(-1).reshape(-1))
+            y.index_add_(0, dmap.reshape(-1),
+                         (G * x[dmap][:, None, :]).sum(-1).reshape(-1))
+            return torch.where(act, y, x) * guard
+
+        return matvec
+
+    def apply(self, vertices, lset_vertex, x):
+        """Matrix-free A @ x (assemble-and-apply)."""
+        return self.operator(vertices, lset_vertex)(x)
+
+    def rhs(self, vertices, lset_vertex, f_fn):
+        """Load vector  int_NEG f v  on the active dofs, in two tiers like
+        ``elmats``: the standard rule of degree 2*order + d on uncut NEG
+        elements, ``cut_poisson_rhs_elvecs`` on cut ones."""
+        dev = vertices.device
+        coords = vertices[self._index(self.elements, dev)]
+        vals, neg, cut = self._tiers(lset_vertex)
+        phys, W, _, rp = _uncut_rule(self.et, 2 * self.order + self.dim,
+                                     coords[neg])
+        fn = torch.einsum("eq,eq,qi->ei", W, f_fn(phys),
+                          shapes(self.et, self.order, rp[0]))
+        fc = cut_poisson_rhs_elvecs(self.et, self.order, coords[cut],
+                                    vals[cut], f_fn)
+        e2d = self._index(self.el2dof, dev)
+        b = torch.zeros(self.ndof, dtype=vertices.dtype, device=dev)
+        b.index_add_(0, e2d[neg].reshape(-1), fn.reshape(-1))
+        b.index_add_(0, e2d[cut].reshape(-1), fc.reshape(-1))
+        return torch.where(self.active_dof_mask(lset_vertex), b, 0.0)
+
+    def solve(self, f_fn=None, maxiter=200, tol=1e-8):
+        """Assemble the quadrature path and solve with unpreconditioned CG:
+        returns (x, iterations, recursion residual norm)."""
+        from ..solvers.krylov import cg
+
+        f_fn = f_fn or (lambda p: torch.ones(p.shape[:-1], dtype=p.dtype,
+                                             device=p.device))
+        b = self.rhs(self.vertices, self.lset, f_fn)
+        return cg(self.operator(self.vertices, self.lset), b, maxiter=maxiter,
+                  tol=tol)
 
     def assemble_vals_soa1(self, vertices, lset_vertex, struct):
         """Fully SoA one-pass global assembly (P1 simplices only).

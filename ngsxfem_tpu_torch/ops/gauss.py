@@ -113,6 +113,7 @@ def reference_rule(et: str, order: int):
     return _RULES[et](int(max(order, 0)))
 
 
-# dimension and vertex count of each element type
+# dimension, simplex type and vertex count of each element type
 ET_DIM = {"point": 0, "segm": 1, "trig": 2, "quad": 2, "tet": 3, "hex": 3}
+SIMPLEX_OF_DIM = {0: "point", 1: "segm", 2: "trig", 3: "tet"}
 ET_NVERT = {"point": 1, "segm": 2, "trig": 3, "quad": 4, "tet": 4, "hex": 8}

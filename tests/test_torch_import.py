@@ -19,7 +19,18 @@ import ngsxfem_tpu_torch.solvers.ell_spmv
 import ngsxfem_tpu_torch.solvers.sparse
 import ngsxfem_tpu_torch.solvers.krylov
 import ngsxfem_tpu_torch.solvers.mg
+import ngsxfem_tpu_torch.ops.multilinear
+import ngsxfem_tpu_torch.geom.cutinfo
 import chip_smoke
+from ngsxfem_tpu_torch import *
+
+# the README's Quick start, on the CPU
+mesh = MakeStructured2DMesh(quads=False, nx=32, ny=32)
+lsetp1 = GridFunction(H1(mesh, order=1, device="cpu"))
+InterpolateToP1(sqrt(x*x + y*y) - 0.5, lsetp1)
+area = Integrate({"levelset": lsetp1, "domain_type": NEG},
+                 CoefficientFunction(1.0), mesh, order=4)
+assert abs(area - 0.19634954084936207) < 1e-3, area
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ngsxfem_tpu"))
 print(bad)
@@ -28,6 +39,8 @@ sys.exit(1 if bad else 0)
 
 
 def test_port_imports_no_jax():
+    """Importing the port, its modules and chip_smoke, and running the
+    Quick start on the CPU, loads no jax and no ngsxfem_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
