@@ -6,7 +6,7 @@
 The flagship is 3D fictitious-domain Poisson with Nitsche terms and
 facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
 117,649 dofs, float32).  Three paths run through it (and general cut
-quadrature, phase 9, beside it):
+quadrature, phase 9, beside it), and two more in phases 12-15:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -19,7 +19,15 @@ quadrature, phase 9, beside it):
   to 1e-8;
 - the quadrature path: ``UnfittedPoisson.elmats`` / ``apply`` / ``rhs`` /
   ``solve`` from cut quadrature rules (no hand-written kernel: no TPU
-  kernel lies on this path).
+  kernel lies on this path);
+- the lattice multigrid on the DIA path: ``LatticeDIAMG`` on the DIA tables
+  of nx = 12, 24, 48 as the preconditioner of ``krylov.cg`` (f32 and f64;
+  plain PyTorch: the reference has no TPU kernel there), and the flagship
+  in native f64;
+- the public API: ``examples.fictdom3d`` (the flagship written as a weak form
+  through ``BilinearForm``/``LinearForm``), solved by the host LU and by
+  ``a.mat.Inverse(freedofs, inverse="cg")``, which runs Jacobi-CG through the
+  ``ell_matvec`` kernel.
 
 Phases, one line each:
 
@@ -68,7 +76,30 @@ Phases, one line each:
 11. times of ``Integrate``, ``CutInfo``, ``elmats``, ``apply``, the
    operator's matvec and ``solve()`` with CUDA events and
    ``torch.profiler`` (device kernels, busy time, idle share), and the
-   peak memory of phases 9-11.
+   peak memory of phases 9-11;
+12. lattice multigrid on the DIA path: levels nx = 12, 24, 48 in f32 and
+   f64 (``prepare_safe``, which raises on a bad coarse inverse; its residual
+   <= 1e-3), MG-CG to rel res <= 1.5e-8 in <= 12 iterations (10 measured),
+   true f64 relative residual <= 1e-4 (f32) / 1e-7 (f64), fewer than half the
+   iterations of Jacobi-CG; the f32 table bitwise equal over five
+   assemblies; the hierarchy nx = 16, 32, 64 once;
+13. native f64: the f64 lattice table at nx=48 within 2e-5 max|V| of the f32
+   one and exactly symmetric, f64 Jacobi-PCG and ``cg_ir`` both to a true
+   relative residual <= 1e-10, solutions equal to 1e-8 relative;
+14. the public API, launch counters reset before it: ``examples.fictdom3d``
+   at nx = 8, 12, 24, 48 (nx=8 error < 0.06, EOC >= 1.75; nx=48 is built
+   once through ``examples.fictdom3d.system``), there the ELL kernel against
+   its plain version on the forms-assembled table (117,649 x 24, f64) with a
+   seeded x and the free-masked load, bitwise, and its time beside its
+   bound; the direct and the ``"cg"`` solve equal to 1e-8 with ``ell_spmv``
+   launches equal to the CG's products, ``a.mat`` symmetric to 1e-12, the
+   same three
+   integrators on ``UnfittedPoisson``'s mesh against its DIA operator on
+   active dofs (f64, rel <= 1e-12), ``examples.fictdom_ghostpen`` (nx=40) and
+   ``examples.cutfem`` (nx=30, L2 ~0.0188) within 1e-8 of their CPU runs;
+15. times of phases 12-14 with CUDA events and ``torch.profiler`` (device
+   kernels, busy time, idle share, kernels per MG-CG iteration) and their
+   peak memory.
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -98,8 +129,15 @@ MG_NX = (12, 24, 48)  # the cut-multigrid hierarchy of the ELL path
 MG_TOL, MG_MAXITER, MG_MAX_ITERS = 1e-8, 60, 16
 MG_TRUE_TOL = 1e-4    # true f64 relative residual of the f32 MG-CG solution
 ELL_DIA_TOL = 1e-5    # ELL vs DIA operator, f32
+LMG_NX, LMG_NX_BIG = (12, 24, 48), (16, 32, 64)   # lattice-MG hierarchies
+LMG_TOL, LMG_MAXITER, LMG_MAX_ITERS = 1e-8, 100, 12
+LMG_TRUE_TOL = {torch.float32: 1e-4, torch.float64: 1e-7}
+JACOBI_MAXITER = 3000
+F64_SOLVE_TOL = 1e-10   # true relative residual of the native-f64 solves
+API_NX = (8, 12, 24, 48)  # examples.fictdom3d levels (EOC over the last 3)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
+F64_FLOP_PER_S = 34e12      # H100 SXM, f64 outside the tensor cores
 
 
 def check(ok, what):
@@ -224,12 +262,14 @@ def per_call_ms(fn, calls):
     return start.elapsed_time(end) / calls
 
 
-def device_kernels(fn, calls):
-    """torch.profiler over `calls` calls of `fn` after a warm-up: ({kernel
-    name: (launches, device us)}, host wall ms of the window)."""
+def device_kernels(fn, calls, warm=True):
+    """torch.profiler over `calls` calls of `fn` after a warm-up (left out
+    with warm=False, for a caller that has just run `fn`): ({kernel name:
+    (launches, device us)}, host wall ms of the window)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -245,12 +285,12 @@ def device_kernels(fn, calls):
     return out, wall_ms
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of the bytes over HBM bandwidth and the f32 operations over
-    the f32 peak (H100 SXM data sheet)."""
+    the larger of the bytes over HBM bandwidth and the operations over the
+    peak rate of their type (f32 unless given; H100 SXM data sheet)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOP_PER_S * 1e3
+    tf = flops / flop_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -267,7 +307,7 @@ def ell_bound(n, K, ncols, itemsize):
     """B2: vals and int32 cols (n, K) and x read once, y written once; 2
     flops per slot."""
     return bound(n * K * (4 + itemsize) + ncols * itemsize + n * itemsize,
-                 2 * n * K)
+                 2 * n * K, F64_FLOP_PER_S if itemsize == 8 else F32_FLOP_PER_S)
 
 
 def ell_level(nx, device, model=None):
@@ -694,6 +734,298 @@ def quad_flagship(device, model, struct, V32):
     return out
 
 
+def lattice_level(model, struct, V):
+    """One level of the lattice multigrid, as bench.py builds it: offsets,
+    DIA table, active mask and interface mask (dofs of cut elements, active)
+    in vertex-lex order."""
+    from ngsxfem_tpu_torch.config import config
+
+    eps = config.lset_eps
+    ge = model.lset_np[model.mesh.elements_np]
+    ge = np.where(np.abs(ge) < eps, np.where(ge >= 0, eps, -eps), ge)
+    cut = (ge < 0).any(1) & (ge > 0).any(1)
+    ifd = np.zeros(model.ndof, bool)
+    ifd[model.space.el2dof_np[cut].ravel()] = True
+    pinv = struct["perm_inv"]
+    return {"nx": model.nx, "model": model, "struct": struct, "V": V,
+            "offsets": struct["offsets"], "act": model.active_dofs[pinv],
+            "if_mask": (ifd & model.active_dofs)[pinv]}
+
+
+def new_lattice_level(nx, device, dtype):
+    from ngsxfem_tpu_torch.models.poisson import UnfittedPoisson
+
+    model = UnfittedPoisson(nx=nx, dim=3, order=1, dtype=dtype, device=device)
+    struct = model.dia_structure()
+    V, _ = model.assemble_vals_lattice(model.vertices, model.lset, struct)
+    return lattice_level(model, struct, V)
+
+
+def lattice_mg(levels, dtype, device, jacobi=True):
+    """LatticeDIAMG on `levels` (coarse to fine) as the preconditioner of
+    krylov.cg to LMG_TOL, beside Jacobi-CG to the same tolerance.  Checks
+    the coarse inverse, the residuals and the iteration limits; returns the
+    numbers and the closures that phase 15 times."""
+    from ngsxfem_tpu_torch.solvers.krylov import cg
+    from ngsxfem_tpu_torch.solvers.latticemg import LatticeDIAMG
+    from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
+
+    nxs = [lv["nx"] for lv in levels]
+    mg = LatticeDIAMG([lv["offsets"] for lv in levels], [n + 1 for n in nxs],
+                      dim=3, active_masks=[lv["act"] for lv in levels],
+                      if_masks=[None] + [lv["if_mask"] for lv in levels[1:]])
+    params = mg.params([lv["V"] for lv in levels], dtype=dtype, device=device)
+    t0 = time.perf_counter()
+    pp = mg.prepare_safe(params)   # raises on a bad coarse inverse
+    sync(device)
+    prepare_s = time.perf_counter() - t0
+    label = f"lattice MG nx={nxs} {dtype}"
+    ainv_res = float(pp["ainv0_res"])
+    check(ainv_res <= 1e-3, f"{label}: coarse inverse residual {ainv_res}")
+    offs = levels[-1]["offsets"]
+    Vf = pp["vals"][-1]
+    b = torch.as_tensor(np.where(levels[-1]["act"], 1.0, 0.0), dtype=dtype,
+                        device=device)
+    bn = float(torch.linalg.vector_norm(b))
+    mv = lambda z: dia_matvec(offs, Vf, z)
+    mgcg = lambda: cg(mv, b, M=lambda r: mg.apply(pp, r),
+                      maxiter=LMG_MAXITER, tol=LMG_TOL)
+    x, k, res = mgcg()
+    check(float(res) <= 1.5 * LMG_TOL * bn,
+          f"{label}: MG-CG res {float(res)} > {1.5 * LMG_TOL * bn}")
+    check(k <= LMG_MAX_ITERS, f"{label}: MG-CG took {k} iterations")
+    r64 = b.double() - dia_matvec(offs, Vf.double(), x.double())
+    true_rel = float(torch.linalg.vector_norm(r64)) / bn
+    check(true_rel <= LMG_TRUE_TOL[dtype],
+          f"{label}: MG-CG true f64 rel res {true_rel}")
+    out = {"nxs": nxs, "dtype": dtype, "mg": mg, "params": params, "pp": pp,
+           "prepare_s": prepare_s, "ainv_res": ainv_res, "iters": k,
+           "rel": float(res) / bn, "true_rel": true_rel, "mgcg": mgcg,
+           "x": x, "n0": int(pp["ainv0"].shape[0])}
+    if jacobi:
+        k0 = int(np.searchsorted(offs, 0))
+        dinv = torch.where(Vf[k0].abs() > 1e-30, 1.0 / Vf[k0], 1.0)
+        jcg = lambda: cg(mv, b, M=lambda r: dinv * r, maxiter=JACOBI_MAXITER,
+                         tol=LMG_TOL)
+        _, kj, rj = jcg()
+        check(k < kj / 2, f"{label}: MG-CG {k} iterations, Jacobi-CG {kj}")
+        out.update(jacobi_iters=kj, jacobi_rel=float(rj) / bn, jcg=jcg)
+    return out
+
+
+def native_f64(device, V32, b32):
+    """Phase 13: the flagship in native f64 at nx=48.  Returns the model,
+    its table and what phase 15 times."""
+    from ngsxfem_tpu_torch.models.poisson import UnfittedPoisson
+    from ngsxfem_tpu_torch.solvers.krylov import cg, cg_ir
+    from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
+
+    model = UnfittedPoisson(nx=NX, dim=3, order=1, dtype=torch.float64,
+                            device=device)
+    struct = model.dia_structure()
+    V, ncut = model.assemble_vals_lattice(model.vertices, model.lset, struct)
+    offs = struct["offsets"]
+    check(V.dtype == torch.float64, f"f64 table has dtype {V.dtype}")
+    dv = float((V - V32.to(V.device).double()).abs().max() / V.abs().max())
+    check(dv <= 2e-5, f"f64 vs f32 lattice table: {dv} of max|V|")
+    check(is_symmetric(V, offs), "f64 DIA table is not exactly symmetric")
+    k0 = int(np.searchsorted(offs, 0))
+    b = b32.double()
+    bn = float(torch.linalg.vector_norm(b))
+    dinv = torch.where(V[k0].abs() > 1e-30, 1.0 / V[k0], 1.0)
+    mv64 = lambda v: dia_matvec(offs, V, v)
+    V32b = V.float()
+    dinv32 = dinv.float()
+    mv32 = lambda v: dia_matvec(offs, V32b, v)
+    pcg = lambda: cg(mv64, b, M=lambda r: dinv * r, maxiter=JACOBI_MAXITER,
+                     tol=1e-12)
+    ir = lambda: cg_ir(mv32, mv64, b, M=lambda r: dinv32 * r, outer=IR_OUTER,
+                       inner=IR_INNER)
+    x, k, _ = pcg()
+    pcg_rel = float(torch.linalg.vector_norm(b - mv64(x))) / bn
+    check(pcg_rel <= F64_SOLVE_TOL, f"f64 PCG true rel res {pcg_rel}")
+    x_ir, res_ir = ir()
+    ir_rel = float(res_ir) / bn
+    check(ir_rel <= F64_SOLVE_TOL, f"cg_ir true rel res {ir_rel}")
+    dx = float(torch.linalg.vector_norm(x - x_ir) / torch.linalg.vector_norm(x))
+    check(dx <= 1e-8, f"f64 PCG vs cg_ir solutions: rel {dx}")
+    return {"model": model, "struct": struct, "V": V, "ncut": int(ncut),
+            "dv": dv, "pcg_iters": k, "pcg_rel": pcg_rel, "ir_rel": ir_rel,
+            "dx": dx, "pcg": pcg, "ir": ir}
+
+
+def fictdom3d_forms(T, mesh, lset_values, lam, gamma, device):
+    """The flagship's three integrators and its load written as weak forms
+    on `mesh` with the P1 level set `lset_values` (one per vertex), as
+    examples/fictdom3d.py writes them.  Returns (a, f, free dofs), not yet
+    assembled."""
+    P1 = T.H1(mesh, order=1, device=device)
+    lsetp1 = T.GridFunction(P1)
+    from ngsxfem_tpu_torch.integrate import _p1_vertex_dofs
+
+    vec = np.zeros(P1.ndof)
+    vec[_p1_vertex_dofs(P1)] = lset_values
+    lsetp1.vec.data = vec
+    ci = T.CutInfo(mesh, lsetp1)
+    hasneg = ci.GetElementsOfType(T.HASNEG)
+    hasif = ci.GetElementsOfType(T.IF)
+    Vh = T.H1(mesh, order=1, dgjumps=True, device=device)
+    u, v = Vh.TnT()
+    h = T.specialcf.mesh_size
+    n = 1.0 / T.Norm(T.grad(lsetp1)) * T.grad(lsetp1)
+    neg = {"levelset": lsetp1, "domain_type": T.NEG}
+    iff = {"levelset": lsetp1, "domain_type": T.IF}
+    a = T.BilinearForm(Vh)
+    a += T.SymbolicBFI(neg, form=T.grad(u) * T.grad(v),
+                       definedonelements=hasneg)
+    a += T.SymbolicBFI(iff, form=-(T.grad(u) * n) * v - (T.grad(v) * n) * u
+                       + lam / h * u * v)
+    a += T.SymbolicFacetPatchBFI(
+        form=gamma / (h * h) * (u - u.Other()) * (v - v.Other()),
+        definedonelements=T.GetFacetsWithNeighborTypes(mesh, a=hasneg,
+                                                       b=hasif))
+    f = T.LinearForm(Vh)
+    f += T.SymbolicLFI(neg, form=T.CoefficientFunction(6.0) * v,
+                       definedonelements=hasneg)
+    return a, f, T.GetDofsOfElements(Vh, hasneg)
+
+
+def forms_vs_model(T, model, struct, V, device):
+    """The weak-form operator on the hand-written model's own mesh and level
+    set against the model's DIA operator, on active dofs, over three seeded
+    vectors (f64).  Returns (worst rel, the assembled form)."""
+    from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
+
+    a, _, _ = fictdom3d_forms(T, model.mesh, model.lset_np, model.lam_nitsche,
+                              model.gamma_gp, device)
+    a.Assemble()
+    act = model.active_dofs
+    perm, pinv = struct["perm"], struct["perm_inv"]
+    rng = np.random.default_rng(2028)
+    worst = 0.0
+    for _ in range(3):
+        xv = np.where(act, rng.standard_normal(model.ndof), 0.0)
+        y_forms = (a.mat * torch.as_tensor(xv, device=device)).cpu().numpy()
+        y_dia = dia_matvec(struct["offsets"], V, torch.as_tensor(
+            xv[pinv], dtype=V.dtype, device=V.device)).cpu().numpy()[perm]
+        worst = max(worst, float(np.linalg.norm((y_forms - y_dia)[act])
+                                 / np.linalg.norm(y_dia[act])))
+    return worst, a
+
+
+def public_api(T, device, model64, struct64, V64):
+    """Phase 14: the examples through BilinearForm/LinearForm.  Returns the
+    numbers of the phase and the closures that phase 15 times."""
+    from ngsxfem_tpu_torch.examples import cutfem, fictdom3d, fictdom_ghostpen
+    from ngsxfem_tpu_torch.solvers import ell_spmv, krylov
+
+    out = {}
+    errs = [fictdom3d.run(nx=nx, verbose=False, device=device)
+            for nx in API_NX[:-1]]
+
+    # nx = 48 step by step, as examples.fictdom3d.run does it, so that one
+    # assembled system serves the error, both solves and the kernel check
+    nx = API_NX[-1]
+    a, f, Vh, free, l2error = fictdom3d.system(nx=nx, device=device)
+    mesh = Vh.mesh
+    check(mesh.ne == 6 * nx**3 and mesh.nv == (nx + 1) ** 3,
+          f"fictdom3d mesh ne={mesh.ne} nv={mesh.nv}")
+    a.Assemble()
+    f.Assemble()
+    check(a.mat.vals.is_cuda == (device.type == "cuda")
+          and a.mat.vals.dtype == torch.float64, "a.mat is not f64 on the device")
+    S = a.mat.to_scipy()
+    asym = float(abs(S - S.T).max() / abs(S).max())
+    check(asym <= 1e-12, f"a.mat symmetry {asym} of its largest entry")
+    ell = a.mat.ell()
+    n, K = ell.vals.shape
+    out["K"], out["nrows"] = int(K), int(n)
+    if device.type == "cuda":
+        # kernel B2 against its plain version on the table, type and vectors
+        # this path gives it: f64, K=24, a seeded x and the free-masked load.
+        # These launches are not the path's own: the count is put back.
+        path_launches = ell_spmv.launches
+        rng = np.random.default_rng(2029)
+        xs = torch.as_tensor(rng.standard_normal(n), device=device)
+        fm = torch.as_tensor(free.np, device=device)
+        xf = torch.where(fm, f.vec.data, 0.0).contiguous()
+        out["ell_err"] = ell_kernel_vs_plain(
+            [(f"forms ELL nx={nx} seeded x", ell.vals, ell.cols, xs),
+             (f"forms ELL nx={nx} masked load", ell.vals, ell.cols, xf)])
+        out["spmv_ms"] = per_call_ms(
+            lambda: ell_spmv.ell_matvec(ell.vals, ell.cols, xs), 200)
+        kern, _ = device_kernels(
+            lambda: ell_spmv.ell_matvec(ell.vals, ell.cols, xs), 50)
+        hits = [v for k, v in kern.items() if "ell_spmv_kernel" in k]
+        out["spmv_dev_us"] = hits[0][1] / hits[0][0] if hits else None
+        out["spmv_plain_ms"] = per_call_ms(
+            lambda: ell_spmv.ell_matvec_plain(ell.vals, ell.cols, xs), 20)
+        out["spmv_bound"] = ell_bound(n, K, n, ell.vals.element_size())
+        ell_spmv.launches = path_launches
+    inv_lu = a.mat.Inverse(free)
+    t0 = time.perf_counter()
+    x_lu = inv_lu * f.vec.data        # factorizes on the host, then solves
+    sync(device)
+    out["lu_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inv_lu * f.vec.data               # the factors are kept
+    sync(device)
+    out["lu_again_s"] = time.perf_counter() - t0
+    gfu = T.GridFunction(Vh)
+    gfu.vec.data = x_lu
+    errs.append(l2error(gfu))
+    check(errs[0] < 0.06, f"fictdom3d nx={API_NX[0]} L2 error {errs[0]}")
+    eocs = [float(np.log2(errs[i] / errs[i + 1])) for i in range(1, len(errs) - 1)]
+    check(min(eocs) >= EOC_MIN, f"fictdom3d L2 errors {errs}: EOC {eocs}")
+    out["errs"], out["eocs"] = errs, eocs
+    before = ell_spmv.launches
+    counted = {"n": 0}
+    cg_orig = krylov.cg
+
+    def counting_cg(matvec, *args, **kw):
+        def mv(z):
+            counted["n"] += 1
+            return matvec(z)
+        res = cg_orig(mv, *args, **kw)
+        counted["iters"] = res[1]
+        return res
+
+    krylov.cg = counting_cg
+    try:
+        x_cg = a.mat.Inverse(free, inverse="cg") * f.vec.data
+    finally:
+        krylov.cg = cg_orig
+    sync(device)
+    out["cg_launches"] = ell_spmv.launches - before
+    out["cg_iters"], out["cg_products"] = counted["iters"], counted["n"]
+    if device.type == "cuda":
+        check(out["cg_launches"] == counted["n"] > 0,
+              f"'cg' solve: {out['cg_launches']} ell_spmv launches for "
+              f"{counted['n']} products")
+    dsol = float(torch.linalg.vector_norm(x_cg - x_lu)
+                 / torch.linalg.vector_norm(x_lu))
+    check(dsol <= 1e-8, f"direct vs 'cg' solution: rel {dsol}")
+    out.update(asym=asym, dsol=dsol, nfree=free.NumSet(),
+               ntriplets=int(a.mat.vals.shape[0]), a=a, f=f, free=free)
+
+    # the same integrators on the hand-written model's mesh and level set
+    out["vs_model"], _ = forms_vs_model(T, model64, struct64, V64, device)
+    check(out["vs_model"] <= 1e-12,
+          f"forms operator vs UnfittedPoisson's DIA operator: {out['vs_model']}")
+
+    # the two 2D workloads, card against this host's CPU
+    for name, mod, kw in (("fictdom_ghostpen", fictdom_ghostpen, {"nx": 40}),
+                          ("cutfem", cutfem, {"nx": 30})):
+        e_dev = mod.run(verbose=False, device=device, **kw)
+        e_cpu = mod.run(verbose=False, device="cpu", **kw)
+        check(abs(e_dev - e_cpu) <= 1e-8 * e_cpu,
+              f"{name}: card {e_dev} vs CPU {e_cpu}")
+        out[name] = (e_dev, e_cpu)
+    check(abs(out["cutfem"][0] - 0.0188) < 5e-4,
+          f"cutfem L2 error {out['cutfem'][0]}")
+    return out
+
+
 def peak_gib(device):
     """Peak device memory since the last call, in GiB (0 on the CPU)."""
     if device.type != "cuda":
@@ -703,11 +1035,12 @@ def peak_gib(device):
     return peak
 
 
-def profiled(fn):
-    """(median ms by CUDA events, device kernels, device busy ms, idle share,
-    the three kernels with the most device time) of one call of `fn`."""
-    ms = time_ms(fn)
-    kern, wall = device_kernels(fn, 1)
+def profiled(fn, reps=5):
+    """(median ms by CUDA events over `reps` calls, device kernels, device
+    busy ms, idle share, the three kernels with the most device time) of one
+    call of `fn`."""
+    ms = time_ms(fn, reps)
+    kern, wall = device_kernels(fn, 1, warm=False)
     busy = sum(us for _, us in kern.values()) / 1e3
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:3]
     return (ms, sum(c for c, _ in kern.values()), busy, 1 - busy / wall,
@@ -725,6 +1058,7 @@ def main():
     from ngsxfem_tpu_torch.solvers.krylov import cg, cg_ir
     from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
 
+    t_start = time.perf_counter()
     gpu = card()
     dev = torch.device("cuda", 0)
     print(f"[1 env] {gpu} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -753,8 +1087,10 @@ def main():
     before = dia_cg.launches
     cases = []
     plans = []
+    kept = {}  # nx -> lattice level, reused by phase 12
     for nx in KERNEL_NX:
-        _, struct, V, _, b, dinv, _ = flagship(nx, dev)
+        m3, struct, V, _, b, dinv, _ = flagship(nx, dev)
+        kept[nx] = lattice_level(m3, struct, V)
         offs = struct["offsets"]
         cases += dia_kernel_vs_plain(f"nx={nx}", offs, V, b, dinv, KERNEL_ITERS)
         if nx >= NX:
@@ -796,7 +1132,7 @@ def main():
           f"wall {time.perf_counter() - t0:.2f} s", flush=True)
     for line in plans:
         print(f"[3 plan] {line}", flush=True)
-    del V, b, dinv
+    del V, b, dinv, m3
 
     # 4. the DIA path, launch counters reset just before it
     dia_cg.launches = 0
@@ -843,6 +1179,7 @@ def main():
           f"dia_cg launches {launches}, wall {main_s:.2f} s", flush=True)
 
     # 5. times on the card
+    t0 = time.perf_counter()
     asm_ms = time_ms(lambda: model.assemble_vals_lattice(model.vertices,
                                                          model.lset, struct))
     pcg_ms = time_ms(lambda: dia_cg.dia_cg_fused(offs, V, b, dinv, CG_ITERS))
@@ -873,7 +1210,8 @@ def main():
           f"device time PCG-{CG_ITERS} {dev_us[CG_ITERS]:.3f} us, PCG-0 "
           f"{dev_us[0]:.3f} us, per iteration {per_iter_us:.3f} us "
           f"({dia_cg.cuda_plan(offs, model.ndof, dev).barriers_per_iter} grid "
-          f"barriers per iteration)", flush=True)
+          f"barriers per iteration) | wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     # 6. the ELL kernel against its plain version on the card
     before = ell_spmv.launches
@@ -965,6 +1303,7 @@ def main():
           f"{ell['prepare_s']:.3f} s, wall {ell_main_s:.2f} s", flush=True)
 
     # 8. ELL-path times on the card
+    t0 = time.perf_counter()
     xr = ell["xr"]
     spmv_ms = per_call_ms(lambda: A @ xr, 200)
     kern, _ = device_kernels(lambda: A @ xr, 50)
@@ -1021,8 +1360,8 @@ def main():
     print(f"[8 mg-cg profile] one solve: {mg_kernels} device kernels, device "
           f"busy {mg_busy:.3f} ms of {mg_wall:.3f} ms wall (idle share "
           f"{1 - mg_busy / mg_wall:.3f}); top kernels by device time: "
-          + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for k, (c, us) in mg_top),
-          flush=True)
+          + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for k, (c, us) in mg_top)
+          + f"; wall of phase 8 {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 9. general cut quadrature and Integrate on the card (f64)
     import ngsxfem_tpu_torch as T
@@ -1094,6 +1433,7 @@ def main():
           f"GiB; wall {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 11. times on the card
+    t0 = time.perf_counter()
     timed = []
     for dt, gf in (("f64", lset64), ("f32", lset64_32)):
         for dom in ("NEG", "IF"):
@@ -1115,7 +1455,127 @@ def main():
         print(f"[11 times] {card()} | {name}: {ms:.3f} ms (median of 5), "
               f"{nk} device kernels, device busy {busy:.3f} ms, idle share "
               f"{idle:.3f}; top: {top}", flush=True)
-    print(f"[11 times] peak memory {peak_gib(dev):.2f} GiB", flush=True)
+    print(f"[11 times] peak memory {peak_gib(dev):.2f} GiB; wall "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 12. lattice multigrid on the DIA path (plain PyTorch: the reference has
+    # no TPU kernel on it), f32 and f64, then the larger hierarchy once
+    del q, mv, xa
+    torch.cuda.synchronize()
+    peak_gib(dev)
+    t0 = time.perf_counter()
+    reps = [model.assemble_vals_lattice(model.vertices, model.lset, struct)[0]
+            for _ in range(5)]
+    check(all(torch.equal(r, V) for r in reps),
+          "assemble_vals_lattice does not repeat bit for bit")
+    del reps
+    kept[NX] = lattice_level(model, struct, V)
+    lv32 = [kept[nx] if nx in kept else new_lattice_level(nx, dev, torch.float32)
+            for nx in LMG_NX]
+    lmg32 = lattice_mg(lv32, torch.float32, dev)
+    again = lattice_mg(lv32, torch.float32, dev, jacobi=False)
+    check(again["iters"] == lmg32["iters"] and torch.equal(again["x"], lmg32["x"]),
+          "f32 MG-CG does not repeat bit for bit")
+    f64 = native_f64(dev, V, b)     # phase 13, reported below
+    lv64 = [new_lattice_level(nx, dev, torch.float64) for nx in LMG_NX[:-1]]
+    lv64.append(lattice_level(f64["model"], f64["struct"], f64["V"]))
+    lmg64 = lattice_mg(lv64, torch.float64, dev)
+    lv_big = [kept[nx] if nx in kept else new_lattice_level(nx, dev, torch.float32)
+              for nx in LMG_NX_BIG]
+    lmg_big = lattice_mg(lv_big, torch.float32, dev)
+    for r in (lmg32, lmg64, lmg_big):
+        print(f"[12 lattice mg] nx={r['nxs']} {str(r['dtype'])[6:]}: coarse "
+              f"inverse {r['n0']} x {r['n0']} on the device, "
+              f"prepare_safe's guard passed, max|I - A0 X| {r['ainv_res']:.3e}, prepare_safe "
+              f"{r['prepare_s']:.3f} s; MG-CG {r['iters']} iterations to rel "
+              f"res {r['rel']:.3e}, true f64 rel res {r['true_rel']:.3e}; "
+              f"Jacobi-CG {r['jacobi_iters']} iterations to rel res "
+              f"{r['jacobi_rel']:.3e} (maxiter {JACOBI_MAXITER})", flush=True)
+    print(f"[12 lattice mg] f32 table at nx={NX} bitwise equal over five "
+          f"assemblies, MG-CG on it bitwise repeatable; peak memory "
+          f"{peak_gib(dev):.2f} GiB; wall {time.perf_counter() - t0:.2f} s "
+          f"(phase 13's solves included)", flush=True)
+
+    # 13. the flagship in native f64
+    print(f"[13 native f64] nx={NX}: f64 table within {f64['dv']:.3e} max|V| "
+          f"of the f32 one, exactly symmetric, ncut {f64['ncut']}; f64 "
+          f"Jacobi-PCG {f64['pcg_iters']} iterations, true rel res "
+          f"{f64['pcg_rel']:.3e}; cg_ir true rel res {f64['ir_rel']:.3e}; "
+          f"solutions differ by rel {f64['dx']:.3e}", flush=True)
+
+    # 14. the public API, launch counters reset just before it
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api = public_api(T, dev, f64["model"], f64["struct"], f64["V"])
+    api_launches = ell_spmv.launches
+    check(api_launches > 0, "the public-API path launched ell_spmv no time")
+    print(f"[14 public api] examples.fictdom3d nx={list(API_NX)} L2 errors "
+          + ", ".join(f"{e:.4e}" for e in api["errs"])
+          + f" (EOC {', '.join(f'{e:.3f}' for e in api['eocs'])}); nx={NX}: "
+          f"{api['ntriplets']} COO triplets, ELL K={api['K']}, "
+          f"{api['nfree']} free dofs, a.mat symmetric to {api['asym']:.3e}, "
+          f"direct solve {api['lu_s']:.2f} s (host), 'cg' solve "
+          f"{api['cg_iters']} iterations = {api['cg_products']} products = "
+          f"{api['cg_launches']} ell_spmv launches, direct vs 'cg' rel "
+          f"{api['dsol']:.3e}; ell_spmv on this table ({api['nrows']} x "
+          f"{api['K']} f64): kernel == plain bitwise on a seeded x and on "
+          f"the free-masked load (max|dy| {api['ell_err']:.3e}), kernel "
+          f"{api['spmv_ms'] * 1e3:.3f} us/call (mean of 200; device time "
+          f"per launch {api['spmv_dev_us']} us by torch.profiler), plain "
+          f"{api['spmv_plain_ms'] * 1e3:.3f} us, bound "
+          f"{api['spmv_bound'][0] * 1e3:.3f} us ({api['spmv_bound'][1]}); "
+          f"forms operator vs UnfittedPoisson's DIA "
+          f"operator on active dofs rel {api['vs_model']:.3e}; "
+          f"fictdom_ghostpen nx=40 L2 {api['fictdom_ghostpen'][0]:.10e} (CPU "
+          f"{api['fictdom_ghostpen'][1]:.10e}), cutfem nx=30 L2 "
+          f"{api['cutfem'][0]:.10e} (CPU {api['cutfem'][1]:.10e}); ell_spmv "
+          f"launches {api_launches}, dia_cg launches {dia_cg.launches}; peak "
+          f"memory {peak_gib(dev):.2f} GiB; wall "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 15. times of phases 12-14 on the card
+    t0 = time.perf_counter()
+    timed = []
+    for r, name in ((lmg32, "f32"), (lmg_big, "f32")):
+        tag = f"nx={r['nxs'][-1]} {name}"
+        timed.append((f"LatticeDIAMG.prepare {tag}", profiled(
+            lambda r=r: r["mg"].prepare(r["params"]))))
+        mg_prof = profiled(r["mgcg"], reps=3)
+        timed.append((f"MG-CG to 1e-8 {tag} ({r['iters']} iterations, "
+                      f"{mg_prof[1] / r['iters']:.1f} device kernels per "
+                      f"iteration)", mg_prof))
+        timed.append((f"Jacobi-CG to 1e-8 {tag} ({r['jacobi_iters']} "
+                      f"iterations)", profiled(r["jcg"], reps=1)))
+    m64 = f64["model"]
+    timed.append((f"assemble_vals_lattice nx={NX} f64", profiled(
+        lambda: m64.assemble_vals_lattice(m64.vertices, m64.lset,
+                                          f64["struct"]))))
+    timed.append((f"f64 Jacobi-PCG nx={NX} ({f64['pcg_iters']} iterations)",
+                  profiled(f64["pcg"], reps=3)))
+    timed.append((f"cg_ir nx={NX} on the f64 table", profiled(f64["ir"], reps=3)))
+    a_form, f_form, free = api["a"], api["f"], api["free"]
+    timed.append((f"BilinearForm.Assemble fictdom3d nx={NX} f64",
+                  profiled(a_form.Assemble)))
+    timed.append((f"LinearForm.Assemble fictdom3d nx={NX} f64",
+                  profiled(f_form.Assemble)))
+    inv_cg = a_form.mat.Inverse(free, inverse="cg")
+    inv_cg * f_form.vec.data   # builds the ELL view once, outside the timing
+    timed.append((f"Inverse(inverse='cg') solve nx={NX} ({api['cg_iters']} "
+                  f"iterations)", profiled(lambda: inv_cg * f_form.vec.data,
+                                           reps=3)))
+    for name, (ms, nk, busy, idle, top) in timed:
+        print(f"[15 times] {card()} | {name}: {ms:.3f} ms, {nk} device "
+              f"kernels, device busy {busy:.3f} ms, idle share {idle:.3f}; "
+              f"top: {top}", flush=True)
+    print(f"[15 times] {card()} | Inverse() direct solve nx={NX} on the host "
+          f"(scipy splu, {api['nfree']} free dofs, timed in phase 14): "
+          f"factorize + solve {api['lu_s']:.3f} s, solve again "
+          f"{api['lu_again_s']:.3f} s | peak memory "
+          f"{peak_gib(dev):.2f} GiB | wall of phase 15 "
+          f"{time.perf_counter() - t0:.2f} s, of the whole run "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -1136,6 +1596,11 @@ def main():
         "source": "ngsxfem_tpu_torch/csrc/ell_spmv.cu",
         "replaces": "ngsxfem_tpu/solvers/sparse.py:179",
         "launches": ell_launches,
+        "launches_public_api": api_launches,
+        "max_abs_err_public_api": api["ell_err"],
+        "ms_public_api": api["spmv_ms"],
+        "plain_ms_public_api": api["spmv_plain_ms"],
+        "bound_ms_public_api": api["spmv_bound"][0],
         "max_abs_err": ell_err,
         "ms": spmv_ms,
         "plain_ms": spmv_plain_ms,

@@ -7,14 +7,22 @@ every entry point that makes tensors runs on the first CUDA card unless it
 is given ``device="cpu"``.
 
 Ported so far: the flagship 3D fictitious-domain Poisson
-``UnfittedPoisson`` (host setup, lattice assembly into a DIA table, one-pass
-assembly into an ELL table, the quadrature-assembled ``elmats``/``apply``/
-``rhs``/``solve``), the DIA operator and the fused Jacobi-PCG
-``dia_cg_fused``, the ELL operator ``ELLMatrix`` (product ``ell_matvec``),
-the Krylov solvers, the functional cut multigrid ``FunctionalELLMG``, and
-general straight-cut quadrature: meshes, ``H1``, CoefficientFunctions, P1
-level-set ``GridFunction``s, ``CutInfo`` and ``Integrate`` — enough that
-``from ngsxfem_tpu_torch import *`` runs the README's Quick start.
+``UnfittedPoisson`` (host setup, lattice assembly into a DIA table in f32 or
+f64, one-pass assembly into an ELL table, the quadrature-assembled
+``elmats``/``apply``/``rhs``/``solve``), the DIA operator and the fused
+Jacobi-PCG ``dia_cg_fused``, the ELL operator ``ELLMatrix`` (product
+``ell_matvec``), the Krylov solvers, the functional cut multigrid
+``FunctionalELLMG`` and the lattice multigrid ``LatticeDIAMG``; general
+straight-cut quadrature (meshes with boundary ids, CoefficientFunctions, P1
+level-set ``GridFunction``s, ``CutInfo``, ``Integrate``); and public
+symbolic-form assembly: ``H1`` with Dirichlet marks, ``Compress``, compound
+``FESpace([...])``, trial/test proxies, ``BilinearForm``/``LinearForm``/
+``RestrictedBilinearForm`` with cut-volume (``SymbolicBFI``,
+``SymbolicLFI``) and facet-patch (``SymbolicFacetPatchBFI``) integrators,
+and ``a.mat.Inverse`` (host LU, or ``"cg"`` on the device).  ``from
+ngsxfem_tpu_torch import *`` runs the README's Quick start and the
+workloads in ``ngsxfem_tpu_torch/examples``.  What is not ported raises
+``NotImplementedError`` naming its item in ROADMAP.md.
 ``dia_cg_fused`` and ``ell_matvec`` run hand-written CUDA kernels for
 Hopper on CUDA tensors.
 """
@@ -24,9 +32,16 @@ from .domaintype import (DOMAIN_TYPE, COMBINED_DOMAIN_TYPE, NEG, POS, IF,
                          ANY)
 from .mesh.structured import (Make1DMesh, MakeStructured2DMesh,
                               MakeStructured3DMesh)
-from .fem.space import BitArray, H1
+from .fem.space import (BitArray, CompoundBitArray, H1, CompoundFESpace,
+                        CompressedFESpace, Compress, GetDofsOfElements)
+from .fem.space import FESpaceFactory as FESpace
 from .fem.gridfunction import GridFunction, InterpolateToP1, grad
-from .cf.coefficient import (CoefficientFunction, Parameter, IfPos, Norm, x,
+from .forms.proxies import dn, dnjump, div
+from .forms.assemble import (BilinearForm, LinearForm,
+                             RestrictedBilinearForm, SymbolicBFI, SymbolicLFI,
+                             SymbolicFacetPatchBFI, VOL, BND)
+from .cf.coefficient import (CoefficientFunction, InnerProduct, Parameter,
+                             IfPos, Norm, x,
                              y, z, sin, cos, tan, exp, log, sqrt, atan, sinh,
                              cosh, fabs, floor, ceil, specialcf)
 from .integrate import Integrate, Integrate_X_special_args
@@ -34,11 +49,13 @@ from .geom.cutinfo import (CutInfo, GetFacetsWithNeighborTypes,
                            GetElementsWithNeighborFacets, GetDofsOfFacets,
                            IndicatorCF, CutRatioGF, BitArrayCF)
 from .models.poisson import UnfittedPoisson
-from .solvers.sparse import DIAMatrix, ELLMatrix, SparseMatrix, dia_matvec
+from .solvers.sparse import (DIAMatrix, ELLMatrix, InverseMatrix,
+                             SparseMatrix, dia_matvec)
 from .solvers.ell_spmv import ell_matvec, ell_matvec_plain
 from .solvers.krylov import CGSolver, cg, cg_ir, jacobi_preconditioner
 from .solvers.dia_cg import dia_cg_fused, dia_cg_fused_plain
 from .solvers.mg import FunctionalELLMG
+from .solvers.latticemg import LatticeDIAMG
 
 FIRST, OPTIMAL, FALLBACK = "FIRST", "OPTIMAL", "FALLBACK"
 
@@ -46,8 +63,14 @@ __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "IF", "CDOM_NO", "CDOM_NEG", "CDOM_POS", "UNCUT", "HASNEG",
            "HASPOS", "ANY", "FIRST", "OPTIMAL", "FALLBACK", "Make1DMesh",
            "MakeStructured2DMesh", "MakeStructured3DMesh", "BitArray", "H1",
+           "CompoundBitArray", "FESpace", "CompoundFESpace",
+           "CompressedFESpace", "Compress", "GetDofsOfElements", "dn",
+           "dnjump", "div", "BilinearForm", "LinearForm",
+           "RestrictedBilinearForm", "SymbolicBFI", "SymbolicLFI",
+           "SymbolicFacetPatchBFI", "VOL", "BND", "InverseMatrix",
+           "LatticeDIAMG",
            "GridFunction", "InterpolateToP1", "grad", "CoefficientFunction",
-           "Parameter", "IfPos", "Norm", "x", "y", "z", "sin", "cos", "tan",
+           "InnerProduct", "Parameter", "IfPos", "Norm", "x", "y", "z", "sin", "cos", "tan",
            "exp", "log", "sqrt", "atan", "sinh", "cosh", "fabs", "floor",
            "ceil", "specialcf", "Integrate", "Integrate_X_special_args",
            "CutInfo", "GetFacetsWithNeighborTypes",

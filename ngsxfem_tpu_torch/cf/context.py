@@ -21,15 +21,21 @@ class EvalCtx:
     ``ref_pts`` is (E, Q, d), or (1, Q, d) for one point set shared by all
     elements; ``elem_ids`` (E,) int64 selects the elements (all of the mesh
     when None); ``nref`` (E, Q, d) is the reference-space unit normal of a
-    cut interface rule.  Facet loops (a given physical normal, facet ids)
-    come with the forms (ROADMAP A9).
+    cut interface rule; ``normal`` (E, Q, d) a given physical unit normal
+    and ``facet_ids`` (E,) the facet of each row (facet loops).  A facet
+    integral attaches the neighbour element's context as ``other_ctx``, on
+    which ``u.Other()`` is evaluated.
     """
 
-    def __init__(self, mesh, ref_pts, elem_ids=None, nref=None):
+    def __init__(self, mesh, ref_pts, elem_ids=None, nref=None, normal=None,
+                 facet_ids=None):
         self.mesh = mesh
         self.ref_pts = ref_pts
         self.elem_ids = elem_ids
         self._nref = nref
+        self._normal = normal
+        self.facet_ids = facet_ids
+        self.other_ctx = None
         self._cache = {}
         self.E = mesh.ne if elem_ids is None else elem_ids.shape[0]
         self.Q = ref_pts.shape[1]
@@ -88,6 +94,8 @@ class EvalCtx:
 
     @property
     def normal(self):
+        if self._normal is not None:
+            return self._normal
         if self._nref is None:
             raise ValueError("no normal available in this context")
         n, nn = self._jinvt_nref()
@@ -178,8 +186,10 @@ def eval_pure(cf, ctx: EvalCtx):
             v = v[ctx.elem_ids]
         return v[:, None].to(ctx.dtype)
     if isinstance(cf, C.FacetValuesCF):
-        raise NotImplementedError(
-            "facet-valued CFs are evaluated in facet integrals (ROADMAP A9)")
+        if ctx.facet_ids is None:
+            raise ValueError("facet-valued CF evaluated outside a facet loop")
+        v = torch.as_tensor(cf.values, device=ctx.device)
+        return v[ctx.facet_ids][:, None].to(ctx.dtype)
     # GridFunction evaluation is handled by its own hook
     ev = getattr(cf, "_eval_pure", None)
     if ev is not None:

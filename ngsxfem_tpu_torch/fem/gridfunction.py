@@ -1,14 +1,18 @@
 """GridFunctions: dof vectors with CF evaluation hooks.
 
-Counterpart of ``ngsxfem_tpu/fem/gridfunction.py`` for scalar ``H1`` spaces.
+Counterpart of ``ngsxfem_tpu/fem/gridfunction.py:32-260,286-407`` for scalar
+``H1`` spaces, their ``Compress``ed restrictions and compounds of them
+(without the jit cache of ``Set`` and without the space-time branches).
 A GridFunction IS a CoefficientFunction (as in NGSolve); its evaluation at
 a batch of quadrature points is a gather + contraction over the basis tables
 from ``fem.basis``.  The dof vector is a tensor on the GridFunction's device
 in ``config.dtype``; ``gf.vec.data = array`` replaces it (from numpy or a
-tensor), ``gf.vec.NumPy()`` reads it back.
+tensor), ``gf.vec.NumPy()`` reads it back.  A component of a compound
+GridFunction reads and writes its block of the parent's vector in place.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import config, resolve_device
@@ -16,74 +20,197 @@ from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx, eval_pure
 from ..mesh.mesh import small_matmul
 from .basis import shapes, dshapes
-from .space import H1
+from .space import CompoundFESpace, FESpace, H1, GetDofsOfElements
 
 
 class VecShim:
-    """NGSolve-ish view of a GridFunction's dof vector: ``gf.vec.data = v``
-    replaces it, ``gf.vec.NumPy()`` copies it to the host."""
+    """NGSolve-ish view of a GridFunction's dof vector.
+
+    Supports ``gfu.vec.data = expr``, ``gfu.vec[:] = 0.0``,
+    ``gfu.vec.CreateVector()``, ``gfu.vec.FV().NumPy()``.
+    """
 
     def __init__(self, gf):
         self._gf = gf
 
     @property
     def data(self):
-        return self._gf._array
+        return self._gf._arr
 
     @data.setter
     def data(self, v):
-        self._gf._set_array(v)
+        self._gf._set_array(_a(v))
+
+    def __setitem__(self, idx, v):
+        arr = self._gf._arr.clone()
+        arr[idx] = torch.as_tensor(_a(v), dtype=arr.dtype, device=arr.device)
+        self._gf._set_array(arr)
+
+    def __getitem__(self, idx):
+        return self._gf._arr[idx]
+
+    def __len__(self):
+        return self._gf._arr.shape[0]
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.NumPy(), dtype=dtype)
+
+    def CreateVector(self):
+        return StandaloneVec(torch.zeros_like(self._gf._arr))
+
+    def FV(self):
+        return self
 
     def NumPy(self):
-        return self._gf._array.detach().cpu().numpy()
+        return self._gf._arr.detach().cpu().numpy()
+
+    # arithmetic delegates to the underlying tensor
+    def __add__(self, o):
+        return self._gf._arr + _a(o)
+
+    def __sub__(self, o):
+        return self._gf._arr - _a(o)
+
+    def __mul__(self, o):
+        return self._gf._arr * o
+
+    def __rmul__(self, o):
+        return o * self._gf._arr
+
+
+class _CompVecShim(VecShim):
+    """vec shim of a component GridFunction: reads the parent's block and
+    writes through to it; a named class for isinstance checks."""
+
+
+class StandaloneVec:
+    """A dof vector without a GridFunction (``LinearForm.vec``,
+    ``vec.CreateVector()``)."""
+
+    def __init__(self, arr):
+        self.arr = arr
+
+    @property
+    def data(self):
+        return self.arr
+
+    @data.setter
+    def data(self, v):
+        self.arr = torch.as_tensor(_a(v), dtype=self.arr.dtype,
+                                   device=self.arr.device)
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.arr.detach().cpu().numpy(), dtype=dtype)
+
+    def __setitem__(self, idx, v):
+        arr = self.arr.clone()
+        arr[idx] = torch.as_tensor(_a(v), dtype=arr.dtype, device=arr.device)
+        self.arr = arr
+
+    def __getitem__(self, idx):
+        return self.arr[idx]
+
+    def __len__(self):
+        return self.arr.shape[0]
+
+    def NumPy(self):
+        return self.arr.detach().cpu().numpy()
+
+    def __add__(self, o):
+        return self.arr + _a(o)
+
+    def __sub__(self, o):
+        return self.arr - _a(o)
+
+
+def _a(o):
+    if isinstance(o, (VecShim, StandaloneVec)):
+        return o.data
+    return o
 
 
 class GridFunction(CF):
-    """Scalar GridFunction on an ``H1`` space.  Its vector lives on
-    ``device`` (default: the space's device, the card unless the caller
-    asks for the CPU; without a card and without that argument it raises)
-    in ``dtype`` (default ``config.dtype``)."""
+    """GridFunction on an ``H1`` space, a ``Compress``ed one or a compound
+    of them.  Its vector lives on ``device`` (default: the space's device,
+    the card unless the caller asks for the CPU; without a card and without
+    that argument it raises) in ``dtype`` (default ``config.dtype``)."""
 
-    def __init__(self, space, name="gf", device=None, dtype=None):
-        if not isinstance(space, H1):
+    def __init__(self, space, name="gf", device=None, dtype=None,
+                 _parent=None, _block=None):
+        if not isinstance(space, (FESpace, CompoundFESpace)):
             raise NotImplementedError(
-                "GridFunction on spaces other than H1 (ROADMAP A9)")
+                f"GridFunction on {type(space).__name__} (ROADMAP A9b/A13)")
         self.space = space
         self.name = name
-        self.device = resolve_device(device if device is not None
-                                     else space._device)
-        self.dtype = config.dtype if dtype is None else dtype
-        self._array = torch.zeros(space.ndof, dtype=self.dtype,
-                                  device=self.device)
+        self._parent = _parent
+        self._block = _block
         self.dims = ()
+        if _parent is None:
+            self.device = resolve_device(device if device is not None
+                                         else space._device)
+            self.dtype = config.dtype if dtype is None else dtype
+            self._array = torch.zeros(space.ndof, dtype=self.dtype,
+                                      device=self.device)
+        else:
+            self.device, self.dtype = _parent.device, _parent.dtype
+        if isinstance(space, CompoundFESpace):
+            self.components = tuple(
+                GridFunction(s, name=f"{name}.{i}", _parent=self, _block=i)
+                for i, s in enumerate(space.components))
+        else:
+            self.components = ()
 
     # -- dof vector ---------------------------------------------------------
+    @property
+    def _arr(self):
+        if self._parent is not None:
+            return self._parent._array[self._parent.space.Range(self._block)]
+        return self._array
+
     def _set_array(self, v):
         v = torch.as_tensor(v, dtype=self.dtype, device=self.device)
         if v.shape != (self.space.ndof,):
             raise ValueError(f"vector of shape {tuple(v.shape)} for "
                              f"{self.space.ndof} dofs")
-        self._array = v
+        if self._parent is not None:
+            with torch.no_grad():
+                self._arr.copy_(v)
+        else:
+            self._array = v
 
     @property
     def vec(self):
-        return VecShim(self)
+        return VecShim(self) if self._parent is None else _CompVecShim(self)
+
+    @vec.setter
+    def vec(self, v):
+        self._set_array(_a(v))
 
     # -- interpolation ------------------------------------------------------
     def Set(self, cf, boundary=False, definedonelements=None, BND=None):
         """Nodal interpolation of `cf` (NGSolve ``GridFunction.Set``
-        analog): `cf` evaluated at each dof's Lagrange node."""
-        if boundary or BND or definedonelements is not None:
-            raise NotImplementedError(
-                "Set with boundary/definedonelements (ROADMAP A9)")
+        analog): `cf` evaluated at each dof's Lagrange node.  With
+        ``boundary`` only the dofs on the mesh boundary are set, with
+        ``definedonelements`` only the dofs of the marked elements."""
         sp = self.space
+        if isinstance(sp, CompoundFESpace):
+            raise TypeError("Set on compound GF: use components")
         ref = torch.as_tensor(sp.dof_rep_ref, dtype=self.dtype,
                               device=self.device)[:, None, :]
         ids = torch.as_tensor(sp.dof_rep_elem, dtype=torch.int64,
                               device=self.device)
         ctx = EvalCtx(sp.mesh, ref, elem_ids=ids)
-        vals = torch.broadcast_to(eval_pure(wrap(cf), ctx), (sp.ndof, 1))
-        self._set_array(vals[:, 0])
+        new = torch.broadcast_to(eval_pure(wrap(cf), ctx), (sp.ndof, 1))[:, 0]
+        keep = None
+        if boundary or BND:
+            keep = sp.bc_of_dof > 0
+        if definedonelements is not None:
+            m = GetDofsOfElements(sp, definedonelements).np
+            keep = m if keep is None else keep & m
+        if keep is not None:
+            new = torch.where(torch.as_tensor(keep, device=self.device), new,
+                              self._arr)
+        self._set_array(new)
 
     def Deriv(self):
         return GradGF(self)
@@ -108,35 +235,46 @@ class GradGF(CF):
 
 
 def _elem_dofs(gf: GridFunction, elem_ids):
-    e2d = gf.space.el2dof_on(gf.device)
+    """Element dof values (E, ndl); the placeholder slots of a compressed
+    space (which would read dof 0) are zeroed."""
+    sp = gf.space
+    if isinstance(sp, CompoundFESpace):
+        raise TypeError("evaluate components of a compound GridFunction")
+    e2d = sp.el2dof_on(gf.device)
+    valid = sp.el2dof_valid_on(gf.device)
     if elem_ids is not None:
         e2d = e2d[elem_ids]
-    return gf._array[e2d]  # (E, ndl)
+        valid = None if valid is None else valid[elem_ids]
+    dofs = gf._arr[e2d]
+    return dofs if valid is None else torch.where(valid, dofs, 0.0)
 
 
 def gf_value(gf: GridFunction, elem_ids, ref_pts):
     """Value of gf at (elem, refpt) batches -> (E,Q)."""
     sp = gf.space
-    B = shapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl)
     dofs = _elem_dofs(gf, elem_ids)
+    B = shapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl)
     return (B * dofs[:, None, :]).sum(-1)
 
 
 def gf_ref_value_and_grad(gf: GridFunction, elem_ids, ref_pts):
     """(value (E,Q,1), ref-grad (E,Q,1,d)) of gf at ref points."""
     sp = gf.space
+    dofs = _elem_dofs(gf, elem_ids)
     B = shapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl)
     G = dshapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl,d)
-    dofs = _elem_dofs(gf, elem_ids)
     val = (B * dofs[:, None, :]).sum(-1, keepdim=True)  # (E,Q,1)
     grad = (G * dofs[:, None, :, None]).sum(-2)  # (E,Q,d)
     return val, grad[..., None, :]
 
 
 def grad(obj):
-    """grad() for GridFunctions (NGSolve-style free function)."""
+    """grad() for GridFunctions and proxies (NGSolve-style free function)."""
     if isinstance(obj, GridFunction):
         return GradGF(obj)
+    g = getattr(obj, "grad_op", None)
+    if g is not None:
+        return g()
     raise TypeError(f"grad() not supported for {type(obj)}")
 
 

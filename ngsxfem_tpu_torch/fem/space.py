@@ -1,14 +1,21 @@
 """Finite element spaces: dof maps, and boolean mark arrays.
 
-Counterpart of ``ngsxfem_tpu/fem/space.py:24-230``: ``BitArray`` (host
-boolean marks with NGSolve-like set algebra) and ``H1``, whose host dof map
-is ``el2dof_np (ne, ndl)`` and ``ndof``, with a device view ``el2dof``.
-Global dof numbering uses an *exact integer barycentric fingerprint* per
-Lagrange node (vertex ids + integer weights), deduplicated in
-first-appearance order by the native topology library, exactly as the
-reference package numbers its dofs.
+Counterpart of ``ngsxfem_tpu/fem/space.py:24-230`` and ``:301-421``:
+``BitArray`` and ``CompoundBitArray`` (host boolean marks with NGSolve-like
+set algebra), the ``FESpace`` base (boundary and Dirichlet dof marks,
+``FreeDofs``, trial/test proxies), ``H1`` on it, ``CompoundFESpace`` (the
+exported ``FESpace([...])``), ``CompressedFESpace``/``Compress`` and
+``GetDofsOfElements``.  A space's host dof map is ``el2dof_np (ne, ndl)``
+and ``ndof``, with a device view ``el2dof``.  Global dof numbering uses an
+*exact integer barycentric fingerprint* per Lagrange node (vertex ids +
+integer weights), deduplicated in first-appearance order by the native
+topology library, exactly as the reference package numbers its dofs.
+``L2``, ``NumberSpace``, ``VectorFESpace`` and ``Periodic`` are not ported
+yet (ROADMAP A13).
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -16,7 +23,7 @@ import torch
 from ..config import resolve_device
 from ..mesh.mesh import Mesh, geom_shapes
 from ..ops.gauss import ET_NVERT
-from .basis import lagrange_element
+from .basis import facet_local_nodes, lagrange_element, ndof_el
 
 
 class BitArray:
@@ -81,6 +88,11 @@ def _arr(o):
     return o.a if isinstance(o, BitArray) else np.asarray(o, dtype=bool)
 
 
+def CompoundBitArray(arrays):
+    """Concatenate BitArrays (cf. utils/python_utils.cpp:155-184)."""
+    return BitArray(np.concatenate([_arr(a) for a in arrays]))
+
+
 def _node_fingerprints(mesh: Mesh, order: int):
     """Exact integer fingerprints of all element-local Lagrange nodes.
 
@@ -109,20 +121,127 @@ def _node_fingerprints(mesh: Mesh, order: int):
     return keys, ndl
 
 
-class H1:
-    """Continuous Lagrange space of given order (cf. NGSolve H1).
+class FESpace:
+    """Base scalar space; subclass: ``H1``.
 
-    The dof map is host numpy (``el2dof_np``) and so are the dof
-    representatives ``dof_rep_elem``/``dof_rep_local``/``dof_rep_ref`` (an
-    element holding each dof and the dof's reference node there, for nodal
-    interpolation).  ``el2dof`` is its int64 view on ``device``, made on
-    first use: the card unless the space was given ``device="cpu"``, and
-    without a card and without that argument it raises then."""
+    The dof map is host numpy (``el2dof_np``).  ``el2dof`` is its int64
+    view on ``device``, made on first use: the card unless the space was
+    given ``device="cpu"``, and without a card and without that argument it
+    raises then.  ``dirichlet`` is a list of boundary ids or a regex over
+    the mesh's boundary names."""
 
-    def __init__(self, mesh: Mesh, order: int = 1, device=None):
+    vdim = 1
+    is_compound = False
+
+    def __init__(self, mesh: Mesh, order: int = 1, dirichlet=None,
+                 dgjumps=False, device=None):
         self.mesh = mesh
         self.order = int(order)
+        self.dgjumps = dgjumps
+        self.dirichlet_spec = dirichlet
         self._device = device
+        self._views = {}
+        self._build()
+        self._mark_boundary_dofs()
+        self.dirichlet_dofs = self._dirichlet_mask(dirichlet)
+
+    def _build(self):
+        raise NotImplementedError
+
+    @property
+    def ndof_el(self):
+        return ndof_el(self.mesh.et, self.order)
+
+    # -- device views --------------------------------------------------------
+    @property
+    def device(self):
+        return resolve_device(self._device)
+
+    @property
+    def el2dof(self):
+        """(ne, ndl) int64 dof map on the space's device."""
+        return self.el2dof_on(self.device)
+
+    def el2dof_on(self, device):
+        """(ne, ndl) int64 dof map on ``device``, made once per device."""
+        return self._view("el2dof", self.el2dof_np, torch.int64, device)
+
+    def el2dof_valid_on(self, device):
+        """(ne, ndl) bool on ``device``: False on the placeholder slots of a
+        masked space (``el2dof_valid_np``); None for an unmasked space."""
+        valid = getattr(self, "el2dof_valid_np", None)
+        if valid is None:
+            return None
+        return self._view("el2dof_valid", valid, torch.bool, device)
+
+    def _view(self, name, host, dtype, device):
+        key = (name, str(torch.device(device)))
+        if key not in self._views:
+            self._views[key] = torch.as_tensor(host, dtype=dtype,
+                                               device=device)
+        return self._views[key]
+
+    # -- boundary / dirichlet ------------------------------------------------
+    def _mark_boundary_dofs(self):
+        self.bc_of_dof = np.zeros(self.ndof, dtype=np.int32)
+        # every local facet of an element type carries the same number of
+        # nodes; facets are visited in ascending order and numpy assigns a
+        # repeated index its last value, as the reference's facet loop does
+        lfn = np.stack(facet_local_nodes(self.mesh.et, self.order))
+        m = self.mesh
+        bf = m.boundary_facets_np
+        e, lf = m.facet2el_np[bf, 0], m.facet2elloc_np[bf, 0]
+        dofs = self.el2dof_np[e[:, None], lfn[lf]]  # (B, k)
+        self.bc_of_dof[dofs.ravel()] = np.repeat(m.bc_of_facet_np[bf],
+                                                 lfn.shape[1])
+
+    def _dirichlet_mask(self, dirichlet):
+        """Boolean dof mask for a dirichlet spec (regex or id list); pure."""
+        diri = np.zeros(self.ndof, dtype=bool)
+        if dirichlet:
+            if isinstance(dirichlet, str):
+                pat = re.compile(dirichlet)
+                ids = {bid for bid, name in self.mesh.bc_names.items()
+                       if pat.fullmatch(name)}
+            else:
+                ids = set(int(b) for b in dirichlet)
+            for b in ids:
+                diri |= self.bc_of_dof == b
+        return diri
+
+    def FreeDofs(self, coupling=False):
+        return BitArray(~self.dirichlet_dofs)
+
+    # -- proxies -------------------------------------------------------------
+    def TrialFunction(self):
+        from ..forms.proxies import make_proxies
+
+        return make_proxies(self, test=False)
+
+    def TestFunction(self):
+        from ..forms.proxies import make_proxies
+
+        return make_proxies(self, test=True)
+
+    def TnT(self):
+        return self.TrialFunction(), self.TestFunction()
+
+    def Update(self):
+        pass
+
+    def __repr__(self):
+        return f"{type(self).__name__}(order={self.order}, ndof={self.ndof})"
+
+
+class H1(FESpace):
+    """Continuous Lagrange space of given order (cf. NGSolve H1).
+
+    Besides the dof map it holds the dof representatives
+    ``dof_rep_elem``/``dof_rep_local``/``dof_rep_ref`` (an element holding
+    each dof and the dof's reference node there, for nodal interpolation)."""
+
+    def _build(self):
+        mesh = self.mesh
         keys, ndl = _node_fingerprints(mesh, self.order)
         from ..mesh.native import dedup_rows
 
@@ -139,24 +258,103 @@ class H1:
         self.dof_rep_elem = (first // ndl).astype(np.int32)
         self.dof_rep_local = (first % ndl).astype(np.int32)
         self.dof_rep_ref = b["nodes"][self.dof_rep_local]
-        self._el2dof = {}
+
+
+class CompoundFESpace:
+    """Product space FESpace([V0, V1, ...]) with blocked global numbering."""
+
+    is_compound = True
+
+    def __init__(self, spaces, dgjumps=False):
+        self.components = list(spaces)
+        self.mesh = spaces[0].mesh
+        self.dgjumps = dgjumps
+        self._device = spaces[0]._device
+        self.offsets = np.cumsum([0] + [s.ndof for s in spaces]).astype(np.int64)
+        self.ndof = int(self.offsets[-1])
 
     @property
     def device(self):
         return resolve_device(self._device)
 
-    @property
-    def el2dof(self):
-        """(ne, ndl) int64 dof map on the space's device."""
-        return self.el2dof_on(self.device)
+    def Range(self, i):
+        return slice(int(self.offsets[i]), int(self.offsets[i + 1]))
 
-    def el2dof_on(self, device):
-        """(ne, ndl) int64 dof map on ``device``, made once per device."""
-        key = str(torch.device(device))
-        if key not in self._el2dof:
-            self._el2dof[key] = torch.as_tensor(
-                self.el2dof_np, dtype=torch.int64, device=device)
-        return self._el2dof[key]
+    def FreeDofs(self, coupling=False):
+        return CompoundBitArray([s.FreeDofs(coupling) for s in self.components])
+
+    def TrialFunction(self):
+        from ..forms.proxies import make_proxies
+
+        return tuple(make_proxies(s, test=False, compound=(self, i))
+                     for i, s in enumerate(self.components))
+
+    def TestFunction(self):
+        from ..forms.proxies import make_proxies
+
+        return tuple(make_proxies(s, test=True, compound=(self, i))
+                     for i, s in enumerate(self.components))
+
+    def TnT(self):
+        return self.TrialFunction(), self.TestFunction()
 
     def __repr__(self):
-        return f"H1(order={self.order}, ndof={self.ndof})"
+        return f"CompoundFESpace({len(self.components)} spaces, ndof={self.ndof})"
+
+
+def FESpaceList(spaces, dgjumps=False, **kw):
+    """NGSolve-style FESpace([V1,V2]) constructor."""
+    return CompoundFESpace(spaces, dgjumps=dgjumps)
+
+
+def FESpaceFactory(arg, dgjumps=False, **kw):
+    """The exported ``FESpace``: ``FESpace([A, B])`` as in NGSolve."""
+    if isinstance(arg, (list, tuple)):
+        return CompoundFESpace(arg, dgjumps=dgjumps)
+    raise TypeError("FESpace factory expects a list of spaces")
+
+
+class CompressedFESpace(FESpace):
+    """Restriction of a space to an active dof set, cf. NGSolve Compress used
+    by the fictitious-domain tutorials (py_tutorials/fictdom_ghostpen.py:57)."""
+
+    def __init__(self, base: FESpace, active: BitArray):
+        self.base = base
+        self.mesh = base.mesh
+        self.order = base.order
+        self.dgjumps = base.dgjumps
+        self._device = base._device
+        self._views = {}
+        act = _arr(active)
+        self.comp2base = np.nonzero(act)[0].astype(np.int32)
+        self.base2comp = np.full(base.ndof, -1, dtype=np.int32)
+        self.base2comp[self.comp2base] = np.arange(len(self.comp2base), dtype=np.int32)
+        self.ndof = len(self.comp2base)
+        # inactive dofs map to 0; assembly masks guarantee zero contributions
+        mapped = self.base2comp[base.el2dof_np]
+        self.el2dof_np = np.where(mapped >= 0, mapped, 0).astype(np.int32)
+        # placeholder-0 slots are NOT dof 0; set algebra must skip them
+        self.el2dof_valid_np = mapped >= 0
+        self.dirichlet_dofs = base.dirichlet_dofs[self.comp2base]
+        for attr in ("bc_of_dof", "dof_rep_elem", "dof_rep_local",
+                     "dof_rep_ref"):
+            setattr(self, attr, getattr(base, attr)[self.comp2base])
+
+
+def Compress(space: FESpace, active_dofs=None):
+    if active_dofs is None:
+        raise ValueError("Compress requires active_dofs")
+    return CompressedFESpace(space, active_dofs)
+
+
+def GetDofsOfElements(space, elem_mask) -> BitArray:
+    """Dofs touched by marked elements (cf. xfem/cutinfo.cpp:281-329)."""
+    mask = _arr(elem_mask)
+    out = np.zeros(space.ndof, dtype=bool)
+    dofs = space.el2dof_np[mask]
+    valid = getattr(space, "el2dof_valid_np", None)
+    if valid is not None:  # placeholder-0 slots of a compressed space
+        out[dofs[valid[mask]]] = True
+    else:
+        out[dofs.ravel()] = True
+    return BitArray(out)

@@ -1,0 +1,1 @@
+"""forms of ngsxfem_tpu_torch (see the package docstring)."""

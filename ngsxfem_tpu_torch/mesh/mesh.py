@@ -51,9 +51,14 @@ SIMPLICES = ("segm", "trig", "tet")
 
 
 class Mesh:
-    """A single-element-type unstructured mesh held as flat host arrays."""
+    """A single-element-type unstructured mesh held as flat host arrays.
 
-    def __init__(self, et: str, vertices: np.ndarray, elements: np.ndarray):
+    ``bc_of_facet_np`` holds a boundary-condition id per facet (1-based like
+    NGSolve, 0 on interior facets; every boundary facet gets 1 unless
+    ``bc_of_facet`` says otherwise) and ``bc_names`` their names."""
+
+    def __init__(self, et: str, vertices: np.ndarray, elements: np.ndarray,
+                 bc_of_facet=None, bc_names=None):
         self.et = et
         self.dim = ET_DIM[et]
         self.nvel = ET_NVERT[et]
@@ -62,6 +67,10 @@ class Mesh:
         self.nv = self.vertices_np.shape[0]
         self.ne = self.elements_np.shape[0]
         self._build_facets()
+        if bc_of_facet is None:
+            bc_of_facet = np.where(self.facet2el_np[:, 1] < 0, 1, 0)
+        self.bc_of_facet_np = np.asarray(bc_of_facet, dtype=np.int32)
+        self.bc_names = bc_names or {}
         # one material (id 1, as NGSolve numbers them) for every element
         self.mat_of_el_np = np.ones(self.ne, dtype=np.int32)
         self._views = {}
@@ -69,6 +78,13 @@ class Mesh:
     def material_ids(self):
         """Ascending material ids of the elements."""
         return sorted(int(i) for i in np.unique(self.mat_of_el_np))
+
+    def GetBoundaries(self):
+        """Boundary-condition names in ascending id order (``"bc<i>"`` for
+        unnamed ids), NGSolve ``mesh.GetBoundaries()`` analog."""
+        ids = np.unique(self.bc_of_facet_np[self.boundary_facets_np])
+        return tuple(self.bc_names.get(int(i), f"bc{int(i)}")
+                     for i in ids if i > 0)
 
     def device_view(self, device, dtype):
         """(vertices (nv, d) of ``dtype``, elements (ne, nvel) int64) on

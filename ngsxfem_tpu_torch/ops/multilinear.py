@@ -197,9 +197,11 @@ def _quad_tensor_canonical(vals, order: int):
     side = torch.stack([s0, s1], dim=3).to(torch.int64)  # (B,3,G,2)
     side = side[..., None].expand(x.shape)
     yb = y[:, :, :, None, None].expand(x.shape)
-    pts = torch.stack([x, yb], dim=-1).reshape(B, -1, 2)
-    w = wv.reshape(B, -1)
-    side = side.reshape(B, -1)
+    # explicit sizes: reshape(B, -1) is ambiguous for an empty batch
+    nvol = int(np.prod(x.shape[1:]))
+    pts = torch.stack([x, yb], dim=-1).reshape(B, nvol, 2)
+    w = wv.reshape(B, nvol)
+    side = side.reshape(B, nvol)
 
     # interface: the graph point (t, y) with the co-area factor
     # ||grad2 phi|| / |d_x phi| (reference straightcutrule.cpp:283-298)
@@ -209,8 +211,9 @@ def _quad_tensor_canonical(vals, order: int):
     g2 = torch.sqrt(gx**2 + gy**2)
     scale = g2 / gx.abs().clamp_min(_TINY)
     w_if = torch.where(cutm, wy * scale, 0.0)
-    pts_if = torch.stack([t, y], dim=-1).reshape(B, -1, 2)
-    w_if = w_if.reshape(B, -1)
+    nif = int(np.prod(t.shape[1:]))
+    pts_if = torch.stack([t, y], dim=-1).reshape(B, nif, 2)
+    w_if = w_if.reshape(B, nif)
     return pts, w, side, pts_if, w_if
 
 

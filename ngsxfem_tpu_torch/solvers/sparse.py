@@ -1,11 +1,15 @@
 """Sparse matrices: COO triplets, padded ELL rows and offset diagonals.
 
-Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-245``.
-``SparseMatrix`` (COO, ``index_add_`` product) and the DIA operator are plain
-PyTorch: the reference has no Pallas kernel behind them either.
+Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-306``.
+``SparseMatrix`` (COO, ``index_add_`` product, ``todense``, ``to_scipy``,
+``Inverse``, ``CreateTranspose``) and the DIA operator are plain PyTorch:
+the reference has no Pallas kernel behind them either.
 ``ELLMatrix.matvec`` is ``ell_spmv.ell_matvec``, which on CUDA tensors is
 the hand-written kernel ``csrc/ell_spmv.cu`` (the reference's
-``matvec_pallas`` has no separate counterpart).
+``matvec_pallas`` has no separate counterpart).  ``InverseMatrix`` keeps the
+reference's dispatch: the direct-solver names factorize on the host with
+scipy, ``"cg"`` runs Jacobi-CG on the ELL view of the matrix, through that
+kernel.
 """
 from __future__ import annotations
 
@@ -13,8 +17,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import resolve_device
+from ..config import config, resolve_device
 from .ell_spmv import ell_matvec
+
+
+def _as_array(x):
+    """The tensor behind a dof-vector shim (``gf.vec``, ``f.vec``), or
+    ``x`` itself."""
+    from ..fem.gridfunction import VecShim, StandaloneVec
+
+    return x.data if isinstance(x, (VecShim, StandaloneVec)) else x
 
 
 class SparseMatrix:
@@ -32,12 +44,29 @@ class SparseMatrix:
         self.shape = tuple(int(s) for s in shape)
 
     def matvec(self, x):
+        """A @ x for a tensor or a dof-vector shim (``gf.vec``)."""
+        x = _as_array(x)
         y = torch.zeros(self.shape[0], dtype=self.vals.dtype,
                         device=self.vals.device)
         return y.index_add_(0, self.rows, self.vals * x[self.cols])
 
     __mul__ = matvec
     __matmul__ = matvec
+
+    def todense(self):
+        A = torch.zeros(self.shape, dtype=self.vals.dtype,
+                        device=self.vals.device)
+        return A.index_put_((self.rows.long(), self.cols.long()), self.vals,
+                            accumulate=True)
+
+    def to_scipy(self):
+        from scipy.sparse import coo_matrix
+
+        return coo_matrix(
+            (self.vals.detach().cpu().numpy(),
+             (self.rows.cpu().numpy(), self.cols.cpu().numpy())),
+            shape=self.shape,
+        ).tocsc()
 
     def diagonal(self):
         d = torch.zeros(self.shape[0], dtype=self.vals.dtype,
@@ -82,11 +111,17 @@ class SparseMatrix:
             self._ell = self.to_ell()
         return self._ell
 
-    @property
-    def T(self):
+    def Inverse(self, freedofs=None, inverse="", **kw):
+        return InverseMatrix(self, freedofs, method=inverse)
+
+    def CreateTranspose(self):
         return SparseMatrix(self.cols, self.rows, self.vals,
                             (self.shape[1], self.shape[0]),
                             device=self.vals.device)
+
+    @property
+    def T(self):
+        return self.CreateTranspose()
 
     def __repr__(self):
         return f"SparseMatrix({self.shape}, nnz-triplets={self.vals.shape[0]})"
@@ -186,3 +221,67 @@ class DIAMatrix:
         if k0.size != 1:
             raise ValueError("DIAMatrix has no offset-0 diagonal")
         return self.vals[int(k0[0])]
+
+
+class InverseMatrix:
+    """Solver object: `inv * rhs` solves on the free dofs (zero elsewhere).
+
+    method: NGSolve direct-solver names ("", "sparsecholesky", "umfpack",
+    "pardiso", "masterinverse") all dispatch to the host scipy LU;
+    "cg" runs the device Jacobi-CG path (``krylov.CGSolver`` on the ELL view,
+    every product through ``ell_matvec``) for large SPD systems.  Unknown
+    names raise instead of being silently ignored.
+    """
+
+    _DIRECT = ("", "sparsecholesky", "umfpack", "pardiso", "masterinverse")
+
+    def __init__(self, mat: SparseMatrix, freedofs=None, method=""):
+        if mat.shape[0] != mat.shape[1]:
+            raise ValueError(
+                f"Inverse of a rectangular matrix {mat.shape}; "
+                "Petrov-Galerkin systems must be square to solve")
+        self.mat = mat
+        self.method = str(method or "").lower()
+        if self.method not in self._DIRECT + ("cg",):
+            raise ValueError(
+                f"unknown inverse method {method!r}; use one of "
+                f"{self._DIRECT + ('cg',)}")
+        n = mat.shape[0]
+        if freedofs is None:
+            self.free = np.ones(n, dtype=bool)
+        else:
+            from ..fem.space import _arr
+
+            self.free = _arr(freedofs)
+        self._factor = None
+
+    def _factorize(self):
+        if self._factor is None:
+            from scipy.sparse.linalg import splu
+
+            A = self.mat.to_scipy().tocsr()
+            idx = np.nonzero(self.free)[0]
+            Af = A[idx][:, idx].tocsc()
+            self._factor = (splu(Af), idx)
+        return self._factor
+
+    def solve(self, rhs):
+        rhs = _as_array(rhs)
+        if self.method == "cg":  # device path, no host round trip
+            from .krylov import CGSolver
+
+            return CGSolver(self.mat, freedofs=None if self.free.all()
+                            else self.free, maxsteps=20 * self.mat.shape[0],
+                            tol=1e-12) * rhs
+        rhs_np = torch.as_tensor(rhs).detach().cpu().numpy().astype(np.float64)
+        lu, idx = self._factorize()
+        out = np.zeros_like(rhs_np)
+        out[idx] = lu.solve(rhs_np[idx])
+        return torch.as_tensor(out, dtype=config.dtype,
+                               device=self.mat.vals.device)
+
+    def __mul__(self, rhs):
+        return self.solve(rhs)
+
+    def __matmul__(self, rhs):
+        return self.solve(rhs)

@@ -19,6 +19,15 @@ import ngsxfem_tpu_torch.solvers.ell_spmv
 import ngsxfem_tpu_torch.solvers.sparse
 import ngsxfem_tpu_torch.solvers.krylov
 import ngsxfem_tpu_torch.solvers.mg
+import ngsxfem_tpu_torch.solvers.latticemg
+import ngsxfem_tpu_torch.fem.space
+import ngsxfem_tpu_torch.fem.gridfunction
+import ngsxfem_tpu_torch.forms.proxies
+import ngsxfem_tpu_torch.forms.evaluate
+import ngsxfem_tpu_torch.forms.assemble
+import ngsxfem_tpu_torch.examples.cutfem
+import ngsxfem_tpu_torch.examples.fictdom3d
+import ngsxfem_tpu_torch.examples.fictdom_ghostpen
 import ngsxfem_tpu_torch.ops.multilinear
 import ngsxfem_tpu_torch.geom.cutinfo
 import chip_smoke
@@ -31,6 +40,16 @@ InterpolateToP1(sqrt(x*x + y*y) - 0.5, lsetp1)
 area = Integrate({"levelset": lsetp1, "domain_type": NEG},
                  CoefficientFunction(1.0), mesh, order=4)
 assert abs(area - 0.19634954084936207) < 1e-3, area
+# a weak form through BilinearForm/LinearForm, and the lattice multigrid
+err = ngsxfem_tpu_torch.examples.fictdom3d.run(nx=4, verbose=False,
+                                               device="cpu")
+assert 0.05 < err < 0.2, err
+err = ngsxfem_tpu_torch.examples.cutfem.run(nx=6, verbose=False, device="cpu")
+assert 0.1 < err < 0.5, err
+mg1 = LatticeDIAMG([[-1, 0, 1]], [5], dim=1)
+pp = mg1.prepare_safe(mg1.params([[[0, -1, -1, -1, -1], [2] * 5,
+                                   [-1, -1, -1, -1, 0]]], device="cpu"))
+assert float(pp["ainv0_res"]) < 1e-12
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ngsxfem_tpu"))
 print(bad)
@@ -39,8 +58,9 @@ sys.exit(1 if bad else 0)
 
 
 def test_port_imports_no_jax():
-    """Importing the port, its modules and chip_smoke, and running the
-    Quick start on the CPU, loads no jax and no ngsxfem_tpu module."""
+    """Importing the port, its modules, its examples and chip_smoke, and
+    running the Quick start, two examples and a coarse multigrid inverse on
+    the CPU, loads no jax and no ngsxfem_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
