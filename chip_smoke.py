@@ -6,7 +6,8 @@
 The flagship is 3D fictitious-domain Poisson with Nitsche terms and
 facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
 117,649 dofs, float32).  Three paths run through it (and general cut
-quadrature, phase 9, beside it), and two more in phases 12-15:
+quadrature, phase 9, beside it), two more in phases 12-15, and the
+skeleton, vector and XFEM workloads in phases 16-17:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -27,7 +28,12 @@ quadrature, phase 9, beside it), and two more in phases 12-15:
 - the public API: ``examples.fictdom3d`` (the flagship written as a weak form
   through ``BilinearForm``/``LinearForm``), solved by the host LU and by
   ``a.mat.Inverse(freedofs, inverse="cg")``, which runs Jacobi-CG through the
-  ``ell_matvec`` kernel.
+  ``ell_matvec`` kernel;
+- the skeleton, vector and XFEM workloads: ``examples.fictdom_dg_ghostpen``
+  (L2, cut-facet interior penalty), ``fictdom_dn_ghostpen`` (``dnjump``
+  skeleton ghost penalty), ``stokescutfem`` (``VectorH1``, ``div``, a
+  saddle-point system solved by ``MinResSolver``), ``nxfem`` (XFESpace)
+  and ``xfespaces``, their systems' products all through ``ell_matvec``.
 
 Phases, one line each:
 
@@ -99,7 +105,24 @@ Phases, one line each:
    ``examples.cutfem`` (nx=30, L2 ~0.0188) within 1e-8 of their CPU runs;
 15. times of phases 12-14 with CUDA events and ``torch.profiler`` (device
    kernels, busy time, idle share, kernels per MG-CG iteration) and their
-   peak memory.
+   peak memory;
+16. the skeleton, vector and XFEM workloads, launch counters reset before
+   them, f64: ``fictdom_dg_ghostpen`` (order 2) at nx = 20, 40,
+   ``fictdom_dn_ghostpen`` at nx=20, ``nxfem`` at nx=15 and ``xfespaces``
+   on the card against the CPU (1e-8) with the reference tests' limits;
+   ``nxfem`` nx=64 ``"cg"`` vs host LU (1e-8); ``stokescutfem`` at nx=16
+   (limits) and nx=32 (convergence; ``MinResSolver`` with the example's
+   block preconditioner vs host LU, velocity and errors to 1e-8); then each
+   at its card size (DG, dn and nxfem nx=256 through ``Inverse(free,
+   inverse="cg")``, Stokes nx=128 through ``MinResSolver``), built once
+   through ``system()``: kernel B2 == plain bitwise on each table (a seeded
+   x, the free-masked load) with its device time, bound and cuSPARSE time,
+   ``ell_spmv`` launches == the solver's products == iterations + 1, true
+   relative residual <= 1e-8, L2 errors below the smaller sizes';
+17. the card-size calls of phase 16: ``Assemble`` by CUDA events and under
+   ``torch.profiler`` (device kernels, busy, idle share, host seconds),
+   ``to_ell`` (host), each solve over a window of 100 iterations, peak
+   memory.
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -135,6 +158,18 @@ LMG_TRUE_TOL = {torch.float32: 1e-4, torch.float64: 1e-7}
 JACOBI_MAXITER = 3000
 F64_SOLVE_TOL = 1e-10   # true relative residual of the native-f64 solves
 API_NX = (8, 12, 24, 48)  # examples.fictdom3d levels (EOC over the last 3)
+# phase 16: the examples' published settings at the reference tests' sizes,
+# then one card size each ("big"), built once through system()
+DG_NX, DN_NX, ST_NX, NXF_NX, NXF_LU_NX = (20, 40), 20, (16, 32), 15, 64
+# the reference tests' limits at those sizes: DG at nx=40, dn at nx=20,
+# nxfem at nx=15, Stokes (u, p) at nx=16 (tests/test_workloads.py:74-83,
+# :199-205, tests/test_ghostpenalty.py:13-18, tests/test_stokes.py:11-21)
+DG_MAX, DN_MAX, NXF_MAX, ST_MAX = 0.006, 0.08, 0.08, (0.02, 0.05)
+# and their convergence under the doubling of nx (DG; Stokes u, p)
+DG_RATE, ST_RATE = 3.0, (3.0, 2.5)
+BIG_NX = {"fictdom_dg_ghostpen": 256, "fictdom_dn_ghostpen": 256,
+          "stokescutfem": 128, "nxfem": 256}
+WINDOW = 100  # solver iterations profiled per card-size solve (phase 17)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
 F64_FLOP_PER_S = 34e12      # H100 SXM, f64 outside the tensor cores
@@ -917,7 +952,7 @@ def public_api(T, device, model64, struct64, V64):
     """Phase 14: the examples through BilinearForm/LinearForm.  Returns the
     numbers of the phase and the closures that phase 15 times."""
     from ngsxfem_tpu_torch.examples import cutfem, fictdom3d, fictdom_ghostpen
-    from ngsxfem_tpu_torch.solvers import ell_spmv, krylov
+    from ngsxfem_tpu_torch.solvers import ell_spmv
 
     out = {}
     errs = [fictdom3d.run(nx=nx, verbose=False, device=device)
@@ -979,29 +1014,15 @@ def public_api(T, device, model64, struct64, V64):
     check(min(eocs) >= EOC_MIN, f"fictdom3d L2 errors {errs}: EOC {eocs}")
     out["errs"], out["eocs"] = errs, eocs
     before = ell_spmv.launches
-    counted = {"n": 0}
-    cg_orig = krylov.cg
-
-    def counting_cg(matvec, *args, **kw):
-        def mv(z):
-            counted["n"] += 1
-            return matvec(z)
-        res = cg_orig(mv, *args, **kw)
-        counted["iters"] = res[1]
-        return res
-
-    krylov.cg = counting_cg
-    try:
+    with counted_products("cg") as cnt:
         x_cg = a.mat.Inverse(free, inverse="cg") * f.vec.data
-    finally:
-        krylov.cg = cg_orig
     sync(device)
     out["cg_launches"] = ell_spmv.launches - before
-    out["cg_iters"], out["cg_products"] = counted["iters"], counted["n"]
+    out["cg_iters"], out["cg_products"] = cnt.iters, cnt.products
     if device.type == "cuda":
-        check(out["cg_launches"] == counted["n"] > 0,
+        check(out["cg_launches"] == cnt.products > 0,
               f"'cg' solve: {out['cg_launches']} ell_spmv launches for "
-              f"{counted['n']} products")
+              f"{cnt.products} products")
     dsol = float(torch.linalg.vector_norm(x_cg - x_lu)
                  / torch.linalg.vector_norm(x_lu))
     check(dsol <= 1e-8, f"direct vs 'cg' solution: rel {dsol}")
@@ -1026,6 +1047,296 @@ def public_api(T, device, model64, struct64, V64):
     return out
 
 
+# --- phases 16-17: skeleton, vector and XFEM workloads --------------------
+
+
+class counted_products:
+    """While active, counts the matrix products and iterations of
+    ``krylov.<name>`` (``cg`` or ``minres``), which the solver objects
+    call through the module."""
+
+    def __init__(self, name):
+        from ngsxfem_tpu_torch.solvers import krylov
+
+        self.mod, self.name = krylov, name
+        self.products, self.iters = 0, None
+
+    def __enter__(self):
+        self.orig = getattr(self.mod, self.name)
+
+        def run(matvec, *args, **kw):
+            def mv(z):
+                self.products += 1
+                return matvec(z)
+            res = self.orig(mv, *args, **kw)
+            self.iters = int(res[1])
+            return res
+
+        setattr(self.mod, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def event_ms(fn):
+    """(fn(), ms by CUDA events) of one call (by the host clock without a
+    card, as the CPU rehearsal of the tests runs it)."""
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def b2_on_table(label, ell, free, load, device):
+    """Kernel B2 against its plain version on an assembled table, with a
+    seeded x and with the free-masked load (bitwise), its device time per
+    launch, its bound and cuSPARSE on the same table.  These launches are
+    not the path's own: the count is put back."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    path_launches = ell_spmv.launches
+    n, K = ell.vals.shape
+    rng = np.random.default_rng(2030)
+    xs = torch.as_tensor(rng.standard_normal(ell.shape[1]),
+                         dtype=ell.vals.dtype, device=device)
+    fm = torch.as_tensor(free, device=device)
+    xf = torch.where(fm, load, 0.0).contiguous()
+    out = {"label": label, "n": int(n), "K": int(K),
+           "dtype": str(ell.vals.dtype)[6:]}
+    out["err"] = ell_kernel_vs_plain([(f"{label} seeded x", ell.vals,
+                                       ell.cols, xs),
+                                      (f"{label} masked load", ell.vals,
+                                       ell.cols, xf)])
+    out["ms"] = per_call_ms(lambda: ell_spmv.ell_matvec(ell.vals, ell.cols,
+                                                        xs), 100)
+    kern, _ = device_kernels(
+        lambda: ell_spmv.ell_matvec(ell.vals, ell.cols, xs), 20)
+    hits = [v for k, v in kern.items() if "ell_spmv_kernel" in k]
+    out["dev_us"] = hits[0][1] / hits[0][0] if hits else None
+    out["plain_ms"] = per_call_ms(
+        lambda: ell_spmv.ell_matvec_plain(ell.vals, ell.cols, xs), 5)
+    out["bound"] = ell_bound(n, K, ell.shape[1], ell.vals.element_size())
+    rid = torch.arange(n, device=device)[:, None].expand(n, K)
+    with warnings.catch_warnings():  # "beta state" notices of torch.sparse
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rid.reshape(-1), ell.cols.reshape(-1).long()]),
+            ell.vals.reshape(-1), ell.shape).coalesce().to_sparse_csr()
+    y_lib = csr @ xs
+    y_k = ell_spmv.ell_matvec(ell.vals, ell.cols, xs)
+    lib_rel = float(torch.linalg.vector_norm(y_lib - y_k)
+                    / torch.linalg.vector_norm(y_lib))
+    check(lib_rel <= 1e-12, f"{label}: cuSPARSE yardstick rel {lib_rel}")
+    out["lib_ms"] = per_call_ms(lambda: csr @ xs, 100)
+    kern, _ = device_kernels(lambda: csr @ xs, 20)
+    out["lib_dev_us"] = sum(us for _, us in kern.values()) / 20 if kern else None
+    ell_spmv.launches = path_launches
+    return out
+
+
+def card_size(name, build, device, lift=None, minres_pre=None):
+    """One workload at its card size, built once through its module's
+    ``system()`` (``build()`` returns its tuple): ``Assemble`` (seconds by
+    the host clock), ``to_ell`` (host numpy), B2 on the table, the device
+    solve (``Inverse(free, inverse="cg")``, or ``MinResSolver`` with the
+    preconditioner ``minres_pre(a, parts)``) with its ell_spmv launches
+    against the solver's products, the true residual and the L2 error.
+    ``lift(parts)`` gives the GridFunction holding Dirichlet data, if any.
+    Returns the numbers and what phase 17 profiles."""
+    from ngsxfem_tpu_torch import CGSolver, GridFunction, MinResSolver
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers.sparse import _as_array
+
+    out = {"name": name, "nx": BIG_NX[name]}
+    t0 = time.perf_counter()
+    parts = build()
+    a, f, V, free, error = parts[:5]
+    sync(device)
+    out["system_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a.Assemble()
+    f.Assemble()
+    sync(device)
+    out["assemble_s"] = time.perf_counter() - t0
+    out["ntriplets"] = int(a.mat.vals.shape[0])
+    t0 = time.perf_counter()
+    ell = a.mat.ell()  # the cached ELL view: to_ell on the host, once
+    sync(device)
+    out["to_ell_s"] = time.perf_counter() - t0
+    lift = None if lift is None else lift(parts)
+    rhs = f.vec.data if lift is None else f.vec.data - a.mat * lift.vec.data
+    free_np = free.np
+    out["nfree"] = int(free_np.sum())
+    if device.type == "cuda":
+        out["b2"] = b2_on_table(f"{name} nx={out['nx']}", ell, free_np, rhs,
+                                device)
+    before = ell_spmv.launches
+    if minres_pre is None:
+        solver = a.mat.Inverse(free, inverse="cg")
+        kind = "cg"
+    else:
+        pre = minres_pre(a, parts)
+        solver = MinResSolver(a.mat, pre=pre, freedofs=free, maxsteps=50000,
+                              tol=1e-12)
+        kind = "minres"
+    with counted_products(kind) as cnt:
+        x, out["solve_ms"] = event_ms(lambda: solver * rhs)
+    out["launches"] = ell_spmv.launches - before
+    out["kind"], out["iters"], out["products"] = kind, cnt.iters, cnt.products
+    if device.type == "cuda":
+        check(out["launches"] == cnt.products == cnt.iters + 1,
+              f"{name}: {out['launches']} ell_spmv launches, "
+              f"{cnt.products} products, {cnt.iters} iterations")
+    fm = torch.as_tensor(free_np, device=device)
+    r = torch.where(fm, _as_array(rhs) - a.mat * x, 0.0)
+    out["true_rel"] = float(torch.linalg.vector_norm(r)
+                            / torch.linalg.vector_norm(torch.where(fm, rhs, 0.0)))
+    gfu = GridFunction(V)
+    gfu.vec.data = x if lift is None else lift.vec.data + x
+    out["err"] = error(gfu)
+    out["peak_gib"] = peak_gib(device)
+    out["a"], out["f"], out["solver"], out["rhs"] = a, f, solver, rhs
+    # the same solver for WINDOW iterations on its tolerance path (a
+    # tolerance it cannot reach): what phase 17 profiles
+    out["window"] = (MinResSolver(a.mat, pre=solver.pre, freedofs=free,
+                                  maxsteps=WINDOW, tol=1e-300)
+                     if kind == "minres" else
+                     CGSolver(a.mat, freedofs=free, maxsteps=WINDOW,
+                              tol=1e-300))
+    return out
+
+
+def skeleton_slice(T, device):
+    """Phase 16: the DG, dn-ghost-penalty, cut Stokes, Nitsche-XFEM and
+    XFESpace workloads at their reference tests' sizes (card against this
+    host's CPU, the tests' thresholds), then each at its card size."""
+    from ngsxfem_tpu_torch.examples import (fictdom_dg_ghostpen,
+                                            fictdom_dn_ghostpen, nxfem,
+                                            stokescutfem, xfespaces)
+
+    out = {}
+
+    def card_vs_cpu(name, fn):
+        e_dev, e_cpu = fn(device), fn(torch.device("cpu"))
+        for a, b in zip(np.atleast_1d(e_dev), np.atleast_1d(e_cpu)):
+            check(abs(a - b) <= 1e-8 * abs(b), f"{name}: card {e_dev} vs CPU "
+                                               f"{e_cpu}")
+        out[name] = (e_dev, e_cpu)
+        return e_dev
+
+    # DG fictitious domain, order 2 (tests/test_workloads.py:74-83)
+    e_dg = [card_vs_cpu(f"dg nx={nx}", lambda d, nx=nx: fictdom_dg_ghostpen.run(
+        nx=nx, order=2, verbose=False, device=d)) for nx in DG_NX]
+    out["dg"] = e_dg
+    check(e_dg[1] < DG_MAX and e_dg[1] < e_dg[0] / DG_RATE,
+          f"DG L2 errors {e_dg}")
+    # dn-jump ghost penalty, order 1 (tests/test_ghostpenalty.py:13-18)
+    e_dn = card_vs_cpu(f"dn nx={DN_NX}", lambda d: fictdom_dn_ghostpen.run(
+        nx=DN_NX, order=1, verbose=False, device=d))
+    check(e_dn < DN_MAX, f"dn ghost penalty L2 error {e_dn}")
+    out["dn"] = e_dn
+    # Nitsche-XFEM, order 1 (tests/test_workloads.py:199-205)
+    e_nx = card_vs_cpu(f"nxfem nx={NXF_NX}", lambda d: nxfem.run(
+        nx=NXF_NX, verbose=False, device=d))
+    check(e_nx < NXF_MAX, f"nxfem L2 error {e_nx}")
+    out["nxfem"] = e_nx
+    # the XFESpace demo: every number equal on card and CPU
+    nums = [xfespaces.system(device=d) for d in (device, torch.device("cpu"))]
+    for k in nums[1]:
+        a, b = np.asarray(nums[0][k], float), np.asarray(nums[1][k], float)
+        check(np.all(np.abs(a - b) <= 1e-12 * np.maximum(np.abs(b), 1.0)),
+              f"xfespaces {k}: card {nums[0][k]} vs CPU {nums[1][k]}")
+    out["xfespaces"] = nums[0]
+
+    # the "cg" solve at nx=64 against the host LU (nxfem)
+    a, f, VhG, free, _, lift = nxfem.system(nx=NXF_LU_NX, device=device)
+    a.Assemble()
+    f.Assemble()
+    rhs = f.vec.data - a.mat * lift.vec.data
+    x_lu = a.mat.Inverse(free) * rhs
+    x_cg = a.mat.Inverse(free, inverse="cg") * rhs
+    out["nxfem_lu_cg"] = float(torch.linalg.vector_norm(x_cg - x_lu)
+                               / torch.linalg.vector_norm(x_lu))
+    check(out["nxfem_lu_cg"] <= 1e-8,
+          f"nxfem nx={NXF_LU_NX}: 'cg' vs LU rel {out['nxfem_lu_cg']}")
+
+    # cut Stokes, P2/P1 (tests/test_stokes.py:11-21): nx=16 by run(); nx=32
+    # built once: the host LU and MINRES on the card, equal to 1e-8
+    u16, p16 = card_vs_cpu(f"stokes nx={ST_NX[0]}", lambda d: stokescutfem.run(
+        nx=ST_NX[0], verbose=False, device=d))
+    check(u16 < ST_MAX[0] and p16 < ST_MAX[1],
+          f"Stokes nx={ST_NX[0]} errors {u16}, {p16}")
+    out["stokes"] = (u16, p16)
+    a, f, X, act, errors, pmass = stokescutfem.system(nx=ST_NX[1],
+                                                      device=device)
+    a.Assemble()
+    f.Assemble()
+    pmass.Assemble()
+    x_lu = a.mat.Inverse(act) * f.vec
+    with counted_products("minres") as cnt:
+        x_mr = T.MinResSolver(a.mat, pre=stokescutfem.minres_preconditioner(
+            a, pmass, X, act), freedofs=act, maxsteps=50000, tol=1e-12) * f.vec
+    errs = []
+    for xs in (x_lu, x_mr):
+        gf = T.GridFunction(X)
+        gf.vec.data = xs
+        errs.append(errors(gf))
+    (u32, p32), (u32m, p32m) = errs
+    vel = X.Range(0)
+    dvel = float(torch.linalg.vector_norm(x_mr[vel] - x_lu[vel])
+                 / torch.linalg.vector_norm(x_lu[vel]))
+    check(u32 < u16 / ST_RATE[0] and p32 < p16 / ST_RATE[1],
+          f"Stokes convergence {(u16, p16)} -> {(u32, p32)}")
+    check(dvel <= 1e-8 and abs(u32m - u32) <= 1e-8 * u32
+          and abs(p32m - p32) <= 1e-8 * p32,
+          f"Stokes nx=32 MINRES vs LU: velocity rel {dvel}, errors "
+          f"{(u32m, p32m)} vs {(u32, p32)}")
+    out["stokes32"] = (u32, p32, dvel, abs(u32m - u32) / u32,
+                       abs(p32m - p32) / p32, cnt.iters)
+
+    def stokes_pre(a, parts):
+        _, _, X, act, _, pmass = parts
+        pmass.Assemble()
+        return stokescutfem.minres_preconditioner(a, pmass, X, act)
+
+    # the card sizes, each built once through system()
+    bigs = [
+        card_size("fictdom_dg_ghostpen", lambda: fictdom_dg_ghostpen.system(
+            nx=BIG_NX["fictdom_dg_ghostpen"], order=2, device=device), device),
+        card_size("fictdom_dn_ghostpen", lambda: fictdom_dn_ghostpen.system(
+            nx=BIG_NX["fictdom_dn_ghostpen"], order=1, device=device), device),
+        card_size("stokescutfem", lambda: stokescutfem.system(
+            nx=BIG_NX["stokescutfem"], device=device), device,
+            minres_pre=stokes_pre),
+        card_size("nxfem", lambda: nxfem.system(nx=BIG_NX["nxfem"],
+                                                device=device), device,
+                  lift=lambda parts: parts[5]),
+    ]
+    dg, dn, st, nxf = bigs
+    check(dg["err"] < e_dg[1], f"DG nx={dg['nx']} L2 {dg['err']} >= "
+                               f"nx={DG_NX[1]} {e_dg[1]}")
+    check(dn["err"] < e_dn, f"dn nx={dn['nx']} L2 {dn['err']} >= "
+                            f"nx={DN_NX} {e_dn}")
+    check(st["err"][0] < u32 and st["err"][1] < p32,
+          f"Stokes nx={st['nx']} errors {st['err']} vs nx={ST_NX[1]} "
+          f"{(u32, p32)}")
+    check(nxf["err"] < e_nx, f"nxfem nx={nxf['nx']} L2 {nxf['err']} >= "
+                             f"nx={NXF_NX} {e_nx}")
+    for b in bigs:
+        check(b["true_rel"] <= 1e-8, f"{b['name']} nx={b['nx']}: true "
+                                     f"relative residual {b['true_rel']}")
+    out["bigs"] = bigs
+    return out
+
+
 def peak_gib(device):
     """Peak device memory since the last call, in GiB (0 on the CPU)."""
     if device.type != "cuda":
@@ -1045,6 +1356,87 @@ def profiled(fn, reps=5):
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:3]
     return (ms, sum(c for c, _ in kern.values()), busy, 1 - busy / wall,
             "; ".join(f"{k[:50]} x{c} {us / 1e3:.3f} ms" for k, (c, us) in top))
+
+
+def phases_16_17(T, dev, t_start):
+    """Phases 16 (skeleton, vector and XFEM workloads, launch counters reset
+    just before them) and 17 (their card-size calls profiled).  Returns the
+    phase-16 numbers and the ell_spmv launches of its path."""
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+
+    torch.cuda.synchronize()
+    peak_gib(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    sk = skeleton_slice(T, dev)
+    sk_launches = ell_spmv.launches
+    check(sk_launches > 0, "the skeleton/XFEM path launched ell_spmv no time")
+    u32, p32, dvel, du, dp, mr32 = sk["stokes32"]
+    print(f"[16 reference sizes] card (CPU): fictdom_dg_ghostpen order 2 "
+          f"nx={list(DG_NX)} L2 "
+          + ", ".join(f"{sk[f'dg nx={nx}'][0]:.10e} ({sk[f'dg nx={nx}'][1]:.10e})"
+                      for nx in DG_NX)
+          + f"; fictdom_dn_ghostpen nx={DN_NX} L2 {sk[f'dn nx={DN_NX}'][0]:.10e} "
+          f"({sk[f'dn nx={DN_NX}'][1]:.10e}); nxfem nx={NXF_NX} L2 "
+          f"{sk[f'nxfem nx={NXF_NX}'][0]:.10e} "
+          f"({sk[f'nxfem nx={NXF_NX}'][1]:.10e}), nx={NXF_LU_NX} 'cg' vs LU "
+          f"rel {sk['nxfem_lu_cg']:.3e}; stokescutfem nx={ST_NX[0]} u/p L2 "
+          f"{sk['stokes'][0]:.6e}/{sk['stokes'][1]:.6e}, "
+          f"nx={ST_NX[1]} {u32:.6e}/{p32:.6e}, MINRES ({mr32} iterations) vs "
+          f"LU: velocity rel {dvel:.3e}, u/p errors rel {du:.3e}/{dp:.3e}; "
+          f"xfespaces {sk['xfespaces']}", flush=True)
+    for b in sk["bigs"]:
+        b2 = b["b2"]
+        print(f"[16 card size] {b['name']} nx={b['nx']}: {b['nfree']} free "
+              f"dofs, {b['ntriplets']} COO triplets, ELL {b2['n']} x "
+              f"{b2['K']} {b2['dtype']}; system() {b['system_s']:.2f} s, "
+              f"Assemble (a and f) {b['assemble_s']:.2f} s, to_ell "
+              f"{b['to_ell_s']:.2f} s (host); {b['kind']} solve "
+              f"{b['iters']} iterations = {b['products']} products = "
+              f"{b['launches']} ell_spmv launches, {b['solve_ms']:.1f} ms, "
+              f"true rel res {b['true_rel']:.3e}; L2 error {b['err']}; B2 on "
+              f"this table == plain bitwise (seeded x, masked load, max|dy| "
+              f"{b2['err']:.3e}), {b2['dev_us']} us device per launch, "
+              f"{b2['ms'] * 1e3:.3f} us per call, plain "
+              f"{b2['plain_ms'] * 1e3:.3f} us, bound {b2['bound'][0] * 1e3:.3f}"
+              f" us ({b2['bound'][1]}), cuSPARSE {b2['lib_dev_us']} us device "
+              f"({b2['lib_ms'] * 1e3:.3f} us per call); peak memory "
+              f"{b['peak_gib']:.2f} GiB", flush=True)
+    print(f"[16 launches] ell_spmv {sk_launches}, dia_cg {dia_cg.launches}; "
+          f"wall of phase 16 {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 17. the card-size calls of phase 16 on the card: one call each by CUDA
+    # events, one under torch.profiler; the solves over a window of WINDOW
+    # iterations of the same solver
+    t0 = time.perf_counter()
+    for b in sk["bigs"]:
+        tag = f"{b['name']} nx={b['nx']}"
+        for what, fn in (("BilinearForm.Assemble", b["a"].Assemble),
+                         ("LinearForm.Assemble", b["f"].Assemble)):
+            _, ms = event_ms(fn)
+            kern, wall = device_kernels(fn, 1, warm=False)
+            busy = sum(us for _, us in kern.values()) / 1e3
+            print(f"[17 times] {card()} | {what} {tag}: {ms:.3f} ms, "
+                  f"{sum(c for c, _ in kern.values())} device kernels, device "
+                  f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, host "
+                  f"(not device-busy) {(ms - busy) / 1e3:.3f} s", flush=True)
+        window, rhs = b["window"], b["rhs"]
+        _, wms = event_ms(lambda: window * rhs)
+        kern, wall = device_kernels(lambda: window * rhs, 1, warm=False)
+        busy = sum(us for _, us in kern.values()) / 1e3
+        nk = sum(c for c, _ in kern.values())
+        print(f"[17 times] {card()} | {b['kind']} solve {tag}: "
+              f"{b['solve_ms']:.3f} ms for {b['iters']} iterations (phase 16); "
+              f"a {WINDOW}-iteration window {wms:.3f} ms, {nk} device kernels "
+              f"({nk / WINDOW:.1f} per iteration), device busy {busy:.3f} ms, "
+              f"idle share {1 - busy / wall:.3f}; to_ell {b['to_ell_s']:.3f} s "
+              f"(host numpy); peak memory {b['peak_gib']:.2f} GiB", flush=True)
+    print(f"[17 times] peak memory {peak_gib(dev):.2f} GiB | wall of phase 17 "
+          f"{time.perf_counter() - t0:.2f} s, of the whole run "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+
+    return sk, sk_launches
 
 
 def main():
@@ -1569,6 +1961,8 @@ def main():
         print(f"[15 times] {card()} | {name}: {ms:.3f} ms, {nk} device "
               f"kernels, device busy {busy:.3f} ms, idle share {idle:.3f}; "
               f"top: {top}", flush=True)
+    api_ell_err, api_spmv_ms = api["ell_err"], api["spmv_ms"]
+    api_spmv_plain_ms, api_spmv_bound = api["spmv_plain_ms"], api["spmv_bound"][0]
     print(f"[15 times] {card()} | Inverse() direct solve nx={NX} on the host "
           f"(scipy splu, {api['nfree']} free dofs, timed in phase 14): "
           f"factorize + solve {api['lu_s']:.3f} s, solve again "
@@ -1576,6 +1970,9 @@ def main():
           f"{peak_gib(dev):.2f} GiB | wall of phase 15 "
           f"{time.perf_counter() - t0:.2f} s, of the whole run "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
+
+    del api, a_form, f_form, inv_cg
+    sk, sk_launches = phases_16_17(T, dev, t_start)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -1597,10 +1994,19 @@ def main():
         "replaces": "ngsxfem_tpu/solvers/sparse.py:179",
         "launches": ell_launches,
         "launches_public_api": api_launches,
-        "max_abs_err_public_api": api["ell_err"],
-        "ms_public_api": api["spmv_ms"],
-        "plain_ms_public_api": api["spmv_plain_ms"],
-        "bound_ms_public_api": api["spmv_bound"][0],
+        "max_abs_err_public_api": api_ell_err,
+        "ms_public_api": api_spmv_ms,
+        "plain_ms_public_api": api_spmv_plain_ms,
+        "bound_ms_public_api": api_spmv_bound,
+        "launches_slice6": sk_launches,
+        "slice6_tables": [{
+            "table": f"{b['name']} nx={b['nx']}", "n": b["b2"]["n"],
+            "K": b["b2"]["K"], "dtype": b["b2"]["dtype"],
+            "launches": b["launches"], "max_abs_err": b["b2"]["err"],
+            "ms": b["b2"]["ms"], "device_us": b["b2"]["dev_us"],
+            "plain_ms": b["b2"]["plain_ms"], "bound_ms": b["b2"]["bound"][0],
+            "bound_by": b["b2"]["bound"][1], "library_ms": b["b2"]["lib_ms"],
+            "library_device_us": b["b2"]["lib_dev_us"]} for b in sk["bigs"]],
         "max_abs_err": ell_err,
         "ms": spmv_ms,
         "plain_ms": spmv_plain_ms,

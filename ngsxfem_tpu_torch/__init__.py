@@ -15,11 +15,15 @@ Jacobi-PCG ``dia_cg_fused``, the ELL operator ``ELLMatrix`` (product
 ``FunctionalELLMG`` and the lattice multigrid ``LatticeDIAMG``; general
 straight-cut quadrature (meshes with boundary ids, CoefficientFunctions, P1
 level-set ``GridFunction``s, ``CutInfo``, ``Integrate``); and public
-symbolic-form assembly: ``H1`` with Dirichlet marks, ``Compress``, compound
-``FESpace([...])``, trial/test proxies, ``BilinearForm``/``LinearForm``/
-``RestrictedBilinearForm`` with cut-volume (``SymbolicBFI``,
-``SymbolicLFI``) and facet-patch (``SymbolicFacetPatchBFI``) integrators,
-and ``a.mat.Inverse`` (host LU, or ``"cg"`` on the device).  ``from
+symbolic-form assembly: ``H1``, ``L2``, ``NumberSpace``, ``VectorH1``/
+``VectorL2`` with Dirichlet marks, ``Compress``, the enrichment space
+``XFESpace`` with ``neg``/``pos``/``extend``, compound ``FESpace([...])``,
+trial/test proxies with ``grad``, ``div``, ``dn``/``dnjump``,
+``BilinearForm``/``LinearForm``/``RestrictedBilinearForm`` with cut-volume
+(``SymbolicBFI``, ``SymbolicLFI``), skeleton, element-boundary, boundary
+(``VOL_or_BND=BND``) and facet-patch (``SymbolicFacetPatchBFI``)
+integrators, ``a.mat.Inverse`` (host LU, or ``"cg"`` on the device) and
+``MinResSolver`` for saddle-point systems.  ``from
 ngsxfem_tpu_torch import *`` runs the README's Quick start and the
 workloads in ``ngsxfem_tpu_torch/examples``.  What is not ported raises
 ``NotImplementedError`` naming its item in ROADMAP.md.
@@ -32,8 +36,12 @@ from .domaintype import (DOMAIN_TYPE, COMBINED_DOMAIN_TYPE, NEG, POS, IF,
                          ANY)
 from .mesh.structured import (Make1DMesh, MakeStructured2DMesh,
                               MakeStructured3DMesh)
-from .fem.space import (BitArray, CompoundBitArray, H1, CompoundFESpace,
-                        CompressedFESpace, Compress, GetDofsOfElements)
+from .fem.space import (BitArray, CompoundBitArray, H1, L2, NumberSpace,
+                        VectorH1, VectorL2, VectorFESpace, CompoundFESpace,
+                        CompressedFESpace, Compress, GetDofsOfElements,
+                        Periodic)
+from .fem.xfespace import (XFESpace, XToNegPos, neg, pos, extend, neg_grad,
+                           pos_grad, extend_grad)
 from .fem.space import FESpaceFactory as FESpace
 from .fem.gridfunction import GridFunction, InterpolateToP1, grad
 from .forms.proxies import dn, dnjump, div
@@ -52,17 +60,24 @@ from .models.poisson import UnfittedPoisson
 from .solvers.sparse import (DIAMatrix, ELLMatrix, InverseMatrix,
                              SparseMatrix, dia_matvec)
 from .solvers.ell_spmv import ell_matvec, ell_matvec_plain
-from .solvers.krylov import CGSolver, cg, cg_ir, jacobi_preconditioner
+from .solvers.krylov import (CGSolver, MinResSolver, cg, cg_ir, minres,
+                             jacobi_preconditioner)
 from .solvers.dia_cg import dia_cg_fused, dia_cg_fused_plain
 from .solvers.mg import FunctionalELLMG
 from .solvers.latticemg import LatticeDIAMG
 
 FIRST, OPTIMAL, FALLBACK = "FIRST", "OPTIMAL", "FALLBACK"
+CXFESpace = XFESpace  # the reference's C++ class name
+SymbolicCutBFI, SymbolicCutLFI = SymbolicBFI, SymbolicLFI
 
 __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "IF", "CDOM_NO", "CDOM_NEG", "CDOM_POS", "UNCUT", "HASNEG",
            "HASPOS", "ANY", "FIRST", "OPTIMAL", "FALLBACK", "Make1DMesh",
            "MakeStructured2DMesh", "MakeStructured3DMesh", "BitArray", "H1",
+           "L2", "NumberSpace", "VectorH1", "VectorL2", "VectorFESpace",
+           "Periodic", "XFESpace", "CXFESpace", "XToNegPos", "neg", "pos",
+           "extend", "neg_grad", "pos_grad", "extend_grad", "MinResSolver",
+           "minres", "SymbolicCutBFI", "SymbolicCutLFI",
            "CompoundBitArray", "FESpace", "CompoundFESpace",
            "CompressedFESpace", "Compress", "GetDofsOfElements", "dn",
            "dnjump", "div", "BilinearForm", "LinearForm",

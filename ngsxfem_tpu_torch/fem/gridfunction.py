@@ -1,14 +1,16 @@
 """GridFunctions: dof vectors with CF evaluation hooks.
 
-Counterpart of ``ngsxfem_tpu/fem/gridfunction.py:32-260,286-407`` for scalar
-``H1`` spaces, their ``Compress``ed restrictions and compounds of them
-(without the jit cache of ``Set`` and without the space-time branches).
-A GridFunction IS a CoefficientFunction (as in NGSolve); its evaluation at
-a batch of quadrature points is a gather + contraction over the basis tables
-from ``fem.basis``.  The dof vector is a tensor on the GridFunction's device
-in ``config.dtype``; ``gf.vec.data = array`` replaces it (from numpy or a
-tensor), ``gf.vec.NumPy()`` reads it back.  A component of a compound
-GridFunction reads and writes its block of the parent's vector in place.
+Counterpart of ``ngsxfem_tpu/fem/gridfunction.py:32-407`` for ``H1``,
+``L2``, ``NumberSpace`` and vector spaces, their ``Compress``ed
+restrictions, ``XFESpace`` and compounds of them (without the jit cache of
+``Set`` and without the space-time branches, ROADMAP A13).  A GridFunction
+IS a CoefficientFunction (as in NGSolve); its evaluation at a batch of
+quadrature points is a gather + contraction over the basis tables from
+``fem.basis``, of every component for a vector space.  The dof vector is a
+tensor on the GridFunction's device in ``config.dtype``; ``gf.vec.data =
+array`` replaces it (from numpy or a tensor), ``gf.vec.NumPy()`` reads it
+back.  A component of a compound GridFunction (``gf.components``) reads and
+writes its block of the parent's vector in place.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx, eval_pure
 from ..mesh.mesh import small_matmul
 from .basis import shapes, dshapes
-from .space import CompoundFESpace, FESpace, H1, GetDofsOfElements
+from .space import (CompoundFESpace, FESpace, H1, GetDofsOfElements,
+                    VectorFESpace)
 
 
 class VecShim:
@@ -130,21 +133,26 @@ def _a(o):
 
 
 class GridFunction(CF):
-    """GridFunction on an ``H1`` space, a ``Compress``ed one or a compound
-    of them.  Its vector lives on ``device`` (default: the space's device,
-    the card unless the caller asks for the CPU; without a card and without
-    that argument it raises) in ``dtype`` (default ``config.dtype``)."""
+    """GridFunction on a scalar or vector space, a ``Compress``ed one, an
+    ``XFESpace`` or a compound of them.  Its vector lives on ``device``
+    (default: the space's device, the card unless the caller asks for the
+    CPU; without a card and without that argument it raises) in ``dtype``
+    (default ``config.dtype``)."""
 
     def __init__(self, space, name="gf", device=None, dtype=None,
                  _parent=None, _block=None):
-        if not isinstance(space, (FESpace, CompoundFESpace)):
+        from .xfespace import XFESpace
+
+        if not isinstance(space, (FESpace, CompoundFESpace, XFESpace)):
             raise NotImplementedError(
-                f"GridFunction on {type(space).__name__} (ROADMAP A9b/A13)")
+                f"GridFunction on {type(space).__name__} (space-time and "
+                "facet spaces: ROADMAP A13)")
         self.space = space
         self.name = name
         self._parent = _parent
         self._block = _block
-        self.dims = ()
+        vd = getattr(space, "vdim", 1)
+        self.dims = () if vd == 1 else (vd,)
         if _parent is None:
             self.device = resolve_device(device if device is not None
                                          else space._device)
@@ -195,12 +203,18 @@ class GridFunction(CF):
         sp = self.space
         if isinstance(sp, CompoundFESpace):
             raise TypeError("Set on compound GF: use components")
-        ref = torch.as_tensor(sp.dof_rep_ref, dtype=self.dtype,
+        scal = sp.scalar if isinstance(sp, VectorFESpace) else sp
+        ref = torch.as_tensor(scal.dof_rep_ref, dtype=self.dtype,
                               device=self.device)[:, None, :]
-        ids = torch.as_tensor(sp.dof_rep_elem, dtype=torch.int64,
+        ids = torch.as_tensor(scal.dof_rep_elem, dtype=torch.int64,
                               device=self.device)
         ctx = EvalCtx(sp.mesh, ref, elem_ids=ids)
-        new = torch.broadcast_to(eval_pure(wrap(cf), ctx), (sp.ndof, 1))[:, 0]
+        vals = eval_pure(wrap(cf), ctx)
+        if isinstance(sp, VectorFESpace):  # block layout
+            new = torch.broadcast_to(vals, (scal.ndof, 1, sp.vdim))[:, 0]
+            new = new.T.reshape(-1)
+        else:
+            new = torch.broadcast_to(vals, (sp.ndof, 1))[:, 0]
         keep = None
         if boundary or BND:
             keep = sp.bc_of_dof > 0
@@ -217,6 +231,9 @@ class GridFunction(CF):
 
     # -- CF evaluation ------------------------------------------------------
     def _eval_pure(self, ctx: EvalCtx):
+        hook = getattr(self.space, "gf_eval_hook", None)
+        if hook is not None:
+            return hook(self, ctx)
         return gf_value(self, ctx.elem_ids, ctx.ref_pts)
 
     def __repr__(self):
@@ -226,17 +243,21 @@ class GridFunction(CF):
 class GradGF(CF):
     def __init__(self, gf: GridFunction):
         self.gf = gf
-        self.dims = (gf.space.mesh.dim,)
+        d = gf.space.mesh.dim
+        vd = getattr(gf.space, "vdim", 1)
+        self.dims = (d,) if vd == 1 else (vd, d)
 
     def _eval_pure(self, ctx: EvalCtx):
         _, gref = gf_ref_value_and_grad(self.gf, ctx.elem_ids, ctx.ref_pts)
-        # push-forward: g_phys[g] = sum_d gref[d] Jinv[d, g]
-        return small_matmul(gref[..., 0, None, :], ctx.Jinv)[..., 0, :]
+        # push-forward: g_phys[c, g] = sum_d gref[c, d] Jinv[d, g]
+        g = small_matmul(gref, ctx.Jinv)
+        return g[..., 0, :] if len(self.dims) == 1 else g
 
 
-def _elem_dofs(gf: GridFunction, elem_ids):
-    """Element dof values (E, ndl); the placeholder slots of a compressed
-    space (which would read dof 0) are zeroed."""
+def _elem_dofs(gf: GridFunction, elem_ids, offset=0):
+    """Element dof values (E, ndl) read at ``offset + el2dof`` (a vector
+    space's component block); the placeholder slots of a masked space
+    (which would read dof ``offset``) are zeroed."""
     sp = gf.space
     if isinstance(sp, CompoundFESpace):
         raise TypeError("evaluate components of a compound GridFunction")
@@ -245,27 +266,38 @@ def _elem_dofs(gf: GridFunction, elem_ids):
     if elem_ids is not None:
         e2d = e2d[elem_ids]
         valid = None if valid is None else valid[elem_ids]
-    dofs = gf._arr[e2d]
+    dofs = gf._arr[e2d + offset]
     return dofs if valid is None else torch.where(valid, dofs, 0.0)
 
 
-def gf_value(gf: GridFunction, elem_ids, ref_pts):
-    """Value of gf at (elem, refpt) batches -> (E,Q)."""
+def _component_dofs(gf: GridFunction, elem_ids):
+    """[(E, ndl)] element dof values, one per vector component."""
     sp = gf.space
-    dofs = _elem_dofs(gf, elem_ids)
+    vdim = getattr(sp, "vdim", 1)
+    if vdim == 1:
+        return [_elem_dofs(gf, elem_ids)]
+    return [_elem_dofs(gf, elem_ids, c * sp.nscal) for c in range(vdim)]
+
+
+def gf_value(gf: GridFunction, elem_ids, ref_pts):
+    """Value of gf at (elem, refpt) batches -> (E,Q) or (E,Q,vdim)."""
+    sp = gf.space
     B = shapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl)
-    return (B * dofs[:, None, :]).sum(-1)
+    vals = [(B * dofs[:, None, :]).sum(-1)
+            for dofs in _component_dofs(gf, elem_ids)]
+    return vals[0] if len(vals) == 1 else torch.stack(vals, dim=-1)
 
 
 def gf_ref_value_and_grad(gf: GridFunction, elem_ids, ref_pts):
-    """(value (E,Q,1), ref-grad (E,Q,1,d)) of gf at ref points."""
+    """(value (E,Q,vdim), ref-grad (E,Q,vdim,d)) of gf at ref points."""
     sp = gf.space
-    dofs = _elem_dofs(gf, elem_ids)
     B = shapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl)
     G = dshapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl,d)
-    val = (B * dofs[:, None, :]).sum(-1, keepdim=True)  # (E,Q,1)
-    grad = (G * dofs[:, None, :, None]).sum(-2)  # (E,Q,d)
-    return val, grad[..., None, :]
+    vals, grads = [], []
+    for dofs in _component_dofs(gf, elem_ids):
+        vals.append((B * dofs[:, None, :]).sum(-1))  # (E,Q)
+        grads.append((G * dofs[:, None, :, None]).sum(-2))  # (E,Q,d)
+    return torch.stack(vals, dim=-1), torch.stack(grads, dim=-2)
 
 
 def grad(obj):

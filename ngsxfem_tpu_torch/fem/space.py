@@ -1,17 +1,17 @@
 """Finite element spaces: dof maps, and boolean mark arrays.
 
-Counterpart of ``ngsxfem_tpu/fem/space.py:24-230`` and ``:301-421``:
-``BitArray`` and ``CompoundBitArray`` (host boolean marks with NGSolve-like
-set algebra), the ``FESpace`` base (boundary and Dirichlet dof marks,
-``FreeDofs``, trial/test proxies), ``H1`` on it, ``CompoundFESpace`` (the
-exported ``FESpace([...])``), ``CompressedFESpace``/``Compress`` and
+Counterpart of ``ngsxfem_tpu/fem/space.py:24-421``: ``BitArray`` and
+``CompoundBitArray`` (host boolean marks with NGSolve-like set algebra), the
+``FESpace`` base (boundary and Dirichlet dof marks, ``FreeDofs``, trial/test
+proxies), ``H1``, ``L2`` and ``NumberSpace`` on it, ``VectorFESpace``
+(``VectorH1``/``VectorL2``), ``CompoundFESpace`` (the exported
+``FESpace([...])``), ``CompressedFESpace``/``Compress`` and
 ``GetDofsOfElements``.  A space's host dof map is ``el2dof_np (ne, ndl)``
 and ``ndof``, with a device view ``el2dof``.  Global dof numbering uses an
 *exact integer barycentric fingerprint* per Lagrange node (vertex ids +
 integer weights), deduplicated in first-appearance order by the native
 topology library, exactly as the reference package numbers its dofs.
-``L2``, ``NumberSpace``, ``VectorFESpace`` and ``Periodic`` are not ported
-yet (ROADMAP A13).
+``Periodic`` is not ported yet (ROADMAP A9d).
 """
 from __future__ import annotations
 
@@ -121,38 +121,12 @@ def _node_fingerprints(mesh: Mesh, order: int):
     return keys, ndl
 
 
-class FESpace:
-    """Base scalar space; subclass: ``H1``.
+class DeviceViews:
+    """Device views of a space's host dof tables: ``el2dof_np`` on the
+    space's device (``_device``: the card unless the space was given
+    ``device="cpu"``; without a card and without that argument it raises
+    on first use)."""
 
-    The dof map is host numpy (``el2dof_np``).  ``el2dof`` is its int64
-    view on ``device``, made on first use: the card unless the space was
-    given ``device="cpu"``, and without a card and without that argument it
-    raises then.  ``dirichlet`` is a list of boundary ids or a regex over
-    the mesh's boundary names."""
-
-    vdim = 1
-    is_compound = False
-
-    def __init__(self, mesh: Mesh, order: int = 1, dirichlet=None,
-                 dgjumps=False, device=None):
-        self.mesh = mesh
-        self.order = int(order)
-        self.dgjumps = dgjumps
-        self.dirichlet_spec = dirichlet
-        self._device = device
-        self._views = {}
-        self._build()
-        self._mark_boundary_dofs()
-        self.dirichlet_dofs = self._dirichlet_mask(dirichlet)
-
-    def _build(self):
-        raise NotImplementedError
-
-    @property
-    def ndof_el(self):
-        return ndof_el(self.mesh.et, self.order)
-
-    # -- device views --------------------------------------------------------
     @property
     def device(self):
         return resolve_device(self._device)
@@ -180,6 +154,36 @@ class FESpace:
             self._views[key] = torch.as_tensor(host, dtype=dtype,
                                                device=device)
         return self._views[key]
+
+
+class FESpace(DeviceViews):
+    """Base scalar space; subclasses: ``H1``, ``L2``, ``NumberSpace``.
+
+    The dof map is host numpy (``el2dof_np``).  ``el2dof`` is its int64
+    view on ``device``, made on first use.  ``dirichlet`` is a list of
+    boundary ids or a regex over the mesh's boundary names."""
+
+    vdim = 1
+    is_compound = False
+
+    def __init__(self, mesh: Mesh, order: int = 1, dirichlet=None,
+                 dgjumps=False, device=None):
+        self.mesh = mesh
+        self.order = int(order)
+        self.dgjumps = dgjumps
+        self.dirichlet_spec = dirichlet
+        self._device = device
+        self._views = {}
+        self._build()
+        self._mark_boundary_dofs()
+        self.dirichlet_dofs = self._dirichlet_mask(dirichlet)
+
+    def _build(self):
+        raise NotImplementedError
+
+    @property
+    def ndof_el(self):
+        return ndof_el(self.mesh.et, self.order)
 
     # -- boundary / dirichlet ------------------------------------------------
     def _mark_boundary_dofs(self):
@@ -258,6 +262,81 @@ class H1(FESpace):
         self.dof_rep_elem = (first // ndl).astype(np.int32)
         self.dof_rep_local = (first % ndl).astype(np.int32)
         self.dof_rep_ref = b["nodes"][self.dof_rep_local]
+
+
+class L2(FESpace):
+    """Element-wise discontinuous Lagrange space (cf. NGSolve L2): the dofs
+    of element e are e*ndl .. e*ndl + ndl - 1."""
+
+    def _build(self):
+        ndl = self.ndof_el
+        ne = self.mesh.ne
+        self.ndof = ne * ndl
+        self.el2dof_np = np.arange(ne * ndl, dtype=np.int32).reshape(ne, ndl)
+        b = lagrange_element(self.mesh.et, self.order)
+        self.dof_rep_elem = np.repeat(np.arange(ne, dtype=np.int32), ndl)
+        self.dof_rep_local = np.tile(np.arange(ndl, dtype=np.int32), ne)
+        self.dof_rep_ref = b["nodes"][self.dof_rep_local]
+
+
+class NumberSpace(FESpace):
+    """One global dof with constant-1 basis (NGSolve FESpace("number")):
+    the Lagrange multiplier of a zero-mean pressure constraint."""
+
+    def __init__(self, mesh, order=0, dirichlet=None, device=None, **kw):
+        super().__init__(mesh, order=0, dirichlet=None, device=device)
+
+    def _build(self):
+        self.ndof = 1
+        self.el2dof_np = np.zeros((self.mesh.ne, 1), dtype=np.int32)
+        b = lagrange_element(self.mesh.et, 0)
+        self.dof_rep_elem = np.zeros(1, dtype=np.int32)
+        self.dof_rep_local = np.zeros(1, dtype=np.int32)
+        self.dof_rep_ref = b["nodes"]
+
+    def _mark_boundary_dofs(self):
+        self.bc_of_dof = np.zeros(1, dtype=np.int32)
+
+
+class VectorFESpace(FESpace):
+    """Vector-valued version of a scalar space in block dof layout:
+    component c holds dofs [c*nscal, (c+1)*nscal).  ``el2dof_np`` is the
+    scalar map; the component offsets are applied where it is used."""
+
+    def __init__(self, scalar_space: FESpace, vdim=None):
+        self.scalar = scalar_space
+        self.mesh = scalar_space.mesh
+        self.order = scalar_space.order
+        self.vdim = vdim or self.mesh.dim
+        self.ndof = scalar_space.ndof * self.vdim
+        self.el2dof_np = scalar_space.el2dof_np
+        v = getattr(scalar_space, "el2dof_valid_np", None)
+        if v is not None:  # masked scalar base (Compress): forward it
+            self.el2dof_valid_np = v
+        self.dirichlet_dofs = np.tile(scalar_space.dirichlet_dofs, self.vdim)
+        self.bc_of_dof = np.tile(scalar_space.bc_of_dof, self.vdim)
+        self.dgjumps = scalar_space.dgjumps
+        self._device = scalar_space._device
+        self._views = {}
+
+    @property
+    def nscal(self):
+        return self.scalar.ndof
+
+    def block_el2dof_on(self, device):
+        """(ne, vdim*ndl) int64 dof map of all components on ``device``:
+        component c's columns are the scalar map + c*nscal."""
+        e2d = self.el2dof_on(device)
+        return torch.cat([e2d + c * self.nscal for c in range(self.vdim)],
+                         dim=1)
+
+
+def VectorH1(mesh, order=1, dirichlet=None, **kw):
+    return VectorFESpace(H1(mesh, order=order, dirichlet=dirichlet, **kw))
+
+
+def VectorL2(mesh, order=1, **kw):
+    return VectorFESpace(L2(mesh, order=order, **kw))
 
 
 class CompoundFESpace:
@@ -348,13 +427,21 @@ def Compress(space: FESpace, active_dofs=None):
 
 
 def GetDofsOfElements(space, elem_mask) -> BitArray:
-    """Dofs touched by marked elements (cf. xfem/cutinfo.cpp:281-329)."""
+    """Dofs touched by marked elements (cf. xfem/cutinfo.cpp:281-329); of
+    every component for a vector space."""
     mask = _arr(elem_mask)
-    out = np.zeros(space.ndof, dtype=bool)
+    vdim = space.vdim if isinstance(space, VectorFESpace) else 1
+    out = np.zeros(space.ndof // vdim, dtype=bool)
     dofs = space.el2dof_np[mask]
     valid = getattr(space, "el2dof_valid_np", None)
-    if valid is not None:  # placeholder-0 slots of a compressed space
+    if valid is not None:  # placeholder-0 slots of a masked space
         out[dofs[valid[mask]]] = True
     else:
         out[dofs.ravel()] = True
-    return BitArray(out)
+    return BitArray(np.tile(out, vdim))
+
+
+def Periodic(space):
+    """Periodic identification of a space: not ported yet."""
+    raise NotImplementedError(
+        "Periodic spaces are not ported yet (ROADMAP A9d)")

@@ -9,20 +9,24 @@ restriction (RestrictedBilinearForm) is implicit: only assembled entries
 exist.
 
 Ported: volume integrals (with or without a level-set domain, two quadrature
-tiers as ``integrate.two_tier_tiers`` builds them) and facet-patch integrals
-on scalar spaces, their ``Compress``ed restrictions and compounds of them.
-The assembly is eager and takes every selection exactly, so the reference's
-per-signature program cache and its capacity-padded dynamic selections have
-no counterpart.  The COO rows and columns are gathered on the device from
-the space's dof map; the values never leave it.  Not ported, each raising
-``NotImplementedError``: ``skeleton=True``, ``element_boundary=True`` and
-``VOL_or_BND=BND`` (ROADMAP A9b), ``time_order >= 0`` (A13),
-``deformation`` (A11), ``subdivlvl > 0`` (A8b) and ``AssembleOperator``
-(A10).
+tiers as ``integrate.two_tier_tiers`` builds them), facet-patch integrals,
+skeleton integrals (``skeleton=True``, with a cut rule on the facet itself
+under a level-set domain), element-boundary integrals
+(``element_boundary=True``) and boundary integrals (``VOL_or_BND=BND``, in
+bilinear and linear forms), on scalar, vector, ``XFESpace`` and
+``Compress``ed spaces and compounds of them.  The assembly is eager and takes
+every selection exactly (facet and element marks select their rows), so the
+reference's per-signature program cache and its capacity-padded dynamic
+selections have no counterpart.  The COO rows and columns are gathered on
+the device from the space's dof map; the values never leave it.  Not
+ported, each raising ``NotImplementedError``: ``time_order >= 0`` (ROADMAP
+A13), ``deformation`` (A11), ``subdivlvl > 0`` (A8b) and
+``AssembleOperator`` (A10).
 """
 from __future__ import annotations
 
 import copy
+import warnings
 
 import numpy as np
 import torch
@@ -30,11 +34,15 @@ import torch
 from ..config import config
 from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx
-from ..integrate import (ensure_p1_levelset, normalize_levelset_domain,
-                         two_tier_tiers)
-from ..mesh.mesh import det_and_inv, map_points, small_matmul
-from ..ops.gauss import reference_rule
-from ..fem.space import CompoundFESpace, _arr
+from ..domaintype import IF, NEG, POS
+from ..integrate import (_p1_vertex_dofs, ensure_p1_levelset,
+                         normalize_levelset_domain, two_tier_tiers)
+from ..mesh.mesh import (FACET_ET, FACET_VERTS, det_and_inv, geom_dshapes,
+                         geom_shapes, map_points, small_matmul)
+from ..ops.cuttables import ET_SPLIT, REF_VERTS
+from ..ops.gauss import ET_DIM, reference_rule
+from ..ops.straightcut import _gram_measure, cut_rule_simplices, eps_guard
+from ..fem.space import CompoundFESpace, VectorFESpace, _arr
 from ..solvers.sparse import SparseMatrix
 from .evaluate import eval_form
 from .proxies import ProxyFunction
@@ -55,6 +63,8 @@ class Integral:
         self.definedonelements = (
             None if definedonelements is None else _arr(definedonelements).copy()
         )
+        self.element_boundary = element_boundary
+        self.skeleton = skeleton
         self.facet_patch = facet_patch
         self.force_intorder = force_intorder
         # dict-carried options (Integrate convention) apply here too
@@ -72,17 +82,11 @@ class Integral:
             raise NotImplementedError(
                 f"VOL_or_BND={vb!r} integrals are not supported; "
                 "an unsupported option must not silently assemble as VOL")
-        if vb == BND:
+        if vb == BND and (element_boundary or skeleton or facet_patch):
             raise NotImplementedError(
-                "VOL_or_BND=BND integrals are not ported yet (ROADMAP A9b)")
-        if skeleton:
-            raise NotImplementedError(
-                "skeleton=True facet integrals are not ported yet "
-                "(ROADMAP A9b)")
-        if element_boundary:
-            raise NotImplementedError(
-                "element_boundary=True integrals are not ported yet "
-                "(ROADMAP A9b)")
+                "VOL_or_BND=BND cannot be combined with element_boundary/"
+                "skeleton/facet_patch integrals")
+        self.vb = vb
         if time_order >= 0:
             raise NotImplementedError(
                 "space-time integrals (time_order >= 0) are not ported yet "
@@ -176,11 +180,28 @@ def block_dofmap(space, block_key, elem_ids_self, elem_ids_other=None, *,
     ``elem_ids_*`` are int64 tensors there, or None for all elements."""
     blk, other = block_key
     sp = _block_space(space, blk)
-    e2d = sp.el2dof_on(device)
+    e2d = (sp.block_el2dof_on(device) if isinstance(sp, VectorFESpace)
+           else sp.el2dof_on(device))
     eids = elem_ids_other if other else elem_ids_self
     if eids is not None:
         e2d = e2d[eids]
     return e2d + _block_offset(space, blk)
+
+
+def block_valid(space, block_key, elem_ids_self, elem_ids_other=None, *,
+                device):
+    """(E, ndl) bool on ``device``: False on the placeholder slots of a
+    masked block space (``Compress``, ``XFESpace``), which carry no dof;
+    None when every slot is a dof."""
+    blk, other = block_key
+    sp = _block_space(space, blk)
+    valid = sp.el2dof_valid_on(device)
+    if valid is None:
+        return None
+    if isinstance(sp, VectorFESpace):
+        valid = valid.repeat(1, sp.vdim)
+    eids = elem_ids_other if other else elem_ids_self
+    return valid if eids is None else valid[eids]
 
 
 def _intorder(integral, order):
@@ -224,7 +245,8 @@ def _volume_tiers(integral: Integral, mesh, order, device):
 
 
 def _facet_patch_fids(integral: Integral, mesh):
-    """Selected interior facets of a facet-patch integral (host numpy)."""
+    """Selected interior facets of a facet-patch or skeleton integral (host
+    numpy)."""
     sel = mesh.facet2el_np[:, 1] >= 0
     if integral.definedonelements is not None:  # facet mask here
         sel = sel & integral.definedonelements
@@ -305,6 +327,214 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
     return ctx, e1, e2, w, torch.ones_like(w, dtype=torch.bool)
 
 
+def _facet_locref_tables(mesh):
+    """(2, nfacets, nvf, d) element-local reference coordinates of every
+    facet's vertices, per side (boundary facets repeat side 0).  Host numpy,
+    cached on the mesh."""
+    cached = getattr(mesh, "_facet_locref_cache", None)
+    if cached is not None:
+        return cached
+    refv = REF_VERTS[mesh.et]
+    f2e = mesh.facet2el_np
+    fverts = mesh.facets_np  # (nf, nvf)
+    nvf = fverts.shape[1]
+    loc_ref = np.zeros((2, mesh.nfacets, nvf, mesh.dim))
+    for s in range(2):
+        eids = np.where(f2e[:, s] >= 0, f2e[:, s], f2e[:, 0])
+        els = mesh.elements_np[eids]  # (nf, nvel)
+        for k in range(nvf):
+            idx = np.argmax(els == fverts[:, k][:, None], axis=1)
+            loc_ref[s, :, k, :] = refv[idx]
+    mesh._facet_locref_cache = loc_ref
+    return loc_ref
+
+
+def _facet_param_rule(integral, fet, order, fverts, device):
+    """Facet-parametric quadrature of the BND / element-boundary / skeleton
+    integrals on R facets with global vertex ids ``fverts`` (R, nvf): the
+    plain reference rule, or, under a ``levelset_domain``, the codim-1
+    straight-cut rule from the level-set values at the facet corners (its
+    IF branch, the codim-2 zero set within the facet, also returns the
+    reference normals of that set).  Returns (rp (R,nq,d-1), rw (R,nq),
+    nref_if (R,nq,d-1) or None)."""
+    dtype = config.dtype
+    d1 = ET_DIM[fet]
+    R = fverts.shape[0]
+    o = _intorder(integral, order)
+    ld = integral.levelset_domain
+    if ld is None:
+        rp, rw = reference_rule(fet, o)
+        rp = torch.as_tensor(rp, dtype=dtype, device=device)
+        rw = torch.as_tensor(rw, dtype=dtype, device=device)
+        return rp[None].expand(R, -1, -1), rw[None].expand(R, -1), None
+    dtq = int(ld["domain_type"])
+    if dtq not in (int(NEG), int(POS), int(IF)):
+        # combined types (HASNEG, ...) would silently zero every weight
+        raise ValueError(
+            f"facet cut integrals support NEG/POS/IF domain types, got "
+            f"{ld['domain_type']!r}")
+    lgf = ld["levelset"]
+    vdofs = torch.as_tensor(_p1_vertex_dofs(lgf.space), dtype=torch.int64,
+                            device=lgf.device)
+    fvals = lgf.vec.data[vdofs[fverts.to(lgf.device)]].to(device, dtype)
+    split = torch.as_tensor(ET_SPLIT[fet].astype(np.int64), device=device)
+    nsplit, nvs = split.shape
+    refvf = torch.as_tensor(REF_VERTS[fet], dtype=dtype, device=device)
+    fc = refvf[split][None].expand(R, nsplit, nvs, d1).reshape(
+        R * nsplit, nvs, d1)
+    fvv = eps_guard(fvals[:, split].reshape(R * nsplit, nvs))
+    r = cut_rule_simplices(fc, fvv, d1, o)
+    if dtq == int(IF):
+        # codim 2: points on 2D element boundaries, segments on 3D faces
+        # (the reference's unfitted codim-2 branch,
+        # xfem/symboliccutbfi.cpp:732, 898-946)
+        qi = r.pts_if.shape[1]
+        return (r.pts_if.reshape(R, nsplit * qi, d1),
+                r.w_if.reshape(R, nsplit * qi),
+                r.nref.reshape(R, nsplit * qi, d1))
+    qn = r.pts.shape[1]
+    return (r.pts.reshape(R, nsplit * qn, d1),
+            (r.w * (r.side == dtq)).reshape(R, nsplit * qn), None)
+
+
+def _facet_measure_normal(tang, nref_if, rw, d):
+    """Physical facet weights and unit (unoriented) normal from the facet
+    tangents (R,nq,d-1,d); a codim-2 IF rule takes the zero-set tangent
+    length (3D) or the counting measure (2D)."""
+    if nref_if is not None:
+        if d == 2:
+            scale = torch.ones_like(rw)
+        else:
+            that = torch.stack([nref_if[..., 1], -nref_if[..., 0]], dim=-1)
+            tvec = small_matmul(that[..., None, :], tang)[..., 0, :]
+            scale = torch.linalg.vector_norm(tvec, dim=-1)
+    else:
+        scale = _gram_measure(tang)
+    w = scale * rw
+    if d == 2:
+        t = tang[:, :, 0, :]
+        n = torch.stack([t[..., 1], -t[..., 0]], dim=-1)
+    else:
+        n = torch.linalg.cross(tang[:, :, 0, :], tang[:, :, 1, :], dim=-1)
+    nn = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    return w, n / torch.where(nn < 1e-30, 1.0, nn)
+
+
+def _facet_rows(integral, mesh, order, fverts, row_e, loc_refs, device):
+    """Quadrature on R facet rows: the facet rule mapped into the reference
+    cell of each ``loc_refs`` side ((R, nvf, d) local vertex coordinates of
+    the facet), the physical weights (R, nq) and the unit normal oriented
+    away from the centroid of the ``row_e`` element (the outward normal of
+    that element).  Returns ([pts per side], w, n)."""
+    mesh_fet = FACET_ET[mesh.et]
+    rp, rw, nref_if = _facet_param_rule(integral, mesh_fet, order, fverts,
+                                        device)
+    Nf = geom_shapes(mesh_fet, rp)  # (R, nq, nvf)
+    pts = [small_matmul(Nf, lr) for lr in loc_refs]  # "rqk,rkd->rqd"
+    verts, els = mesh.device_view(device, rp.dtype)
+    pf = verts[fverts]  # (R, nvf, d)
+    dNf = geom_dshapes(mesh_fet, rp)  # (R, nq, nvf, d-1)
+    tang = small_matmul(dNf.transpose(-1, -2), pf[:, None])  # (R,nq,d-1,d)
+    w, n = _facet_measure_normal(tang, nref_if, rw, mesh.dim)
+    cent = verts[els[row_e]].mean(1)  # (R, d)
+    sign = torch.sign((n * (pf.mean(1) - cent)[:, None, :]).sum(-1))
+    n = n * torch.where(sign == 0, 1.0, sign)[..., None]
+    return pts, w, n
+
+
+def _skeleton_ctx(integral: Integral, mesh, order, device):
+    """Skeleton quadrature on the selected interior facets, mapped into both
+    neighbours (the reference's facet machinery,
+    SymbolicFacetBilinearFormIntegrator2, xfem/symboliccutbfi.cpp:948-1102,
+    and the cut-facet rule of SymbolicCutFacetBFI, :682-946).  The normal
+    points from e1 to e2 and each side sees its own outward normal, so
+    ``dnjump`` works on both.  Returns (ctx, e1, e2, w, mask)."""
+    fids = _facet_patch_fids(integral, mesh)
+    f2e = mesh.facet2el_np
+    loc = torch.as_tensor(_facet_locref_tables(mesh)[:, fids],
+                          dtype=config.dtype, device=device)
+    fverts = torch.as_tensor(mesh.facets_np[fids], dtype=torch.int64,
+                             device=device)
+    e1 = torch.as_tensor(f2e[fids, 0], dtype=torch.int64, device=device)
+    e2 = torch.as_tensor(f2e[fids, 1], dtype=torch.int64, device=device)
+    (pts1, pts2), w, n = _facet_rows(integral, mesh, order, fverts, e1,
+                                     (loc[0], loc[1]), device)
+    fid_t = torch.as_tensor(fids, dtype=torch.int64, device=device)
+    ctx = EvalCtx(mesh, pts1, elem_ids=e1, normal=n, facet_ids=fid_t)
+    ctx.other_ctx = EvalCtx(mesh, pts2, elem_ids=e2, normal=-n,
+                            facet_ids=fid_t)
+    return ctx, e1, e2, w, w > 0
+
+
+def _element_boundary_ctx(integral: Integral, mesh, order, device):
+    """Quadrature on every local facet of the selected elements, one-sided
+    (the reference's T_CalcElementMatrixEBAdd,
+    xfem/symboliccutbfi.cpp:319, 491-678): rows are (element, local facet)
+    pairs, element-major; trial and test factors live on the row's element
+    and the normal is its outward one.  Returns (ctx, row_e, w, mask)."""
+    fv_loc = np.array(FACET_VERTS[mesh.et], dtype=np.int64)  # (nfel, nvf)
+    nfel = fv_loc.shape[0]
+    elems = (np.arange(mesh.ne) if integral.definedonelements is None
+             else np.nonzero(integral.definedonelements)[0])
+    rows_e = np.repeat(elems, nfel)
+    lf = np.tile(np.arange(nfel), len(elems))
+    fverts = torch.as_tensor(mesh.elements_np[rows_e[:, None], fv_loc[lf]],
+                             dtype=torch.int64, device=device)
+    loc = torch.as_tensor(REF_VERTS[mesh.et][fv_loc[lf]],
+                          dtype=config.dtype, device=device)
+    row_e = torch.as_tensor(rows_e, dtype=torch.int64, device=device)
+    (pts,), w, n = _facet_rows(integral, mesh, order, fverts, row_e, (loc,),
+                               device)
+    fid = torch.as_tensor(mesh.el2facet_np[rows_e, lf], dtype=torch.int64,
+                          device=device)
+    ctx = EvalCtx(mesh, pts, elem_ids=row_e, normal=n, facet_ids=fid)
+    return ctx, row_e, w, w > 0
+
+
+def _bnd_mask_np(integral: Integral, mesh):
+    """Per-boundary-facet selection of a BND integral (host numpy): a mask
+    over boundary facets (the BND-element reading) or over volume elements
+    (through adjacency)."""
+    sel = np.asarray(integral.definedonelements)
+    bf = mesh.boundary_facets_np
+    if len(sel) == len(bf):
+        if len(bf) == mesh.ne:
+            warnings.warn(
+                "BND definedonelements length matches BOTH the boundary-"
+                "facet and volume-element counts; interpreting it as a "
+                "boundary-element mask (pass a volume mask of a finer mesh "
+                "to disambiguate)")
+        return sel
+    if len(sel) == mesh.ne:
+        return sel[mesh.facet2el_np[bf, 0]]
+    raise ValueError(
+        "definedonelements for a BND integral must mask boundary "
+        f"elements ({len(bf)}) or volume elements ({mesh.ne})")
+
+
+def _boundary_ctx(integral: Integral, mesh, order, device):
+    """Quadrature on the selected boundary facets ("BND elements", the
+    reference's CutInformation BND loop, xfem/cutinfo.cpp:54-188): one row
+    per facet, factors on the adjacent volume element, outward boundary
+    normal; under a level-set domain a codim-1 cut rule on each facet.
+    Returns (ctx, row_e, w, mask)."""
+    bf = mesh.boundary_facets_np
+    if integral.definedonelements is not None:
+        bf = bf[_bnd_mask_np(integral, mesh)]
+    rows_e = mesh.facet2el_np[bf, 0]
+    fverts = torch.as_tensor(mesh.facets_np[bf], dtype=torch.int64,
+                             device=device)
+    loc = torch.as_tensor(_facet_locref_tables(mesh)[0][bf],
+                          dtype=config.dtype, device=device)
+    row_e = torch.as_tensor(rows_e, dtype=torch.int64, device=device)
+    (pts,), w, n = _facet_rows(integral, mesh, order, fverts, row_e, (loc,),
+                               device)
+    ctx = EvalCtx(mesh, pts, elem_ids=row_e, normal=n,
+                  facet_ids=torch.as_tensor(bf, dtype=torch.int64,
+                                            device=device))
+    return ctx, row_e, w, w > 0
+
+
 def _check_proxy_spaces(form, space_u, space_v):
     """Every trial proxy in the form must come from the trial space and every
     test proxy from the test space — with a rectangular BilinearForm a proxy
@@ -335,7 +565,9 @@ def _form_difforders(form):
     (no reduction — conservative)."""
 
     def dord(p):
-        return 1 if p.op == "grad" else 0
+        if p.op == "dnk":
+            return int(p.op_args[0])
+        return 1 if p.op in ("grad", "div") or p.op.endswith("grad") else 0
 
     tr = te = 99
 
@@ -477,10 +709,18 @@ class BilinearForm:
             _check_proxy_spaces(i.form, space_u, space_v)
         vparts, rparts, cparts = [], [], []
         for integral in map(self._with_restriction, self.integrals):
-            if integral.facet_patch:
-                ctx, e1, e2, w_phys, mask = _facet_patch_ctx(
-                    integral, mesh, 2 * order, device)
+            if integral.facet_patch or integral.skeleton:
+                build = (_facet_patch_ctx if integral.facet_patch
+                         else _skeleton_ctx)
+                ctx, e1, e2, w_phys, mask = build(integral, mesh, 2 * order,
+                                                  device)
                 tiers = [(ctx, w_phys, mask, (e1, e2))]
+            elif integral.element_boundary or integral.vb == BND:
+                build = (_element_boundary_ctx if integral.element_boundary
+                         else _boundary_ctx)
+                ctx, row_e, w_phys, mask = build(integral, mesh, 2 * order,
+                                                 device)
+                tiers = [(ctx, w_phys, mask, (row_e, row_e))]
             else:
                 tiers = [(ctx, w, mask, (ids, None)) for ctx, w, mask, ids
                          in _volume_tiers(
@@ -506,9 +746,24 @@ class BilinearForm:
                 for (bu, bv), m in acc.items():
                     dm_u = block_dofmap(space_u, bu, es, eo, device=device)
                     dm_v = block_dofmap(space_v, bv, es, eo, device=device)
+                    rows = dm_v[:, :, None].expand(m.shape)
+                    cols = dm_u[:, None, :].expand(m.shape)
+                    # triplets at placeholder slots are left out: they hold
+                    # zeros (their factors are masked, or their elements lie
+                    # outside the integral's selection) and would otherwise
+                    # all land in the placeholder's row and column
+                    vu = block_valid(space_u, bu, es, eo, device=device)
+                    vv = block_valid(space_v, bv, es, eo, device=device)
+                    if vu is not None or vv is not None:
+                        keep = torch.ones_like(m, dtype=torch.bool)
+                        if vv is not None:
+                            keep = keep & vv[:, :, None]
+                        if vu is not None:
+                            keep = keep & vu[:, None, :]
+                        m, rows, cols = m[keep], rows[keep], cols[keep]
                     vparts.append(m.reshape(-1))
-                    rparts.append(dm_v[:, :, None].expand(m.shape).reshape(-1))
-                    cparts.append(dm_u[:, None, :].expand(m.shape).reshape(-1))
+                    rparts.append(rows.reshape(-1))
+                    cparts.append(cols.reshape(-1))
         self.mat = SparseMatrix(torch.cat(rparts), torch.cat(cparts),
                                 torch.cat(vparts),
                                 (space_v.ndof, space_u.ndof), device=device)
@@ -522,9 +777,10 @@ class BilinearForm:
     def _with_restriction(self, integral: Integral):
         """Apply the form-level restrictions (RestrictedBilinearForm,
         utils/restrictedblf.hpp:7-30): element_restriction to element-row
-        integrals, facet_restriction to facet-patch integrals.  An
-        integral's own definedonelements wins."""
-        restriction = (self.facet_restriction if integral.facet_patch
+        integrals, facet_restriction to facet-row (skeleton and facet-patch)
+        integrals.  An integral's own definedonelements wins."""
+        facet_rows = integral.facet_patch or integral.skeleton
+        restriction = (self.facet_restriction if facet_rows
                        else self.element_restriction)
         if restriction is None or integral.definedonelements is not None:
             return integral
@@ -537,8 +793,8 @@ class BilinearForm:
 
 
 class LinearForm:
-    """Linear form of volume integrals; ``Assemble`` runs on the device of
-    the space and leaves the vector there (``f.vec.data``)."""
+    """Linear form of volume and boundary integrals; ``Assemble`` runs on
+    the device of the space and leaves the vector there (``f.vec.data``)."""
 
     def __init__(self, space, name="f", **kw):
         self.space = space
@@ -563,13 +819,20 @@ class LinearForm:
         out = torch.zeros(space.ndof, dtype=config.dtype, device=device)
         for integral in self.integrals:
             _ensure_p1_ld(integral, mesh, device)
-            if integral.facet_patch:
+            if (integral.element_boundary or integral.skeleton
+                    or integral.facet_patch):
                 # the reference SymbolicCutLFI also throws for these
                 # (xfem/symboliccutlfi.cpp:51-160)
                 raise NotImplementedError(
-                    "LinearForm supports volume integrals only")
-            for tctx, w_phys, mask, ids in _volume_tiers(
-                    integral, mesh, 2 * order + mesh.dim, device):
+                    "LinearForm supports volume and BND integrals only")
+            if integral.vb == BND:
+                ctx, row_e, w_phys, mask = _boundary_ctx(
+                    integral, mesh, 2 * order + mesh.dim, device)
+                tiers = [(ctx, w_phys, mask, row_e)]
+            else:
+                tiers = _volume_tiers(integral, mesh, 2 * order + mesh.dim,
+                                      device)
+            for tctx, w_phys, mask, ids in tiers:
                 W = _safe_weights(w_phys, mask)
                 for t in eval_form(integral.form, tctx):
                     if t.ufac is None and t.vfac is None:

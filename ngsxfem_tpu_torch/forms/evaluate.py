@@ -1,7 +1,6 @@
 """Bilinear-jet form evaluation.
 
-Counterpart of ``ngsxfem_tpu/forms/evaluate.py`` (without ``_dnk_factor``,
-``_vec_expand`` and the ``div``/``dnk`` proxy ops, ROADMAP A9b).  Where
+Counterpart of ``ngsxfem_tpu/forms/evaluate.py``.  Where
 NGSolve's symbolic framework linearizes integrands w.r.t. proxies by
 repeated evaluation (``xfem/symboliccutbfi.cpp:151-215``), a *bilinear jet*
 is propagated through the CF graph in one pass: every value is a sum of
@@ -18,6 +17,7 @@ the card, several times the cost of an elementwise product).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from math import factorial
 from typing import Optional
 
 import numpy as np
@@ -168,6 +168,17 @@ def term_mul(t1: Term, t2: Term, c: int) -> Term:
 # proxy basis factors
 
 
+def _vec_expand(arr, vdim):
+    """(E,Q,ndl,*rest) scalar-basis factor -> (E,Q,vdim*ndl,vdim,*rest) in
+    the block layout of a vector space (component c on rows c*ndl..)."""
+    E, Q, n = arr.shape[:3]
+    rest = tuple(arr.shape[3:])
+    out = arr.new_zeros((E, Q, vdim, n, vdim) + rest)
+    for c in range(vdim):
+        out[:, :, c, :, c] = arr
+    return out.reshape((E, Q, vdim * n, vdim) + rest)
+
+
 def proxy_factor(proxy: ProxyFunction, ctx: EvalCtx) -> Factor:
     pctx = ctx
     if proxy.other:
@@ -175,16 +186,59 @@ def proxy_factor(proxy: ProxyFunction, ctx: EvalCtx) -> Factor:
             raise TypeError(".Other() used outside a facet integral")
         pctx = ctx.other_ctx
     sp = proxy.space
+    # XFESpace (sign-masked enrichment) evaluates through its own hook
+    xhook = getattr(sp, "proxy_factor_hook", None)
+    if xhook is not None:
+        return xhook(proxy, ctx, pctx)
     et, order = sp.mesh.et, sp.order
+    vdim = getattr(sp, "vdim", 1)
     if proxy.op == "val":
         arr = shapes(et, order, pctx.ref_pts)
-    elif proxy.op == "grad":
+    elif proxy.op in ("grad", "div"):
         G = dshapes(et, order, pctx.ref_pts)  # (E|1,Q,ndl,d)
         arr = small_matmul(G, pctx.Jinv)  # "eqid,eqdg->eqig"
+        if proxy.op == "div":
+            if vdim != sp.mesh.dim:
+                raise TypeError("div needs a vector space with vdim == mesh.dim")
+            # the trace of the block-expanded gradient: component c's
+            # rows carry d(phi)/dx_c
+            arr = torch.cat([arr[..., c] for c in range(vdim)], dim=2)
+            return Factor(block=proxy.block_key, arr=arr, space=sp)
+    elif proxy.op == "dnk":
+        arr = _dnk_factor(et, order, proxy.op_args[0], pctx)
     else:
-        raise NotImplementedError(
-            f"proxy op {proxy.op} is not ported yet (ROADMAP A9b)")
+        raise NotImplementedError(f"proxy op {proxy.op}")
+    if vdim != 1:
+        arr = _vec_expand(arr, vdim)
     return Factor(block=proxy.block_key, arr=arr, space=sp)
+
+
+def _dnk_factor(et, order, k, ctx: EvalCtx):
+    """Exact k-th directional derivative of all shapes along the facet
+    normal: the basis restricted to the line x + t*n is a 1D polynomial of
+    degree <= order, so sampling it at order+1 Chebyshev nodes and
+    differentiating the interpolant is exact (where the reference uses
+    central FD stencils, xfem/ghostpenalty.cpp:8-130)."""
+    p = order
+    n = ctx.normal  # (E,Q,d) physical unit normal
+    # chain rule direction "eqdg,eqg->eqd"
+    dir_ref = small_matmul(ctx.Jinv, n[..., None])[..., 0]
+    tn = np.cos(np.pi * (2 * np.arange(p + 1) + 1) / (2 * (p + 1)))
+    V = np.vander(tn, increasing=True)  # V[i,j] = t_i^j
+    wk = factorial(k) * np.linalg.inv(V)[k]  # (p+1,)
+    # sample along the UNIT reference direction, so that the nodes stay
+    # O(1) inside the element, and rescale by |dir_ref|^k after (raw
+    # t*dir_ref puts them O(1/h) outside, where the Vandermonde
+    # differentiation cancels catastrophically)
+    dnrm = torch.linalg.vector_norm(dir_ref, dim=-1, keepdim=True)  # (E,Q,1)
+    step = dir_ref / dnrm.clamp_min(1e-30)
+    t = torch.as_tensor(tn, dtype=step.dtype, device=step.device)
+    pts = ctx.ref_pts[:, :, None, :] + t[None, None, :, None] * step[:, :, None, :]
+    S = shapes(et, order, pts)  # (E,Q,p+1,ndl)
+    out = 0.0
+    for i, w in enumerate(wk.tolist()):  # "t,eqti->eqi"
+        out = out + w * S[:, :, i, :]
+    return out * dnrm**k
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,11 @@ Counterpart of ``ngsxfem_tpu/forms/proxies.py`` (the replacement for
 NGSolve's symbolic proxy framework that the reference's cut integrators plug
 into, ``xfem/symboliccutbfi.cpp:151-215``): a proxy evaluates to a *basis
 factor tensor* ``(E, Q, ndof_el, *comps)``; form evaluation propagates
-bilinear jets (forms/evaluate.py).  Ported: value and gradient proxies and
-``.Other()``.  ``dn``, ``dnjump``, ``div`` and ``Operator`` raise
-``NotImplementedError`` (ROADMAP A9b).
+bilinear jets (forms/evaluate.py).  Ported: value and gradient proxies,
+``.Other()``, ``div``, the exact normal derivatives ``dn``/``dnjump`` and
+``Operator`` for the names the reference accepts on these spaces; HDiv
+(``dn(..., hdiv=True)``) and space-time operators raise
+``NotImplementedError`` (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ class ProxyFunction(CF):
         self.test = test
         self.compound = compound  # (CompoundFESpace, block index) or None
         self.other = other  # facet .Other()
-        self.op = op  # 'val' | 'grad'
+        self.op = op  # 'val' | 'grad' | 'div' | 'dnk' | xfem ops...
         self.op_args = tuple(op_args)
         if dims is not None:
             self.dims = dims
@@ -70,12 +72,17 @@ class ProxyFunction(CF):
         return self.grad_op()
 
     def Operator(self, name):
+        # dispatch known operators through their dims-setting constructors;
+        # a bare clone would carry stale scalar dims into proxy_factor
         if name == "grad":
             return self.grad_op()
+        if name == "div":
+            return div(self)
         if name in ("val", "id"):
             return self
         raise NotImplementedError(
-            f"Operator({name!r}) on proxies is not ported yet (ROADMAP A9b)")
+            f"Operator({name!r}) on this space (the space-time and facet "
+            "space operators are not ported yet, ROADMAP A13)")
 
     def __repr__(self):
         kind = "test" if self.test else "trial"
@@ -87,19 +94,52 @@ def make_proxies(space, test: bool, compound=None):
 
 
 def dn(proxy, order=1, comp=-1, hdiv=False):
-    """order-th normal derivative (ghost penalty): not ported yet."""
-    raise NotImplementedError(
-        "dn (normal-derivative proxies) is not ported yet (ROADMAP A9b)")
+    """order-th normal derivative (ghost penalty), cf.
+    xfem/ghostpenalty.hpp:10-41.
+
+    Evaluated exactly for polynomial bases by a 1D restriction along the
+    facet normal (forms/evaluate.py ``_dnk_factor``), where the reference
+    uses central finite differences (xfem/ghostpenalty.cpp:8-130).  On a
+    vector space it is componentwise, ``(vdim,)``-valued."""
+    if not isinstance(proxy, ProxyFunction):
+        raise TypeError("dn expects a proxy function")
+    if proxy.op != "val":
+        raise TypeError("dn expects a value proxy")
+    if hdiv:
+        raise NotImplementedError(
+            "dn(hdiv=True) needs HDiv spaces, which are not ported yet "
+            "(ROADMAP A13)")
+    vd = getattr(proxy.space, "vdim", 1)
+    return proxy._clone(op="dnk", op_args=(int(order),),
+                        dims=() if vd == 1 else (vd,))
 
 
 def dnjump(proxy, order=1, comp=-1, hdiv=False):
-    """Jump of the order-th normal derivative across a facet: not ported
-    yet."""
-    raise NotImplementedError(
-        "dnjump (normal-derivative jumps) is not ported yet (ROADMAP A9b)")
+    """Jump of the order-th normal derivative across a facet.
+
+    ``dn`` is evaluated along each element's *outward* facet normal, which
+    flips between the two neighbours, so even orders subtract and odd
+    orders add to form the true jump ``[[d^k u / dn^k]]`` (the reference's
+    ``dnjump`` helper, python/__init__.py)."""
+    k = int(order)
+    a = dn(proxy, k, comp=comp, hdiv=hdiv)
+    b = dn(proxy.Other(), k, comp=comp, hdiv=hdiv)
+    return a - b if k % 2 == 0 else a + b
 
 
 def div(proxy):
-    """Divergence of a vector proxy or GridFunction: not ported yet."""
-    raise NotImplementedError(
-        "div needs vector spaces, which are not ported yet (ROADMAP A9b)")
+    """Divergence of a vector proxy, or of a vector GridFunction (the trace
+    of its gradient)."""
+    if isinstance(proxy, ProxyFunction):
+        return proxy._clone(op="div", dims=())
+    from ..fem.gridfunction import GridFunction, grad
+
+    if isinstance(proxy, GridFunction) and proxy.dims:
+        # the reference indexes g[i, i], which its Component node rejects
+        # (int() of a tuple); g[i][i] is the same entry
+        g = grad(proxy)
+        out = g[0][0]
+        for i in range(1, proxy.dims[0]):
+            out = out + g[i][i]
+        return out
+    raise TypeError("div expects a proxy function or vector GridFunction")

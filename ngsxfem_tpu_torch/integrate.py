@@ -9,8 +9,8 @@ evaluate-multiply-reduce, eagerly on the device of the level set.
 Two tiers, as in the reference's default path: elements that the level set
 does not cut take the element's standard rule, and only the cut elements
 (found exactly with ``torch.nonzero``) run the cut-rule construction.  Out of
-scope here, and raising ``NotImplementedError``: ``subdivlvl > 0`` and
-space-time integrals (``time_order >= 0``; ROADMAP A8b), and
+scope here, and raising ``NotImplementedError``: ``subdivlvl > 0``
+(ROADMAP A8b), space-time integrals (``time_order >= 0``; ROADMAP A13), and
 ``deformation=`` (ROADMAP A11).
 """
 from __future__ import annotations
@@ -128,7 +128,7 @@ def _not_ported(subdivlvl=0, time_order=-1, deformation=None):
     if time_order >= 0:
         raise NotImplementedError(
             "space-time integrals (time_order >= 0) are not ported yet "
-            "(ROADMAP A8b)")
+            "(ROADMAP A13)")
     if deformation is not None:
         raise NotImplementedError(
             "mesh deformations are not ported yet (ROADMAP A11)")

@@ -79,6 +79,13 @@ class Mesh:
         """Ascending material ids of the elements."""
         return sorted(int(i) for i in np.unique(self.mat_of_el_np))
 
+    def Materials(self, *pattern):
+        """Element regions by material name: not ported yet."""
+        raise NotImplementedError(
+            "Mesh.Materials/Region are not ported yet (ROADMAP A9d)")
+
+    GetMaterials = Materials
+
     def GetBoundaries(self):
         """Boundary-condition names in ascending id order (``"bc<i>"`` for
         unnamed ids), NGSolve ``mesh.GetBoundaries()`` analog."""

@@ -72,7 +72,15 @@ def Make1DMesh(n: int, mapping=None):
                     {1: "left", 2: "right"})
 
 
-def MakeStructured2DMesh(quads=True, nx=10, ny=10, mapping=None):
+def _no_periodic(periodic):
+    if periodic:
+        raise NotImplementedError(
+            "periodic meshes are not ported yet (ROADMAP A9d)")
+
+
+def MakeStructured2DMesh(quads=True, nx=10, ny=10, mapping=None,
+                         periodic=""):
+    _no_periodic(periodic)
     xs = np.linspace(0.0, 1.0, nx + 1)
     ys = np.linspace(0.0, 1.0, ny + 1)
     X, Y = np.meshgrid(xs, ys, indexing="ij")
@@ -95,7 +103,9 @@ def MakeStructured2DMesh(quads=True, nx=10, ny=10, mapping=None):
                          _mapped(verts, mapping), elems), verts, _BC_NAMES_2D)
 
 
-def MakeStructured3DMesh(hexes=True, nx=10, ny=10, nz=10, mapping=None):
+def MakeStructured3DMesh(hexes=True, nx=10, ny=10, nz=10, mapping=None,
+                         periodic=""):
+    _no_periodic(periodic)
     xs = np.linspace(0.0, 1.0, nx + 1)
     ys = np.linspace(0.0, 1.0, ny + 1)
     zs = np.linspace(0.0, 1.0, nz + 1)

@@ -26,10 +26,12 @@ def ell_matvec_plain(vals, cols, x):
     """The kernel's sum in PyTorch: ``y = 0; y = y + vals[:, k] *
     x[cols[:, k]]`` for k = 0..K-1, one rounding per product and per sum, so
     on the card it equals the kernel bit for bit.  (``torch.sum(vals *
-    x[cols], 1)`` reduces in no fixed order.)"""
+    x[cols], 1)`` reduces in no fixed order.)  The products are formed in
+    one pass, slot-major, and summed slot by slot."""
+    prods = (vals * x[cols]).T.contiguous()  # (K, n)
     y = torch.zeros(vals.shape[0], dtype=vals.dtype, device=vals.device)
     for k in range(vals.shape[1]):
-        y = y + vals[:, k] * x[cols[:, k]]
+        y = y + prods[k]
     return y
 
 

@@ -1,13 +1,13 @@
 """Krylov solvers on tensors (matrix-free friendly).
 
-Counterpart of ``ngsxfem_tpu/solvers/krylov.py:17-69,146-210,259-311``.
-The reference's ``lax.fori_loop``/``lax.while_loop`` become Python loops.
-The fixed-budget path (``tol=0``) reads nothing back to the host; the
-tolerance path reads one scalar per iteration to test convergence.
+Counterpart of ``ngsxfem_tpu/solvers/krylov.py``.  The reference's
+``lax.fori_loop``/``lax.while_loop`` become Python loops.  The fixed-budget
+path of ``cg`` (``tol=0``) reads nothing back to the host; the tolerance
+paths of ``cg`` and ``minres`` read one scalar per iteration to test
+convergence.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .ell_spmv import ell_matvec
@@ -62,6 +62,60 @@ def cg(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
         rz = rz_new
         k += 1
     return x, k, torch.sqrt(_vdot(r, r))
+
+
+def minres(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
+    """Preconditioned MINRES (Paige-Saunders) for symmetric indefinite
+    systems; returns (x, iters, rel_res_estimate).
+
+    ``M`` must be symmetric positive definite (it defines the Lanczos inner
+    product).  Dots go through ``_vdot``; the loop reads the residual
+    estimate ``phibar`` once per iteration to stop."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if M is None:
+        M = lambda r: r
+    eps = torch.finfo(b.dtype).eps
+    r1 = b - matvec(x0)
+    y = M(r1)
+    beta1 = torch.sqrt(_vdot(r1, y).clamp_min(0.0))
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    x, r2, w, w2 = x0, r1, torch.zeros_like(b), torch.zeros_like(b)
+    oldb, beta, dbar, epsln, phibar = zero, beta1, zero, zero, beta1
+    cs, sn = zero - 1.0, zero
+    rtol = tol * float(beta1.clamp_min(1e-30))
+    k = 0
+    if not float(beta1) > 0:
+        return x, k, phibar / beta1.clamp_min(1e-30)
+    while k < maxiter and float(phibar) > rtol:
+        s = 1.0 / torch.where(beta == 0, 1.0, beta)
+        v = s * y
+        y = matvec(v)
+        if k > 0:  # three-term Lanczos: subtract the previous direction
+            y = y - (beta / torch.where(oldb == 0, 1.0, oldb)) * r1
+        alfa = _vdot(v, y)
+        y = y - (alfa / torch.where(beta == 0, 1.0, beta)) * r2
+        r1, r2 = r2, y
+        y = M(r2)
+        oldb = beta
+        beta = torch.sqrt(_vdot(r2, y).clamp_min(0.0))
+        # previous rotation applied to the new column of T
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.sqrt(gbar * gbar + beta * beta).clamp_min(eps)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        # solution update
+        w1, w2 = w2, w
+        w = (v - oldeps * w1 - delta * w2) / gamma
+        x = x + phi * w
+        k += 1
+    return x, k, phibar / beta1.clamp_min(1e-30)
 
 
 def cg_ir(matvec32, matvec64, b, M=None, outer=4, inner=120):
@@ -139,15 +193,20 @@ def _cg_ell(vals, cols, b, free, maxiter, tol):
 
 
 def _free_mask(freedofs, device):
+    """Bool tensor on ``device`` from a BitArray, a numpy mask or a
+    tensor."""
+    from ..fem.space import _arr
+
     if torch.is_tensor(freedofs):
         return freedofs.to(device=device, dtype=torch.bool)
-    return torch.as_tensor(np.asarray(freedofs, dtype=bool), device=device)
+    return torch.as_tensor(_arr(freedofs), device=device)
 
 
 class CGSolver:
     """NGSolve-flavoured wrapper: ``CGSolver(mat, pre) * rhs``.
 
-    ``freedofs`` is a bool mask (numpy or tensor).  An ``ELLMatrix`` (or a
+    ``freedofs`` is a BitArray or a bool mask (numpy or tensor); ``rhs`` a
+    tensor or a dof-vector shim (``f.vec``).  An ``ELLMatrix`` (or a
     ``SparseMatrix``, through its cached ELL view) with no ``pre`` takes
     ``_cg_ell``; anything else runs ``cg`` on the masked matvec."""
 
@@ -159,12 +218,12 @@ class CGSolver:
         self.freedofs = freedofs
 
     def __mul__(self, rhs):
-        from .sparse import ELLMatrix
+        from .sparse import ELLMatrix, _as_array
 
         mat = self.mat
         if hasattr(mat, "ell"):
             mat = mat.ell()
-        b = rhs
+        b = _as_array(rhs)
         if isinstance(mat, ELLMatrix) and self.pre is None:
             fm = (_free_mask(self.freedofs, b.device)
                   if self.freedofs is not None
@@ -182,4 +241,48 @@ class CGSolver:
         if M is None and hasattr(mat, "diagonal"):
             M = jacobi_preconditioner(mat.diagonal())
         x, _, _ = cg(mv, b, M=M, maxiter=self.maxsteps, tol=self.tol)
+        return x
+
+
+class MinResSolver:
+    """NGSolve-flavoured wrapper: ``MinResSolver(mat, pre) * rhs``.
+
+    The device iterative solve of symmetric indefinite saddle-point systems
+    (cut Stokes), where the reference tutorials call the host direct
+    ``mat.Inverse(freedofs)``.  A ``SparseMatrix`` is applied through its
+    cached ELL view, so every product is ``ell_matvec`` (the ELL kernel on
+    the card).  The default preconditioner is the SPD absolute-value Jacobi
+    ``r / |diag|`` (identity on fixed dofs and zero diagonals): plain Jacobi
+    is indefinite here (pressure and multiplier rows carry negative or zero
+    diagonals) and would break the Lanczos inner product."""
+
+    def __init__(self, mat, pre=None, maxsteps=2000, tol=1e-10,
+                 freedofs=None):
+        self.mat = mat
+        self.pre = pre
+        self.maxsteps = maxsteps
+        self.tol = tol
+        self.freedofs = freedofs
+
+    def __mul__(self, rhs):
+        from .sparse import _as_array
+
+        b = _as_array(rhs)
+        mat = self.mat
+        if hasattr(mat, "ell"):
+            mat = mat.ell()
+        mv = mat.matvec if hasattr(mat, "matvec") else mat
+        fm = (None if self.freedofs is None
+              else _free_mask(self.freedofs, b.device))
+        M = self.pre
+        if M is None and hasattr(mat, "diagonal"):
+            ad = mat.diagonal().abs()
+            dinv = torch.where(ad > 1e-30, 1.0 / ad.clamp_min(1e-30), 1.0)
+            if fm is not None:
+                dinv = torch.where(fm, dinv, 1.0)
+            M = lambda r: dinv * r
+        if fm is not None:
+            mv = masked_matvec(mv, fm)
+            b = torch.where(fm, b, 0.0)
+        x, _, _ = minres(mv, b, M=M, maxiter=self.maxsteps, tol=self.tol)
         return x

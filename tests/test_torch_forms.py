@@ -406,10 +406,10 @@ def test_not_ported_raises():
     lset.Set(T.x - 0.3)
     ld = {"levelset": lset, "domain_type": T.NEG}
     cases = [
-        (lambda: T.SymbolicBFI(form=u * v, skeleton=True), "A9b"),
-        (lambda: T.SymbolicBFI(form=u * v, element_boundary=True), "A9b"),
-        (lambda: T.SymbolicBFI(form=u * v, VOL_or_BND=T.BND), "A9b"),
-        (lambda: T.SymbolicLFI(form=v, VOL_or_BND=T.BND), "A9b"),
+        (lambda: T.SymbolicBFI(form=u * v, skeleton=True,
+                               VOL_or_BND=T.BND), "BND cannot"),
+        (lambda: T.SymbolicBFI(form=u * v, element_boundary=True,
+                               VOL_or_BND=T.BND), "BND cannot"),
         (lambda: T.SymbolicBFI(form=u * v, VOL_or_BND="BBND"), "BBND"),
         (lambda: T.SymbolicBFI(ld, form=u * v, time_order=1), "A13"),
         (lambda: T.SymbolicBFI(dict(ld, time_order=1), form=u * v), "A13"),
@@ -422,26 +422,41 @@ def test_not_ported_raises():
         (lambda: T.SymbolicFacetPatchBFI(form=u * v, skeleton=True),
          "skeleton"),
         (lambda: T.BilinearForm(V).AssembleOperator(), "A10"),
-        (lambda: T.dn(u, 1), "A9b"),
-        (lambda: T.dnjump(u, 2), "A9b"),
-        (lambda: T.div(u), "A9b"),
-        (lambda: u.Operator("hesse"), "A9b"),
-        (lambda: t_prox.ProxyFunction(V, False, op="dnk", op_args=(1,)) * v
-         and None, None),
+        (lambda: T.dn(u, 1, hdiv=True), "A13"),
+        (lambda: u.Operator("hesse"), "A13"),
+        (lambda: T.Periodic(V), "A9d"),
+        (lambda: mesh.Materials("inner"), "A9d"),
+        (lambda: mesh.GetMaterials(), "A9d"),
+        (lambda: T.MakeStructured2DMesh(nx=2, ny=2, periodic="x"), "A9d"),
+        (lambda: T.MakeStructured3DMesh(nx=1, ny=1, nz=1, periodic="xy"),
+         "A9d"),
     ]
-    for fn, item in cases[:-1]:
+    for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             fn()
     # a proxy op that no factor exists for
     a = T.BilinearForm(V)
-    a += T.SymbolicBFI(form=t_prox.ProxyFunction(V, False, op="dnk",
-                                                 op_args=(1,)) * v)
-    with pytest.raises(NotImplementedError, match="A9b"):
+    a += T.SymbolicBFI(form=t_prox.ProxyFunction(V, False, op="hesse") * v)
+    with pytest.raises(NotImplementedError, match="proxy op hesse"):
         a.Assemble()
-    f = T.LinearForm(V)
-    f += T.SymbolicFacetPatchBFI(form=v)
-    with pytest.raises(NotImplementedError):
-        f.Assemble()
+    for integral in (T.SymbolicFacetPatchBFI(form=v),
+                     T.SymbolicBFI(form=v, skeleton=True),
+                     T.SymbolicBFI(form=v, element_boundary=True)):
+        f = T.LinearForm(V)
+        f += integral
+        with pytest.raises(NotImplementedError, match="volume and BND"):
+            f.Assemble()
+    # what this slice ports builds now: dn, dnjump, div, skeleton,
+    # element-boundary and BND integrals
+    assert T.dn(u, 1).op == "dnk" and T.dnjump(u, 2).has_proxy
+    W = T.VectorH1(mesh, order=1, **CPU)
+    assert T.div(W.TrialFunction()).op == "div"
+    for kw in ({"skeleton": True}, {"element_boundary": True},
+               {"VOL_or_BND": T.BND}):
+        b = T.BilinearForm(V)
+        b += T.SymbolicBFI(form=u * v, **kw)
+        b.Assemble()
+        assert b.mat.todense().abs().sum() > 0
     assert u.Operator("grad").op == "grad" and u.Operator("id") is u
     from ngsxfem_tpu_torch.examples import cutfem, fictdom3d
     with pytest.raises(NotImplementedError, match="A11"):

@@ -28,6 +28,12 @@ import ngsxfem_tpu_torch.forms.assemble
 import ngsxfem_tpu_torch.examples.cutfem
 import ngsxfem_tpu_torch.examples.fictdom3d
 import ngsxfem_tpu_torch.examples.fictdom_ghostpen
+import ngsxfem_tpu_torch.examples.fictdom_dg_ghostpen
+import ngsxfem_tpu_torch.examples.fictdom_dn_ghostpen
+import ngsxfem_tpu_torch.examples.stokescutfem
+import ngsxfem_tpu_torch.examples.nxfem
+import ngsxfem_tpu_torch.examples.xfespaces
+import ngsxfem_tpu_torch.fem.xfespace
 import ngsxfem_tpu_torch.ops.multilinear
 import ngsxfem_tpu_torch.geom.cutinfo
 import chip_smoke
@@ -46,6 +52,15 @@ err = ngsxfem_tpu_torch.examples.fictdom3d.run(nx=4, verbose=False,
 assert 0.05 < err < 0.2, err
 err = ngsxfem_tpu_torch.examples.cutfem.run(nx=6, verbose=False, device="cpu")
 assert 0.1 < err < 0.5, err
+# skeleton, vector and XFEM workloads
+err = ngsxfem_tpu_torch.examples.fictdom_dg_ghostpen.run(nx=6, verbose=False,
+                                                         device="cpu")
+assert 0.05 < err < 0.5, err
+err = ngsxfem_tpu_torch.examples.nxfem.run(nx=6, verbose=False, device="cpu")
+assert 0.1 < err < 0.5, err
+u_err, p_err = ngsxfem_tpu_torch.examples.stokescutfem.run(nx=4, verbose=False,
+                                                           device="cpu")
+assert u_err < 0.5 and p_err < 1.0, (u_err, p_err)
 mg1 = LatticeDIAMG([[-1, 0, 1]], [5], dim=1)
 pp = mg1.prepare_safe(mg1.params([[[0, -1, -1, -1, -1], [2] * 5,
                                    [-1, -1, -1, -1, 0]]], device="cpu"))
@@ -59,8 +74,8 @@ sys.exit(1 if bad else 0)
 
 def test_port_imports_no_jax():
     """Importing the port, its modules, its examples and chip_smoke, and
-    running the Quick start, two examples and a coarse multigrid inverse on
-    the CPU, loads no jax and no ngsxfem_tpu module."""
+    running the Quick start, five examples and a coarse multigrid inverse
+    on the CPU, loads no jax and no ngsxfem_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -109,3 +109,91 @@ def test_cg_ir_reaches_true_f64_residual():
     assert x64.dtype == torch.float64
     assert float(true) == pytest.approx(float(res), rel=1e-6, abs=1e-300)
     assert float(res) / float(torch.linalg.vector_norm(b64)) <= 1e-10
+
+
+# -- MINRES and the solver wrappers --------------------------------------------
+
+def _saddle():
+    """The symmetric indefinite case of tests/test_stokes.py:24-48."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((12, 12))
+    A = A + A.T + 14 * np.eye(12)
+    B = rng.standard_normal((4, 12))
+    K = np.block([[A, B.T], [B, np.zeros((4, 4))]])
+    return K, rng.standard_normal(16)
+
+
+@pytest.mark.parametrize("precond,tol", [(False, 1e-12), (True, 1e-11)])
+def test_minres_matches_reference(precond, tol):
+    """minres against the reference's on the saddle-point case: iterations
+    within 1, solution to 1e-10 relative, both equal to the direct solve to
+    the reference test's 1e-8.  Past the Krylov dimension (16) the residual
+    estimate of the preconditioned solve moves with the rounding of the two
+    implementations' dots and products: at 1e-12 they stop at 22 and 24
+    iterations (solutions equal to 1e-12), so the iteration count is held
+    at 1e-11 there, where they stop at 21 and 22."""
+    K, b = _saddle()
+    xref = np.linalg.solve(K, b)
+    dinv = 1.0 / np.maximum(np.abs(np.diag(K)), 1e-2)
+    Kj, Kt = jnp.asarray(K), torch.as_tensor(K)
+    Mj = (lambda r: jnp.asarray(dinv) * r) if precond else None
+    Mt = (lambda r: torch.as_tensor(dinv) * r) if precond else None
+    for t in (tol, 1e-12):
+        xj, kj, _ = jax_krylov.minres(lambda v: Kj @ v, jnp.asarray(b), M=Mj,
+                                      maxiter=400, tol=t)
+        xt, kt, rel = krylov.minres(lambda v: Kt @ v, torch.as_tensor(b),
+                                    M=Mt, maxiter=400, tol=t)
+        assert _rel(xt.numpy(), np.asarray(xj)) <= 1e-10
+        assert np.abs(xt.numpy() - xref).max() < 1e-8
+        assert float(rel) <= t
+        if t == tol:
+            assert abs(kt - int(kj)) <= 1, (kt, int(kj))
+    if not precond:
+        assert kt <= 16 + 1  # the Krylov dimension bound
+
+
+def _poisson_system():
+    """P1 Poisson with a Dirichlet boundary at nx=8 through both packages'
+    forms: (port matrix, port load, free dofs, reference matrix and load)."""
+    import ngsxfem_tpu as J
+    import ngsxfem_tpu_torch as T
+
+    out = []
+    for N, kw in ((T, {"device": "cpu"}), (J, {})):
+        mesh = N.MakeStructured2DMesh(quads=False, nx=8, ny=8)
+        V = N.H1(mesh, order=1, dirichlet=[1, 2], **kw)
+        u, v = V.TnT()
+        a = N.BilinearForm(V)
+        a += N.SymbolicBFI(form=N.grad(u) * N.grad(v) + u * v)
+        a.Assemble()
+        f = N.LinearForm(V)
+        f += N.SymbolicLFI(form=(N.x * N.y + 1) * v)
+        f.Assemble()
+        out.append((a, f, V.FreeDofs()))
+    return out
+
+
+def test_cgsolver_takes_shims_and_bitarrays():
+    """CGSolver(mat, freedofs=BitArray) * f.vec equals the "cg" inverse bit
+    for bit and the reference's CGSolver to 1e-10."""
+    (a, f, free), (aj, fj, freej) = _poisson_system()
+    x = krylov.CGSolver(a.mat, freedofs=free, maxsteps=20 * a.mat.shape[0],
+                        tol=1e-12) * f.vec
+    x_inv = a.mat.Inverse(free, inverse="cg") * f.vec
+    assert torch.equal(x, x_inv)
+    xj = jax_krylov.CGSolver(aj.mat, freedofs=freej,
+                             maxsteps=20 * aj.mat.shape[0], tol=1e-12) * fj.vec.data
+    assert _rel(x.numpy(), np.asarray(xj)) <= 1e-10
+    assert not x.numpy()[~free.np].any()
+
+
+def test_minres_solver_with_bitarray():
+    """MinResSolver(mat, freedofs=BitArray) * f.vec against the reference's
+    MinResSolver (1e-10) and the host LU (1e-8), fixed dofs zero."""
+    (a, f, free), (aj, fj, freej) = _poisson_system()
+    x = krylov.MinResSolver(a.mat, freedofs=free, tol=1e-12) * f.vec
+    xj = jax_krylov.MinResSolver(aj.mat, freedofs=freej, tol=1e-12) * fj.vec.data
+    x_lu = a.mat.Inverse(free) * f.vec
+    assert _rel(x.numpy(), np.asarray(xj)) <= 1e-10
+    assert _rel(x.numpy(), x_lu.numpy()) <= 1e-8
+    assert not x.numpy()[~free.np].any()

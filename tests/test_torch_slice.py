@@ -35,6 +35,18 @@ from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
 NX = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: under ``-n 6`` the workers'
+    thread pools contend, and the port's small-tensor Krylov loops slow
+    down 8x with torch's default threads (the phase-16 rehearsal on an
+    8-core CPU with seven cores busy: 52.6 s, against 6.8 s with one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_flagship(dtype, iters):
     m = JaxPoisson(nx=NX, dim=3, order=1, dtype=dtype)
     st = m.dia_structure()
@@ -198,3 +210,38 @@ def test_chip_smoke_new_phases_on_cpu(monkeypatch):
     monkeypatch.setattr(cs, "LMG_MAX_ITERS", 2)
     with pytest.raises(RuntimeError, match="MG-CG took"):
         cs.lattice_mg(levels, torch.float32, dev, jacobi=False)
+
+
+def test_chip_smoke_skeleton_phase_on_cpu(monkeypatch):
+    """The checks of chip_smoke.py's phase 16 (DG, dn ghost penalty, cut
+    Stokes with MINRES, Nitsche-XFEM, XFESpace), driven on the CPU at
+    nx <= 16 (the card sizes cut to 16), the reference limits and rates
+    set for those sizes (nx 8 -> 12 is no doubling)."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "DG_NX", (8, 12))
+    monkeypatch.setattr(cs, "DN_NX", 8)
+    monkeypatch.setattr(cs, "NXF_NX", 8)
+    monkeypatch.setattr(cs, "NXF_LU_NX", 8)
+    monkeypatch.setattr(cs, "ST_NX", (8, 12))
+    monkeypatch.setattr(cs, "DG_RATE", 2.0)
+    monkeypatch.setattr(cs, "ST_RATE", (2.0, 2.0))
+    monkeypatch.setattr(cs, "DG_MAX", 0.05)
+    monkeypatch.setattr(cs, "DN_MAX", 0.5)
+    monkeypatch.setattr(cs, "NXF_MAX", 0.5)
+    monkeypatch.setattr(cs, "ST_MAX", (0.05, 0.1))
+    monkeypatch.setattr(cs, "BIG_NX", {"fictdom_dg_ghostpen": 16,
+                                       "fictdom_dn_ghostpen": 16,
+                                       "stokescutfem": 16, "nxfem": 16})
+    sk = cs.skeleton_slice(T, torch.device("cpu"))
+    for b in sk["bigs"]:
+        assert b["products"] == b["iters"] + 1 and b["launches"] == 0
+        assert b["true_rel"] <= 1e-8
+    st = sk["stokes32"]
+    assert st[2] <= 1e-8 and st[3] <= 1e-8 and st[4] <= 1e-8
+    assert sk["nxfem_lu_cg"] <= 1e-8
+    assert [b["kind"] for b in sk["bigs"]] == ["cg", "cg", "minres", "cg"]
+    # a failed check raises
+    monkeypatch.setattr(cs, "DN_MAX", 0.01)
+    with pytest.raises(RuntimeError, match="dn ghost penalty"):
+        cs.skeleton_slice(T, torch.device("cpu"))
