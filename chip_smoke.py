@@ -26,9 +26,10 @@ skeleton, vector and XFEM workloads in phases 16-17:
   plain PyTorch: the reference has no TPU kernel there), and the flagship
   in native f64;
 - the public API: ``examples.fictdom3d`` (the flagship written as a weak form
-  through ``BilinearForm``/``LinearForm``), solved by the host LU and by
-  ``a.mat.Inverse(freedofs, inverse="cg")``, which runs Jacobi-CG through the
-  ``ell_matvec`` kernel;
+  through ``BilinearForm``/``LinearForm``), solved by the named host LU
+  (``inverse="umfpack"``), by ``a.mat.Inverse(freedofs, inverse="cg")`` and
+  by the default ``a.mat.Inverse(freedofs)``, both of which run Jacobi-CG
+  through the ``ell_matvec`` kernel on the card;
 - the skeleton, vector and XFEM workloads: ``examples.fictdom_dg_ghostpen``
   (L2, cut-facet interior penalty), ``fictdom_dn_ghostpen`` (``dnjump``
   skeleton ghost penalty), ``stokescutfem`` (``VectorH1``, ``div``, a
@@ -38,8 +39,10 @@ skeleton, vector and XFEM workloads in phases 16-17:
 Phases, one line each:
 
 1. environment: a CUDA card, its name and power limit from nvidia-smi;
-2. build: compile csrc/dia_cg.cu and csrc/ell_spmv.cu with nvcc for
-   sm_90a, both at once;
+2. build: compile csrc/dia_cg.cu, csrc/ell_spmv.cu and the row-major ELL
+   kernel B2 replaced (tools/torch_ell_spmv_rowmajor.cu, the "before" of
+   B2's times) with nvcc for sm_90a, all at once; B2's registers, shared
+   memory and local memory (spills);
 3. DIA-PCG kernel (one persistent cooperative kernel per call) against its
    plain PyTorch version on the card: the flagship at nx=16, 48 and 64 and
    seeded random exactly symmetric tables (1D, 2D and 3D lattice offsets,
@@ -53,19 +56,29 @@ Phases, one line each:
 5. DIA-path times on the card with CUDA events (one warm-up, median of 5),
    and ``torch.profiler`` on PCG-50 calls: exactly one ``dia_cg`` device
    kernel per call, device time per iteration (t(50) - t(0)) / 50;
-6. ELL kernel against its plain PyTorch version on the card: the nx=48 ELL
-   table in f32 and f64 and seeded random padded tables (K = 1..32, n not
-   a multiple of the block), bitwise equal and bitwise repeatable; int64
-   cols, a wrong shape and a CPU x raise; the launch counter moves;
+6. ELL kernel (SELL-32-1024 layout from ``prepare_ell``) against its plain
+   PyTorch versions on the card: the nx=48 ELL table in f32 and f64 and
+   seeded tables (K = 1..64, n = 0, 1, 31, 32, 33, 257, 100,003, row
+   lengths varying inside each slice, all-padding rows, a NaN-poisoned
+   table that stays NaN): == ``sell_matvec_plain`` bit for bit, ==
+   ``ell_matvec_plain`` under ``torch.equal``, bitwise repeatable; int64
+   cols, a wrong shape, a CPU x and a layout of another table raise; a raw
+   call builds its own layout; the nx=48 table's slice_K statistics and
+   slice fill;
 7. the ELL path at nx=48 with the launch counters reset before it, its
-   tables assembled with deterministic ``index_add_``: ELL
-   operator == DIA operator after the dof renumbering (rel <= 1e-5),
-   Jacobi-CG-50 on ELL == the DIA-PCG kernel's x (rel <= 5e-4), MG-CG on
-   [12, 24, 48] to rel res <= 1e-8 in <= 16 iterations with a true f64
-   relative residual <= 1e-4, and ELL-kernel launches > 0;
-8. ELL-path times on the card: SpMV kernel per call (mean of 200), its
-   plain version, ``torch.sparse_csr_tensor @ x`` (cuSPARSE, a yardstick
-   only), the bound, assembly per level, ``prepare_host``, MG-CG;
+   tables assembled as a user's call assembles them (fixed-order sums, no
+   global flag): ELL operator == DIA operator after the dof renumbering
+   (rel <= 1e-5), Jacobi-CG-50 on ELL == the DIA-PCG kernel's x (rel
+   <= 5e-4), MG-CG on [12, 24, 48] to rel res <= 1e-8 in <= 16 iterations
+   with a true f64 relative residual <= 1e-4, the solve's layouts == its
+   tables (built in ``prepare_host``, none per product), ELL-kernel
+   launches > 0; then the nx=48 table assembled five more times: bitwise
+   equal, MG-CG in the same number of iterations each time;
+8. ELL-path times on the card: SpMV kernel per call (mean of 100) and
+   device time per launch, the row-major kernel it replaced, its plain
+   versions, ``torch.sparse_csr_tensor @ x`` (cuSPARSE, a yardstick only),
+   the nnz bound (the record's ``bound_ms``) and the padded one, assembly
+   per level, ``prepare_host``, MG-CG;
 9. general cut quadrature through ``Integrate`` on the card, f64: the
    reference suite's exactness cases (error <= 5e-15 (k+1)^2, the plane on
    256 x 256 meshes to 1e-12), the ball r=0.4 on tets nx = 16, 32, 64 and
@@ -95,11 +108,13 @@ Phases, one line each:
 14. the public API, launch counters reset before it: ``examples.fictdom3d``
    at nx = 8, 12, 24, 48 (nx=8 error < 0.06, EOC >= 1.75; nx=48 is built
    once through ``examples.fictdom3d.system``), there the ELL kernel against
-   its plain version on the forms-assembled table (117,649 x 24, f64) with a
-   seeded x and the free-masked load, bitwise, and its time beside its
-   bound; the direct and the ``"cg"`` solve equal to 1e-8 with ``ell_spmv``
-   launches equal to the CG's products, ``a.mat`` symmetric to 1e-12, the
-   same three
+   its plain versions on the forms-assembled table (117,649 x 24, f64) with
+   a seeded x and the free-masked load, bitwise, and its times as in phase
+   8; the named direct (``inverse="umfpack"``), the ``"cg"`` and the
+   default ``Inverse()`` solve (on the card: Jacobi-CG, path
+   ``"device_cg"``, its wall time beside the LU's) equal to 1e-8 with
+   ``ell_spmv`` launches equal to the CGs' products and one layout built
+   for the table, ``a.mat`` symmetric to 1e-12, the same three
    integrators on ``UnfittedPoisson``'s mesh against its DIA operator on
    active dofs (f64, rel <= 1e-12), ``examples.fictdom_ghostpen`` (nx=40) and
    ``examples.cutfem`` (nx=30, L2 ~0.0188) within 1e-8 of their CPU runs;
@@ -109,16 +124,19 @@ Phases, one line each:
 16. the skeleton, vector and XFEM workloads, launch counters reset before
    them, f64: ``fictdom_dg_ghostpen`` (order 2) at nx = 20, 40,
    ``fictdom_dn_ghostpen`` at nx=20, ``nxfem`` at nx=15 and ``xfespaces``
-   on the card against the CPU (1e-8) with the reference tests' limits;
-   ``nxfem`` nx=64 ``"cg"`` vs host LU (1e-8); ``stokescutfem`` at nx=16
-   (limits) and nx=32 (convergence; ``MinResSolver`` with the example's
-   block preconditioner vs host LU, velocity and errors to 1e-8); then each
+   on the card (whose default ``Inverse()`` now solves on the device but
+   for Stokes) against the CPU (host LU) to 1e-8 with the reference tests'
+   limits; ``nxfem`` nx=64 ``"cg"`` vs the named host LU (1e-8);
+   ``stokescutfem`` at nx=16 (limits) and nx=32 (convergence;
+   ``MinResSolver`` with the example's block preconditioner vs the named
+   host LU, velocity and errors to 1e-8); then each
    at its card size (DG, dn and nxfem nx=256 through ``Inverse(free,
    inverse="cg")``, Stokes nx=128 through ``MinResSolver``), built once
    through ``system()``: kernel B2 == plain bitwise on each table (a seeded
-   x, the free-masked load) with its device time, bound and cuSPARSE time,
-   ``ell_spmv`` launches == the solver's products == iterations + 1, true
-   relative residual <= 1e-8, L2 errors below the smaller sizes';
+   x, the free-masked load) with its times as in phase 8, ``ell_spmv``
+   launches == the solver's products == iterations + 1, one layout built
+   per solve, true relative residual <= 1e-8, L2 errors below the smaller
+   sizes';
 17. the card-size calls of phase 16: ``Assemble`` by CUDA events and under
    ``torch.profiler`` (device kernels, busy, idle share, host seconds),
    ``to_ell`` (host), each solve over a window of 100 iterations, peak
@@ -132,6 +150,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -170,6 +189,7 @@ DG_RATE, ST_RATE = 3.0, (3.0, 2.5)
 BIG_NX = {"fictdom_dg_ghostpen": 256, "fictdom_dn_ghostpen": 256,
           "stokescutfem": 128, "nxfem": 256}
 WINDOW = 100  # solver iterations profiled per card-size solve (phase 17)
+TOOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
 F64_FLOP_PER_S = 34e12      # H100 SXM, f64 outside the tensor cores
@@ -339,10 +359,17 @@ def dia_cg_bound(offsets, n, iters):
 
 
 def ell_bound(n, K, ncols, itemsize):
-    """B2: vals and int32 cols (n, K) and x read once, y written once; 2
-    flops per slot."""
-    return bound(n * K * (4 + itemsize) + ncols * itemsize + n * itemsize,
-                 2 * n * K, F64_FLOP_PER_S if itemsize == 8 else F32_FLOP_PER_S)
+    """B2 on the padded table: vals and int32 cols (n, K) and x read once,
+    y written once; 2 flops per slot."""
+    return nnz_bound(n * K, n, ncols, itemsize)
+
+
+def nnz_bound(nnz, n, ncols, itemsize):
+    """B2 whatever layout implements it: each of the table's ``nnz`` real
+    slots (value and int32 column) and x read once, y written once; 2 flops
+    per slot."""
+    return bound(nnz * (4 + itemsize) + ncols * itemsize + n * itemsize,
+                 2 * nnz, F64_FLOP_PER_S if itemsize == 8 else F32_FLOP_PER_S)
 
 
 def ell_level(nx, device, model=None):
@@ -363,36 +390,73 @@ def ell_level(nx, device, model=None):
             "if_mask": ifm & model.active_dofs}
 
 
-def random_ell(rng, n, K, ncols, dtype, device):
-    """Seeded ELL table with trailing padding (col 0, val 0) in each row,
-    and an x."""
+def random_ell(rng, n, K, ncols, dtype, device, nan=False):
+    """Seeded ELL table with trailing padding (col 0, val 0) of a random
+    length in each row (so row lengths vary inside each slice of 32), the
+    first rows all padding, and an x; ``nan`` poisons the whole table as
+    ``_band_guard`` does."""
     cols = rng.integers(0, ncols, size=(n, K)).astype(np.int32)
     vals = rng.standard_normal((n, K))
     pad = np.arange(K)[None, :] >= rng.integers(0, K + 1, size=(n, 1))
+    pad[:40] = True
     cols[pad] = 0
     vals[pad] = 0.0
+    if nan:
+        vals = vals * np.nan
     x = rng.standard_normal(ncols)
     return (torch.as_tensor(vals, dtype=dtype, device=device),
             torch.as_tensor(cols, device=device),
             torch.as_tensor(x, dtype=dtype, device=device))
 
 
+def _same(a, b, bits):
+    """a == b: bit for bit (``bits``) or under ``torch.equal``, NaN at the
+    same places counting as equal."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    if bits:
+        it = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+        return torch.equal(a[~na].view(it), b[~nb].view(it))
+    return torch.equal(a[~na], b[~nb])
+
+
 def ell_kernel_vs_plain(cases):
-    """Each (label, vals, cols, x): kernel == plain and kernel == kernel,
-    bitwise.  Returns the largest |y_kernel - y_plain|."""
+    """Each (label, vals, cols, x): on the table's layout, kernel ==
+    ``sell_matvec_plain`` bit for bit, kernel == ``ell_matvec_plain`` under
+    ``torch.equal``, two kernel runs bit for bit.  The layouts and launches
+    made here are not any path's: both counters are put back.  Returns
+    (the largest |y_kernel - y_plain|, the last case's layout)."""
     from ngsxfem_tpu_torch.solvers import ell_spmv
 
-    worst = 0.0
+    counts = ell_spmv.launches, ell_spmv.layouts_built
+    worst, L = 0.0, None
     for label, vals, cols, x in cases:
-        yk = ell_spmv.ell_matvec(vals, cols, x)
-        yk2 = ell_spmv.ell_matvec(vals, cols, x)
+        L = ell_spmv.prepare_ell(vals, cols, x.shape[0])
+        yk = ell_spmv.ell_matvec(vals, cols, x, L)
+        yk2 = ell_spmv.ell_matvec(vals, cols, x, L)
+        ys = ell_spmv.sell_matvec_plain(L, x)
         yp = ell_spmv.ell_matvec_plain(vals, cols, x)
         torch.cuda.synchronize()
-        err = float((yk - yp).abs().max()) if yk.numel() else 0.0
-        check(torch.equal(yk, yk2), f"{label}: two kernel runs differ")
-        check(torch.equal(yk, yp), f"{label}: kernel != plain, max|dy| {err}")
+        fin = torch.isfinite(yk) & torch.isfinite(yp)
+        err = float((yk - yp)[fin].abs().max()) if fin.any() else 0.0
+        check(_same(yk, yk2, True), f"{label}: two kernel runs differ")
+        check(_same(yk, ys, True),
+              f"{label}: kernel != sell_matvec_plain bit for bit")
+        check(_same(yk, yp, False),
+              f"{label}: kernel != ell_matvec_plain, max|dy| {err}")
         worst = max(worst, err)
-    return worst
+    ell_spmv.launches, ell_spmv.layouts_built = counts
+    return worst, L
+
+
+def slice_stats(L):
+    """'slice_K min/median/max, fill' of a layout, for the logs."""
+    sk = L.slice_K.cpu().numpy()
+    med = float(np.median(sk)) if sk.size else 0.0
+    return (f"slice_K min/median/max {sk.min() if sk.size else 0}/{med:g}/"
+            f"{L.kmax}, {L.nnz} real slots of {L.vals.shape[0]} stored, "
+            f"slice fill {L.fill:.4f}")
 
 
 def dia_as_ell(dia, perm, perm_inv):
@@ -416,6 +480,7 @@ def ell_path(device, model48, dia, x_dia):
     """The ELL path: levels MG_NX (the finest reuses the DIA path's model),
     operator and Jacobi-CG-50 checks against the DIA path, FunctionalELLMG
     with prepare_host, MG-CG to MG_TOL.  Returns what phase 8 times."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
     from ngsxfem_tpu_torch.solvers import mg as mgmod
     from ngsxfem_tpu_torch.solvers.krylov import CGSolver, cg
     from ngsxfem_tpu_torch.solvers.ell_spmv import ell_matvec
@@ -474,26 +539,56 @@ def ell_path(device, model48, dia, x_dia):
     mg_setup_s = time.perf_counter() - t0
     params = mg.params([lv["V"] for lv in levels], dtype=torch.float32,
                        device=device)
+    layouts_before = ell_spmv.layouts_built
     t0 = time.perf_counter()
     pp = mg.prepare_host(params)
     sync(device)
     prepare_s = time.perf_counter() - t0
+    # the solve's tables: the level operators (the finest is the CG's
+    # operator too), the transfers and the interface blocks
+    ntables = (len(pp["ops"]) + len(pp["R_ops"]) + len(pp["P_ops"])
+               + sum(s is not None for s in pp["if_ops"]))
 
-    def mgcg():
-        return cg(A.matvec, b, M=lambda r: mg.apply(pp, r),
+    def mgcg(pp=pp):
+        return cg(pp["ops"][-1].matvec, b, M=lambda r: mg.apply(pp, r),
                   maxiter=MG_MAXITER, tol=MG_TOL)
 
     t0 = time.perf_counter()
     x, iters, res = mgcg()
     sync(device)
     mgcg_wall_s = time.perf_counter() - t0
+    layouts = ell_spmv.layouts_built - layouts_before
+    want = ntables if ell_spmv.uses_layout(b) else 0  # none on the CPU
+    check(layouts == want, f"MG-CG: {layouts} layouts built for "
+                           f"{ntables} tables, {want} expected")
     return {"levels": levels, "A": A, "xr": xr, "b": b, "x": x,
             "iters": iters, "res": res, "rel_op": rel_op, "rel_cg": rel_cg,
             "rel_dia_ell": rel_dia_ell, "rel_cg_asm": rel_cg_asm,
-            "res50": res50,
+            "res50": res50, "layouts": layouts, "params": params,
             "mg": mg, "pp": pp, "mgcg": mgcg, "levels_s": levels_s,
             "mg_setup_s": mg_setup_s, "prepare_s": prepare_s,
             "mgcg_wall_s": mgcg_wall_s}
+
+
+def repeat_assembly(ell, reps=5):
+    """The finest level's table assembled ``reps`` more times as a user's
+    call assembles it (no global flag): each bitwise equal to the first,
+    and MG-CG on each (``prepare_host`` anew) in the same number of
+    iterations.  Returns the iteration counts."""
+    fine = ell["levels"][-1]
+    m, mg, params = fine["model"], ell["mg"], ell["params"]
+    iters = []
+    for _ in range(reps):
+        V, _ = m.assemble_vals_soa1(m.vertices, m.lset, fine["struct"])
+        check(_same(V.reshape(-1), fine["V"].reshape(-1), True),
+              f"assemble_vals_soa1 nx={fine['nx']}: the table changed "
+              f"between two assemblies")
+        pp = mg.prepare_host(dict(params, vals=params["vals"][:-1] + [V]))
+        iters.append(int(ell["mgcg"](pp)[1]))
+    check(iters == [ell["iters"]] * reps,
+          f"MG-CG iterations over {reps} assemblies {iters}, first "
+          f"{ell['iters']}")
+    return iters
 
 
 # --- phases 9-11: general cut quadrature and the quadrature path ----------
@@ -976,28 +1071,12 @@ def public_api(T, device, model64, struct64, V64):
     n, K = ell.vals.shape
     out["K"], out["nrows"] = int(K), int(n)
     if device.type == "cuda":
-        # kernel B2 against its plain version on the table, type and vectors
-        # this path gives it: f64, K=24, a seeded x and the free-masked load.
-        # These launches are not the path's own: the count is put back.
-        path_launches = ell_spmv.launches
-        rng = np.random.default_rng(2029)
-        xs = torch.as_tensor(rng.standard_normal(n), device=device)
-        fm = torch.as_tensor(free.np, device=device)
-        xf = torch.where(fm, f.vec.data, 0.0).contiguous()
-        out["ell_err"] = ell_kernel_vs_plain(
-            [(f"forms ELL nx={nx} seeded x", ell.vals, ell.cols, xs),
-             (f"forms ELL nx={nx} masked load", ell.vals, ell.cols, xf)])
-        out["spmv_ms"] = per_call_ms(
-            lambda: ell_spmv.ell_matvec(ell.vals, ell.cols, xs), 200)
-        kern, _ = device_kernels(
-            lambda: ell_spmv.ell_matvec(ell.vals, ell.cols, xs), 50)
-        hits = [v for k, v in kern.items() if "ell_spmv_kernel" in k]
-        out["spmv_dev_us"] = hits[0][1] / hits[0][0] if hits else None
-        out["spmv_plain_ms"] = per_call_ms(
-            lambda: ell_spmv.ell_matvec_plain(ell.vals, ell.cols, xs), 20)
-        out["spmv_bound"] = ell_bound(n, K, n, ell.vals.element_size())
-        ell_spmv.launches = path_launches
-    inv_lu = a.mat.Inverse(free)
+        # kernel B2 against its plain versions on the table, type and
+        # vectors this path gives it: f64, K=24, a seeded x and the
+        # free-masked load, and its times
+        out["b2"] = b2_on_table(f"fictdom3d forms nx={nx}", ell, free.np,
+                                f.vec.data, device)
+    inv_lu = a.mat.Inverse(free, inverse="umfpack")
     t0 = time.perf_counter()
     x_lu = inv_lu * f.vec.data        # factorizes on the host, then solves
     sync(device)
@@ -1014,6 +1093,7 @@ def public_api(T, device, model64, struct64, V64):
     check(min(eocs) >= EOC_MIN, f"fictdom3d L2 errors {errs}: EOC {eocs}")
     out["errs"], out["eocs"] = errs, eocs
     before = ell_spmv.launches
+    layouts_before = ell_spmv.layouts_built
     with counted_products("cg") as cnt:
         x_cg = a.mat.Inverse(free, inverse="cg") * f.vec.data
     sync(device)
@@ -1026,6 +1106,33 @@ def public_api(T, device, model64, struct64, V64):
     dsol = float(torch.linalg.vector_norm(x_cg - x_lu)
                  / torch.linalg.vector_norm(x_lu))
     check(dsol <= 1e-8, f"direct vs 'cg' solution: rel {dsol}")
+    # the default Inverse(): Jacobi-CG on the card (this SPD free block),
+    # the host LU on the CPU; the ELL view's layout is already built
+    before = ell_spmv.launches
+    t0 = time.perf_counter()
+    with counted_products("cg") as cnt:
+        inv = a.mat.Inverse(free)
+        x_def = inv * f.vec.data
+    sync(device)
+    out["default_s"] = time.perf_counter() - t0
+    out["default_path"] = inv.path
+    out["default_launches"] = ell_spmv.launches - before
+    out["default_iters"], out["default_products"] = cnt.iters, cnt.products
+    out["layouts"] = ell_spmv.layouts_built - layouts_before
+    want = int(ell_spmv.uses_layout(a.mat.vals))  # none on the CPU
+    check(out["layouts"] == want, f"the 'cg' and default solves built "
+                                  f"{out['layouts']} layouts for one table, "
+                                  f"{want} expected")
+    if device.type == "cuda":
+        check(inv.path == "device_cg" and out["default_launches"]
+              == cnt.products == cnt.iters + 1,
+              f"default Inverse(): path {inv.path}, "
+              f"{out['default_launches']} ell_spmv launches for "
+              f"{cnt.products} products, {cnt.iters} iterations")
+    out["dsol_default"] = float(torch.linalg.vector_norm(x_def - x_lu)
+                                / torch.linalg.vector_norm(x_lu))
+    check(out["dsol_default"] <= 1e-8,
+          f"named LU vs default Inverse() solution: rel {out['dsol_default']}")
     out.update(asym=asym, dsol=dsol, nfree=free.NumSet(),
                ntriplets=int(a.mat.vals.shape[0]), a=a, f=f, free=free)
 
@@ -1095,50 +1202,104 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def b2_on_table(label, ell, free, load, device):
-    """Kernel B2 against its plain version on an assembled table, with a
-    seeded x and with the free-masked load (bitwise), its device time per
-    launch, its bound and cuSPARSE on the same table.  These launches are
-    not the path's own: the count is put back."""
+def b2_timed(label, A, x):
+    """Kernel B2 on the ``ELLMatrix`` A with the seeded x: us per call
+    (events), device us per launch (``torch.profiler``), the row-major
+    kernel it replaced on the same table (device us, equal to the plain
+    version under ``torch.equal``), the ms of the kernel's plain version
+    ``sell_matvec_plain`` and of ``ell_matvec_plain``, the nnz bound (the
+    least time of the function: ``bound_ms`` of the record) and the padded
+    one, and cuSPARSE.  Launches and layouts made here are put back."""
+    if TOOLS not in sys.path:
+        sys.path.insert(0, TOOLS)
+    import torch_ell_spmv_before_after as before_after
     from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix
 
-    path_launches = ell_spmv.launches
-    n, K = ell.vals.shape
+    counts = ell_spmv.launches, ell_spmv.layouts_built
+    A = ELLMatrix(A.cols, A.vals, A.shape)  # its own layout, not the path's
+    n, K = A.vals.shape
+    L = A.layout()
+    s = A.vals.element_size()
+    out = {"label": label, "n": int(n), "K": int(K),
+           "dtype": str(A.vals.dtype)[6:], "fill": L.fill, "nnz": L.nnz,
+           "slices": slice_stats(L)}
+    out["ms"] = per_call_ms(lambda: A @ x, 100)
+    out["dev_us"] = before_after.device_us(lambda: A @ x,
+                                           before_after.NEW_KERNEL)
+    old = before_after.load_rowmajor()
+    y_old = before_after.rowmajor_matvec(old, A.vals, A.cols, x)
+    check(torch.equal(y_old, ell_spmv.ell_matvec_plain(A.vals, A.cols, x)),
+          f"{label}: the row-major kernel != plain")
+    out["before_us"] = before_after.device_us(
+        lambda: before_after.rowmajor_matvec(old, A.vals, A.cols, x),
+        before_after.OLD_KERNEL)
+    out["plain_ms"] = per_call_ms(
+        lambda: ell_spmv.sell_matvec_plain(L, x), 5)
+    out["plain_ell_ms"] = per_call_ms(
+        lambda: ell_spmv.ell_matvec_plain(A.vals, A.cols, x), 5)
+    out["bound"] = nnz_bound(L.nnz, n, A.shape[1], s)
+    out["bound_padded"] = ell_bound(n, K, A.shape[1], s)
+    rid = torch.arange(n, device=x.device)[:, None].expand(n, K)
+    with warnings.catch_warnings():  # "beta state" notices of torch.sparse
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rid.reshape(-1), A.cols.reshape(-1).long()]),
+            A.vals.reshape(-1), A.shape).coalesce().to_sparse_csr()
+    y_lib = csr @ x
+    y_k = A @ x
+    lib_rel = float(torch.linalg.vector_norm(y_lib - y_k)
+                    / torch.linalg.vector_norm(y_lib))
+    check(lib_rel <= (1e-12 if s == 8 else 1e-5),
+          f"{label}: cuSPARSE yardstick rel {lib_rel}")
+    out["lib_ms"] = per_call_ms(lambda: csr @ x, 100)
+    kern, _ = device_kernels(lambda: csr @ x, 20)
+    out["lib_dev_us"] = sum(us for _, us in kern.values()) / 20 if kern else None
+    ell_spmv.launches, ell_spmv.layouts_built = counts
+    return out
+
+
+def b2_text(b2):
+    """One log clause of ``b2_timed``'s numbers."""
+    return (f"{b2['dev_us']:.3f} us device per launch "
+            f"({b2['ms'] * 1e3:.3f} us per call), the row-major kernel it "
+            f"replaced {b2['before_us']:.3f} us device, plain "
+            f"sell_matvec_plain {b2['plain_ms'] * 1e3:.3f} us and "
+            f"ell_matvec_plain {b2['plain_ell_ms'] * 1e3:.3f} us, bound nnz "
+            f"{b2['bound'][0] * 1e3:.3f} us ({b2['bound'][1]}), bound padded "
+            f"{b2['bound_padded'][0] * 1e3:.3f} us "
+            f"({b2['bound_padded'][1]}), "
+            f"cuSPARSE {b2['lib_dev_us']} us device "
+            f"({b2['lib_ms'] * 1e3:.3f} us per call); {b2['slices']}")
+
+
+def b2_record(b2):
+    """B2's numbers on one table for the kernel record."""
+    return {"table": b2["label"], "n": b2["n"], "K": b2["K"],
+            "dtype": b2["dtype"], "max_abs_err": b2["err"], "ms": b2["ms"],
+            "device_us": b2["dev_us"], "before_us": b2["before_us"],
+            "plain_ms": b2["plain_ms"], "plain_ell_ms": b2["plain_ell_ms"],
+            "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
+            "bound_nnz_ms": b2["bound"][0],
+            "bound_padded_ms": b2["bound_padded"][0],
+            "slice_fill": b2["fill"], "library_ms": b2["lib_ms"],
+            "library_device_us": b2["lib_dev_us"]}
+
+
+def b2_on_table(label, ell, free, load, device):
+    """Kernel B2 against its plain versions on an assembled table, with a
+    seeded x and with the free-masked load, and ``b2_timed`` on it."""
     rng = np.random.default_rng(2030)
     xs = torch.as_tensor(rng.standard_normal(ell.shape[1]),
                          dtype=ell.vals.dtype, device=device)
     fm = torch.as_tensor(free, device=device)
     xf = torch.where(fm, load, 0.0).contiguous()
-    out = {"label": label, "n": int(n), "K": int(K),
-           "dtype": str(ell.vals.dtype)[6:]}
-    out["err"] = ell_kernel_vs_plain([(f"{label} seeded x", ell.vals,
-                                       ell.cols, xs),
-                                      (f"{label} masked load", ell.vals,
-                                       ell.cols, xf)])
-    out["ms"] = per_call_ms(lambda: ell_spmv.ell_matvec(ell.vals, ell.cols,
-                                                        xs), 100)
-    kern, _ = device_kernels(
-        lambda: ell_spmv.ell_matvec(ell.vals, ell.cols, xs), 20)
-    hits = [v for k, v in kern.items() if "ell_spmv_kernel" in k]
-    out["dev_us"] = hits[0][1] / hits[0][0] if hits else None
-    out["plain_ms"] = per_call_ms(
-        lambda: ell_spmv.ell_matvec_plain(ell.vals, ell.cols, xs), 5)
-    out["bound"] = ell_bound(n, K, ell.shape[1], ell.vals.element_size())
-    rid = torch.arange(n, device=device)[:, None].expand(n, K)
-    with warnings.catch_warnings():  # "beta state" notices of torch.sparse
-        warnings.simplefilter("ignore")
-        csr = torch.sparse_coo_tensor(
-            torch.stack([rid.reshape(-1), ell.cols.reshape(-1).long()]),
-            ell.vals.reshape(-1), ell.shape).coalesce().to_sparse_csr()
-    y_lib = csr @ xs
-    y_k = ell_spmv.ell_matvec(ell.vals, ell.cols, xs)
-    lib_rel = float(torch.linalg.vector_norm(y_lib - y_k)
-                    / torch.linalg.vector_norm(y_lib))
-    check(lib_rel <= 1e-12, f"{label}: cuSPARSE yardstick rel {lib_rel}")
-    out["lib_ms"] = per_call_ms(lambda: csr @ xs, 100)
-    kern, _ = device_kernels(lambda: csr @ xs, 20)
-    out["lib_dev_us"] = sum(us for _, us in kern.values()) / 20 if kern else None
-    ell_spmv.launches = path_launches
+    err, _ = ell_kernel_vs_plain([(f"{label} seeded x", ell.vals, ell.cols,
+                                   xs),
+                                  (f"{label} masked load", ell.vals,
+                                   ell.cols, xf)])
+    out = b2_timed(label, ell, xs)
+    out["err"] = err
     return out
 
 
@@ -1179,6 +1340,7 @@ def card_size(name, build, device, lift=None, minres_pre=None):
         out["b2"] = b2_on_table(f"{name} nx={out['nx']}", ell, free_np, rhs,
                                 device)
     before = ell_spmv.launches
+    layouts_before = ell_spmv.layouts_built
     if minres_pre is None:
         solver = a.mat.Inverse(free, inverse="cg")
         kind = "cg"
@@ -1190,7 +1352,12 @@ def card_size(name, build, device, lift=None, minres_pre=None):
     with counted_products(kind) as cnt:
         x, out["solve_ms"] = event_ms(lambda: solver * rhs)
     out["launches"] = ell_spmv.launches - before
+    out["layouts"] = ell_spmv.layouts_built - layouts_before
     out["kind"], out["iters"], out["products"] = kind, cnt.iters, cnt.products
+    want = int(ell_spmv.uses_layout(a.mat.vals))  # none on the CPU
+    check(out["layouts"] == want, f"{name}: the solve built "
+                                  f"{out['layouts']} layouts for its one "
+                                  f"table, {want} expected")
     if device.type == "cuda":
         check(out["launches"] == cnt.products == cnt.iters + 1,
               f"{name}: {out['launches']} ell_spmv launches, "
@@ -1261,7 +1428,7 @@ def skeleton_slice(T, device):
     a.Assemble()
     f.Assemble()
     rhs = f.vec.data - a.mat * lift.vec.data
-    x_lu = a.mat.Inverse(free) * rhs
+    x_lu = a.mat.Inverse(free, inverse="umfpack") * rhs
     x_cg = a.mat.Inverse(free, inverse="cg") * rhs
     out["nxfem_lu_cg"] = float(torch.linalg.vector_norm(x_cg - x_lu)
                                / torch.linalg.vector_norm(x_lu))
@@ -1280,7 +1447,7 @@ def skeleton_slice(T, device):
     a.Assemble()
     f.Assemble()
     pmass.Assemble()
-    x_lu = a.mat.Inverse(act) * f.vec
+    x_lu = a.mat.Inverse(act, inverse="umfpack") * f.vec
     with counted_products("minres") as cnt:
         x_mr = T.MinResSolver(a.mat, pre=stokescutfem.minres_preconditioner(
             a, pmass, X, act), freedofs=act, maxsteps=50000, tol=1e-12) * f.vec
@@ -1394,14 +1561,11 @@ def phases_16_17(T, dev, t_start):
               f"Assemble (a and f) {b['assemble_s']:.2f} s, to_ell "
               f"{b['to_ell_s']:.2f} s (host); {b['kind']} solve "
               f"{b['iters']} iterations = {b['products']} products = "
-              f"{b['launches']} ell_spmv launches, {b['solve_ms']:.1f} ms, "
-              f"true rel res {b['true_rel']:.3e}; L2 error {b['err']}; B2 on "
-              f"this table == plain bitwise (seeded x, masked load, max|dy| "
-              f"{b2['err']:.3e}), {b2['dev_us']} us device per launch, "
-              f"{b2['ms'] * 1e3:.3f} us per call, plain "
-              f"{b2['plain_ms'] * 1e3:.3f} us, bound {b2['bound'][0] * 1e3:.3f}"
-              f" us ({b2['bound'][1]}), cuSPARSE {b2['lib_dev_us']} us device "
-              f"({b2['lib_ms'] * 1e3:.3f} us per call); peak memory "
+              f"{b['launches']} ell_spmv launches, {b['layouts']} layout "
+              f"built, {b['solve_ms']:.1f} ms, true rel res "
+              f"{b['true_rel']:.3e}; L2 error {b['err']}; B2 on this table "
+              f"== plain bitwise (seeded x, masked load, max|dy| "
+              f"{b2['err']:.3e}), {b2_text(b2)}; peak memory "
               f"{b['peak_gib']:.2f} GiB", flush=True)
     print(f"[16 launches] ell_spmv {sk_launches}, dia_cg {dia_cg.launches}; "
           f"wall of phase 16 {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1456,16 +1620,27 @@ def main():
     print(f"[1 env] {gpu} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| devices {torch.cuda.device_count()}", flush=True)
 
-    # 2. build, one nvcc per source, all started together
+    # 2. build, one nvcc per source, all started together: the two kernels
+    # and the row-major ELL kernel that B2 replaced (the "before" of its
+    # timings)
     t0 = time.perf_counter()
-    built = build.build_all(["dia_cg", "ell_spmv"])
+    rowmajor = os.path.join(TOOLS, "torch_ell_spmv_rowmajor.cu")
+    built = build.build_all(["dia_cg", "ell_spmv", "ell_spmv_rowmajor"],
+                            {"ell_spmv_rowmajor": rowmajor})
     parts = []
     for name, (so, build_s, log) in built.items():
         regs = sorted({ln.split("Used ")[1].split(" registers")[0]
                        for ln in log.splitlines() if "registers" in ln})
-        parts.append(f"csrc/{name}.cu -> {so.rsplit('/', 1)[-1]} in "
+        spills = sorted({ln.strip() for ln in log.splitlines()
+                         if "spill" in ln})
+        parts.append(f"{name} -> {so.rsplit('/', 1)[-1]} in "
                      f"{build_s:.2f} s (registers per kernel: "
-                     f"{', '.join(regs) or 'reused build'})")
+                     f"{', '.join(regs) or 'reused build'}; "
+                     f"{' / '.join(spills) or 'no spill report'})")
+    b2_info = ell_spmv.kernel_info(dev)
+    print(f"[2 build] B2 sell32_spmv_kernel (registers, static shared memory "
+          f"B, local memory B per thread): f32 {b2_info['float32']}, f64 "
+          f"{b2_info['float64']}", flush=True)
     info = dia_cg.device_info(dev)
     print(f"[2 build] {'; '.join(parts)}; wall {time.perf_counter() - t0:.2f} s"
           f" | dia_cg kernel: {info['registers']} registers, "
@@ -1605,7 +1780,7 @@ def main():
           f"barriers per iteration) | wall {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    # 6. the ELL kernel against its plain version on the card
+    # 6. the ELL kernel against its plain versions on the card
     before = ell_spmv.launches
     t0 = time.perf_counter()
     st48 = model.ell_structure()
@@ -1616,17 +1791,31 @@ def main():
     cases = [(f"nx={NX} {dt}", V48.to(dt).contiguous(), cols48,
               torch.as_tensor(x48, dtype=dt, device=dev))
              for dt in (torch.float32, torch.float64)]
+    ell_err, L48 = ell_kernel_vs_plain(cases[:1])
     for dt in (torch.float32, torch.float64):
-        for K in (1, 2, 3, 7, 16, 25, 32):
-            for n in (1, 257, 100_003):
+        for K in (1, 2, 3, 7, 16, 25, 32, 60, 64):
+            for n in (0, 1, 31, 32, 33, 257, 100_003):
                 cases.append((f"random n={n} K={K} {dt}",
                               *random_ell(rng, n, K, n + 5, dt, dev)))
-    ell_err = ell_kernel_vs_plain(cases)
+        cases.append((f"NaN-poisoned n=1000 K=24 {dt}",
+                      *random_ell(rng, 1000, 24, 1005, dt, dev, nan=True)))
+    ell_err = max(ell_err, ell_kernel_vs_plain(cases)[0])
     vals32, _, x32 = cases[0][1:]
+    vn, cn, xn = cases[-1][1:]
+    yn = ell_spmv.ell_matvec(vn, cn, xn)  # a raw call: a throwaway layout
+    check(bool(torch.isnan(yn).all()), "a NaN-poisoned table's product "
+                                       "is not NaN in every row")
+    built_before = ell_spmv.layouts_built
+    ell_spmv.ell_matvec(vals32, cols48, x32)
+    check(ell_spmv.layouts_built == built_before + 1,
+          "a raw CUDA call did not build (and count) a layout")
     for what, args in (
             ("int64 cols", (vals32, cols48.long(), x32)),
             ("wrong shape", (vals32, cols48[:-1], x32)),
-            ("CPU x with CUDA vals", (vals32, cols48, x32.cpu()))):
+            ("CPU x with CUDA vals", (vals32, cols48, x32.cpu())),
+            ("a layout of another table", (vals32[:-1].contiguous(),
+                                           cols48[:-1].contiguous(),
+                                           x32, L48))):
         try:
             ell_spmv.ell_matvec(*args)
         except ValueError:
@@ -1635,25 +1824,23 @@ def main():
             raise RuntimeError(f"check failed: {what} did not raise")
     check(ell_spmv.launches > before, "ell_spmv launch counter did not move")
     print(f"[6 ell kernel] nx={NX} ELL {tuple(V48.shape)} f32+f64 and "
-          f"{len(cases) - 2} seeded padded tables (K=1..32): kernel == plain "
-          f"bitwise (max|dy| {ell_err:.3e}), bitwise repeatable, bad inputs "
-          f"raise, {ell_spmv.launches - before} launches, "
+          f"{len(cases) - 2} seeded tables (K=1..64, n=0..100,003, rows of "
+          f"varying length in each slice, all-padding rows, NaN-poisoned): "
+          f"kernel == sell_matvec_plain bit for bit, == ell_matvec_plain "
+          f"(torch.equal; max|dy| {ell_err:.3e}), bitwise repeatable, bad "
+          f"inputs raise, a raw call builds its layout; nx={NX} f32 layout: "
+          f"{slice_stats(L48)}; {ell_spmv.launches - before} launches, "
           f"wall {time.perf_counter() - t0:.2f} s", flush=True)
-    del cases, V48, cols48
+    del cases, V48, cols48, L48, vn, cn, xn
 
     # 7. the ELL path, launch counters reset just before it.  Its tables
-    # are assembled with deterministic index_add_: with atomic-order sums the
-    # f32 MG-CG check below passed in 12-15 iterations or stalled near 1e-6
-    # from one assembly to the next (the solve itself is deterministic).
+    # are assembled as a user's call assembles them, in a fixed order
+    # (ScatterPlan), with no global flag set.
     dia_cg.launches = 0
     ell_spmv.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    torch.use_deterministic_algorithms(True)
-    try:
-        ell = ell_path(dev, model, dict(struct, V=V), x)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    ell = ell_path(dev, model, dict(struct, V=V), x)
     ell_main_s = time.perf_counter() - t0
     ell_launches = ell_spmv.launches
     dia_launches_ell = dia_cg.launches
@@ -1693,31 +1880,20 @@ def main():
           f"launches {dia_launches_ell}, host: levels {ell['levels_s']:.2f} s, "
           f"MG setup {ell['mg_setup_s']:.2f} s, prepare_host "
           f"{ell['prepare_s']:.3f} s, wall {ell_main_s:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    rep_iters = repeat_assembly(ell)
+    print(f"[7 repeat] assemble_vals_soa1 nx={NX} f32 five more times on the "
+          f"card, no global flag: every table bitwise equal to the first; "
+          f"MG-CG iterations {rep_iters}; the MG-CG solve built "
+          f"{ell['layouts']} layouts for its {ell['layouts']} tables, none "
+          f"per product; wall {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 8. ELL-path times on the card
     t0 = time.perf_counter()
     xr = ell["xr"]
-    spmv_ms = per_call_ms(lambda: A @ xr, 200)
-    kern, _ = device_kernels(lambda: A @ xr, 50)
-    hits = [v for k, v in kern.items() if "ell_spmv_kernel" in k]
-    spmv_dev_us = hits[0][1] / hits[0][0] if hits else None
-    spmv_plain_ms = per_call_ms(
-        lambda: ell_spmv.ell_matvec_plain(A.vals, A.cols, xr), 20)
+    b2_48 = b2_timed(f"flagship ELL nx={NX} f32", A, xr)
+    b2_48["err"] = ell_err
     n, K = A.vals.shape
-    rid = torch.arange(n, device=dev)[:, None].expand(n, K)
-    with warnings.catch_warnings():  # "beta state" notices of torch.sparse
-        warnings.simplefilter("ignore")
-        csr = torch.sparse_coo_tensor(
-            torch.stack([rid.reshape(-1), A.cols.reshape(-1).long()]),
-            A.vals.reshape(-1), (n, n)).coalesce().to_sparse_csr()
-    y_lib = csr @ xr
-    lib_rel = float(torch.linalg.vector_norm(y_lib - A @ xr)
-                    / torch.linalg.vector_norm(y_lib))
-    check(lib_rel <= 1e-5, f"cuSPARSE yardstick disagrees: rel {lib_rel}")
-    spmv_lib_ms = per_call_ms(lambda: csr @ xr, 200)
-    kern, _ = device_kernels(lambda: csr @ xr, 50)
-    lib_dev_us = sum(us for _, us in kern.values()) / 50 if kern else None
-    ell_bound_ms, ell_bound_by = ell_bound(n, K, n, 4)
     asm_lv_ms = [time_ms(lambda lv=lv: lv["model"].assemble_vals_soa1(
         lv["model"].vertices, lv["model"].lset, lv["struct"]))
         for lv in ell["levels"]]
@@ -1732,15 +1908,12 @@ def main():
     dia_cg.launches = 0
     ell["mgcg"]()
     per_solve = {"ell_spmv": ell_spmv.launches, "dia_cg": dia_cg.launches}
-    print(f"[8 ell times] {card()} | ELL SpMV nx={NX} ({n} x {K} f32): kernel "
-          f"{spmv_ms * 1e3:.3f} us/call (mean of 200; device time per "
-          f"launch {spmv_dev_us} us by torch.profiler) | plain "
-          f"{spmv_plain_ms * 1e3:.3f} us | torch.sparse_csr_tensor @ x "
-          f"{spmv_lib_ms * 1e3:.3f} us/call (device {lib_dev_us} us) | bound {ell_bound_ms * 1e3:.3f} us "
-          f"({ell_bound_by}) | assembly_soa1 per level {asm_txt} "
+    print(f"[8 ell times] {card()} | ELL SpMV nx={NX} ({n} x {K} f32): "
+          f"{b2_text(b2_48)} | assembly_soa1 per level {asm_txt} "
           f"| prepare_host {ell['prepare_s']:.3f} s | MG-CG {mgcg_ms:.3f} ms, "
-          f"{ell['iters']} iterations | launches per MG-CG solve {per_solve}",
-          flush=True)
+          f"{ell['iters']} iterations | launches per MG-CG solve {per_solve}, "
+          f"layouts built by the solve path {ell['layouts']} "
+          f"(= its tables)", flush=True)
     fl = ell["levels"][-1]
     kern, asm_wall = device_kernels(lambda: fl["model"].assemble_vals_soa1(
         fl["model"].vertices, fl["model"].lset, fl["struct"]), 1)
@@ -1903,24 +2076,28 @@ def main():
     api = public_api(T, dev, f64["model"], f64["struct"], f64["V"])
     api_launches = ell_spmv.launches
     check(api_launches > 0, "the public-API path launched ell_spmv no time")
+    b2_api = api["b2"]
     print(f"[14 public api] examples.fictdom3d nx={list(API_NX)} L2 errors "
           + ", ".join(f"{e:.4e}" for e in api["errs"])
           + f" (EOC {', '.join(f'{e:.3f}' for e in api['eocs'])}); nx={NX}: "
           f"{api['ntriplets']} COO triplets, ELL K={api['K']}, "
           f"{api['nfree']} free dofs, a.mat symmetric to {api['asym']:.3e}, "
-          f"direct solve {api['lu_s']:.2f} s (host), 'cg' solve "
-          f"{api['cg_iters']} iterations = {api['cg_products']} products = "
-          f"{api['cg_launches']} ell_spmv launches, direct vs 'cg' rel "
-          f"{api['dsol']:.3e}; ell_spmv on this table ({api['nrows']} x "
-          f"{api['K']} f64): kernel == plain bitwise on a seeded x and on "
-          f"the free-masked load (max|dy| {api['ell_err']:.3e}), kernel "
-          f"{api['spmv_ms'] * 1e3:.3f} us/call (mean of 200; device time "
-          f"per launch {api['spmv_dev_us']} us by torch.profiler), plain "
-          f"{api['spmv_plain_ms'] * 1e3:.3f} us, bound "
-          f"{api['spmv_bound'][0] * 1e3:.3f} us ({api['spmv_bound'][1]}); "
-          f"forms operator vs UnfittedPoisson's DIA "
-          f"operator on active dofs rel {api['vs_model']:.3e}; "
-          f"fictdom_ghostpen nx=40 L2 {api['fictdom_ghostpen'][0]:.10e} (CPU "
+          f"named direct solve (umfpack) {api['lu_s']:.2f} s (host), 'cg' "
+          f"solve {api['cg_iters']} iterations = {api['cg_products']} "
+          f"products = {api['cg_launches']} ell_spmv launches, direct vs "
+          f"'cg' rel {api['dsol']:.3e}; default Inverse(): path "
+          f"{api['default_path']}, {api['default_s']:.3f} s wall (the named "
+          f"LU {api['lu_s']:.3f} s), {api['default_iters']} iterations = "
+          f"{api['default_products']} products = {api['default_launches']} "
+          f"ell_spmv launches, vs the named LU rel "
+          f"{api['dsol_default']:.3e}; layouts built by both solves "
+          f"{api['layouts']} (one table); B2 on this table "
+          f"({api['nrows']} x {api['K']} f64): kernel == plain bitwise on a "
+          f"seeded x and on the free-masked load (max|dy| "
+          f"{b2_api['err']:.3e}), {b2_text(b2_api)}; forms operator vs "
+          f"UnfittedPoisson's DIA operator on active dofs rel "
+          f"{api['vs_model']:.3e}; fictdom_ghostpen nx=40 L2 "
+          f"{api['fictdom_ghostpen'][0]:.10e} (CPU "
           f"{api['fictdom_ghostpen'][1]:.10e}), cutfem nx=30 L2 "
           f"{api['cutfem'][0]:.10e} (CPU {api['cutfem'][1]:.10e}); ell_spmv "
           f"launches {api_launches}, dia_cg launches {dia_cg.launches}; peak "
@@ -1961,8 +2138,6 @@ def main():
         print(f"[15 times] {card()} | {name}: {ms:.3f} ms, {nk} device "
               f"kernels, device busy {busy:.3f} ms, idle share {idle:.3f}; "
               f"top: {top}", flush=True)
-    api_ell_err, api_spmv_ms = api["ell_err"], api["spmv_ms"]
-    api_spmv_plain_ms, api_spmv_bound = api["spmv_plain_ms"], api["spmv_bound"][0]
     print(f"[15 times] {card()} | Inverse() direct solve nx={NX} on the host "
           f"(scipy splu, {api['nfree']} free dofs, timed in phase 14): "
           f"factorize + solve {api['lu_s']:.3f} s, solve again "
@@ -1993,26 +2168,23 @@ def main():
         "source": "ngsxfem_tpu_torch/csrc/ell_spmv.cu",
         "replaces": "ngsxfem_tpu/solvers/sparse.py:179",
         "launches": ell_launches,
-        "launches_public_api": api_launches,
-        "max_abs_err_public_api": api_ell_err,
-        "ms_public_api": api_spmv_ms,
-        "plain_ms_public_api": api_spmv_plain_ms,
-        "bound_ms_public_api": api_spmv_bound,
-        "launches_slice6": sk_launches,
-        "slice6_tables": [{
-            "table": f"{b['name']} nx={b['nx']}", "n": b["b2"]["n"],
-            "K": b["b2"]["K"], "dtype": b["b2"]["dtype"],
-            "launches": b["launches"], "max_abs_err": b["b2"]["err"],
-            "ms": b["b2"]["ms"], "device_us": b["b2"]["dev_us"],
-            "plain_ms": b["b2"]["plain_ms"], "bound_ms": b["b2"]["bound"][0],
-            "bound_by": b["b2"]["bound"][1], "library_ms": b["b2"]["lib_ms"],
-            "library_device_us": b["b2"]["lib_dev_us"]} for b in sk["bigs"]],
         "max_abs_err": ell_err,
-        "ms": spmv_ms,
-        "plain_ms": spmv_plain_ms,
-        "bound_ms": ell_bound_ms,
-        "bound_by": ell_bound_by,
-        "library_ms": spmv_lib_ms,
+        "ms": b2_48["ms"],
+        "device_us": b2_48["dev_us"],
+        "before_us": b2_48["before_us"],
+        "plain_ms": b2_48["plain_ms"],
+        "plain_ell_ms": b2_48["plain_ell_ms"],
+        "bound_ms": b2_48["bound"][0],
+        "bound_by": b2_48["bound"][1],
+        "bound_nnz_ms": b2_48["bound"][0],
+        "bound_padded_ms": b2_48["bound_padded"][0],
+        "slice_fill": b2_48["fill"],
+        "library_ms": b2_48["lib_ms"],
+        "launches_public_api": api_launches,
+        "public_api_table": b2_record(b2_api),
+        "launches_slice6": sk_launches,
+        "slice6_tables": [dict(b2_record(b["b2"]), launches=b["launches"])
+                          for b in sk["bigs"]],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -41,6 +41,7 @@ from ..mesh.mesh import (FACET_ET, FACET_VERTS, det_and_inv, geom_dshapes,
                          geom_shapes, map_points, small_matmul)
 from ..ops.cuttables import ET_SPLIT, REF_VERTS
 from ..ops.gauss import ET_DIM, reference_rule
+from ..ops.scatter import ScatterPlan
 from ..ops.straightcut import _gram_measure, cut_rule_simplices, eps_guard
 from ..fem.space import CompoundFESpace, VectorFESpace, _arr
 from ..solvers.sparse import SparseMatrix
@@ -794,12 +795,17 @@ class BilinearForm:
 
 class LinearForm:
     """Linear form of volume and boundary integrals; ``Assemble`` runs on
-    the device of the space and leaves the vector there (``f.vec.data``)."""
+    the device of the space and leaves the vector there (``f.vec.data``).
+    Its element vectors are added in one fixed order (``ops.scatter``), so
+    the vector is the same on every run, on the CPU and on the card.  The
+    plan of that order is kept for the next ``Assemble`` that gives the
+    same dof stream."""
 
     def __init__(self, space, name="f", **kw):
         self.space = space
         self.integrals = []
         self._vec = None
+        self._plan = None  # (dof stream, its ScatterPlan)
 
     def __iadd__(self, integral: Integral):
         self.integrals.append(integral)
@@ -816,7 +822,7 @@ class LinearForm:
         mesh = space.mesh
         device = space.device
         order = _space_order(space)
-        out = torch.zeros(space.ndof, dtype=config.dtype, device=device)
+        dofs, contribs = [], []
         for integral in self.integrals:
             _ensure_p1_ld(integral, mesh, device)
             if (integral.element_boundary or integral.skeleton
@@ -842,11 +848,26 @@ class LinearForm:
                     if t.vfac is None or t.ufac is not None:
                         raise TypeError(
                             "linear form must be linear in the test function")
-                    ve = _term_elvec(t, W, mask)
+                    ve = _term_elvec(t, W, mask).to(config.dtype).reshape(-1)
                     dm_v = block_dofmap(space, t.vfac.block, ids,
-                                        device=device)
-                    out.index_add_(0, dm_v.reshape(-1),
-                                   ve.to(out.dtype).reshape(-1))
+                                        device=device).reshape(-1)
+                    # placeholder slots hold zeros and would all land on one
+                    # dof (as in BilinearForm.Assemble): left out
+                    vv = block_valid(space, t.vfac.block, ids, device=device)
+                    if vv is not None:
+                        keep = vv.reshape(-1)
+                        dm_v, ve = dm_v[keep], ve[keep]
+                    dofs.append(dm_v)
+                    contribs.append(ve)
+        out = torch.zeros(space.ndof, dtype=config.dtype, device=device)
+        if dofs:
+            index = torch.cat(dofs)
+            hit = self._plan
+            if (hit is None or hit[0].shape != index.shape
+                    or hit[0].device != index.device
+                    or not torch.equal(hit[0], index)):
+                hit = self._plan = (index, ScatterPlan(index, space.ndof))
+            hit[1].add(torch.cat(contribs), out)
         self._vec = out
         return self
 

@@ -39,13 +39,14 @@ def _nvcc():
     return found
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` if no current build exists.
+def build(name, src=None):
+    """Compile ``csrc/<name>.cu`` (or the source at ``src``) if no current
+    build exists.
 
     Returns ``(path to the .so, seconds spent compiling, compiler log)``;
     the seconds are 0 and the log empty when an existing build was reused.
     """
-    src = os.path.join(CSRC, f"{name}.cu")
+    src = src or os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     so = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
@@ -62,13 +63,16 @@ def build(name):
     return so, time.perf_counter() - t0, proc.stdout + proc.stderr
 
 
-def build_all(names):
+def build_all(names, srcs=None):
     """``build`` for several sources at once: one ``nvcc`` per source, all
-    started together.  Returns {name: build(name)}."""
+    started together; ``srcs`` maps a name to its source where it is not
+    under ``csrc/``.  Returns {name: build(name, src)}."""
     from concurrent.futures import ThreadPoolExecutor
 
+    srcs = srcs or {}
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        return dict(zip(names, pool.map(build, names)))
+        return dict(zip(names, pool.map(lambda n: build(n, srcs.get(n)),
+                                        names)))
 
 
 def load(name):

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..config import resolve_device
 from ..ops.gauss import ET_DIM, reference_rule
+from ..ops.scatter import ScatterPlan
 from ..fem.basis import ndof_el, lagrange_element, shapes, dshapes
 from ..integrate import vertex_local_ids
 from ..mesh.mesh import map_points, det_and_inv, small_matmul
@@ -755,9 +756,10 @@ class UnfittedPoisson(nn.Module):
         value table (ndof, K)) and DIA structures (``dia_structure``, value
         table (n_off, ndof)).  Returns (value table, ncut).
 
-        The adds are ``index_add_``: sequential on the CPU, atomic on the
-        card, where the order of the sums into one slot (and so the last
-        bits of the table) may change from run to run.
+        The three streams are added through one ``ScatterPlan`` of their
+        slots, built once per structure and device (``_assembly_plan``):
+        each slot sums its contributions in one fixed order, so the table
+        is the same on every run, on the CPU and on the card.
         """
         from ..ops.straightcut import eps_guard_list
 
@@ -785,15 +787,27 @@ class UnfittedPoisson(nn.Module):
             out_shape = (len(struct["offsets"]), struct["n"])
         else:
             out_shape = tuple(struct["ell_cols"].shape)
-        vals = torch.zeros(out_shape[0] * out_shape[1], dtype=vertices.dtype,
-                           device=dev)
-        vals.index_add_(0, self._index(struct["elm_slots_soa"], dev), flat)
         G = self.gp_mats(vertices)
-        vals.index_add_(0, self._index(struct["gp_slots"], dev), G.reshape(-1))
         idv = 1.0 - self.active_dof_mask(lset_vertex).to(vertices.dtype)
-        vals.index_add_(0, self._index(struct["diag_slots"], dev), idv)
+        plan = self._assembly_plan(struct, out_shape[0] * out_shape[1], dev)
+        vals = plan.add(torch.cat([flat, G.reshape(-1), idv]))
         vals = vals * self._band_guard(lset_vertex, vertices.dtype)
         return vals.reshape(out_shape), ncut
+
+    def _assembly_plan(self, struct, nslots, device):
+        """The ``ScatterPlan`` of the element, ghost-penalty and identity
+        slot streams of ``struct`` on ``device``, built at the first call
+        and kept beside the structure's slot tables (whose ids key it)."""
+        tabs = (struct["elm_slots_soa"], struct["gp_slots"],
+                struct["diag_slots"])
+        key = ("plan", *map(id, tabs), str(device))
+        hit = self._index_cache.get(key)
+        if hit is None or any(a is not b for a, b in zip(hit[0], tabs)):
+            index = torch.cat([self._index(t, device).reshape(-1)
+                               for t in tabs])
+            hit = (tabs, ScatterPlan(index, nslots))
+            self._index_cache[key] = hit
+        return hit[1]
 
     def dia_structure(self):
         """Host precompute of the offset-diagonal (DIA) global operator in

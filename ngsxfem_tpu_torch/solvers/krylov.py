@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from .ell_spmv import ell_matvec
-
 
 def _vdot(a, b):
     """Krylov inner product at full precision: accumulated in float64 from
@@ -175,18 +173,17 @@ def masked_matvec(matvec, free_mask):
     return mv
 
 
-def _cg_ell(vals, cols, b, free, maxiter, tol):
-    """Jacobi-preconditioned CG on a free-dof-masked ELL operator, every
-    product through ``ell_matvec`` (the ELL kernel on the card).  Returns
-    (x, iters, res_norm)."""
-    rid = torch.arange(cols.shape[0], device=cols.device)[:, None]
-    diag = torch.where(cols == rid, vals, 0.0).sum(1)
+def _cg_ell(mat, b, free, maxiter, tol):
+    """Jacobi-preconditioned CG on the free-dof-masked ``ELLMatrix``, every
+    product through its cached layout (the ELL kernel on the card).
+    Returns (x, iters, res_norm)."""
+    diag = mat.diagonal()
     dinv = torch.where(free & (diag.abs() > 1e-30), 1.0 / diag, 0.0)
     bm = torch.where(free, b, 0.0)
 
     def mv(x):
         xp = torch.where(free, x, 0.0)
-        y = ell_matvec(vals, cols, xp)
+        y = mat.matvec(xp)
         return torch.where(free, y, x)
 
     return cg(mv, bm, M=lambda r: dinv * r, maxiter=maxiter, tol=tol)
@@ -229,8 +226,7 @@ class CGSolver:
                   if self.freedofs is not None
                   else torch.ones(mat.shape[0], dtype=torch.bool,
                                   device=b.device))
-            x, _, _ = _cg_ell(mat.vals, mat.cols, b, fm, self.maxsteps,
-                              self.tol)
+            x, _, _ = _cg_ell(mat, b, fm, self.maxsteps, self.tol)
             return x
         mv = mat.matvec if hasattr(mat, "matvec") else mat
         M = self.pre
@@ -250,11 +246,12 @@ class MinResSolver:
     The device iterative solve of symmetric indefinite saddle-point systems
     (cut Stokes), where the reference tutorials call the host direct
     ``mat.Inverse(freedofs)``.  A ``SparseMatrix`` is applied through its
-    cached ELL view, so every product is ``ell_matvec`` (the ELL kernel on
-    the card).  The default preconditioner is the SPD absolute-value Jacobi
-    ``r / |diag|`` (identity on fixed dofs and zero diagonals): plain Jacobi
-    is indefinite here (pressure and multiplier rows carry negative or zero
-    diagonals) and would break the Lanczos inner product."""
+    cached ELL view, so every product is ``ell_matvec`` on its layout (the
+    ELL kernel on the card).  The default preconditioner is the SPD
+    absolute-value Jacobi ``r / |diag|`` (identity on fixed dofs and zero
+    diagonals): plain Jacobi is indefinite here (pressure and multiplier
+    rows carry negative or zero diagonals) and would break the Lanczos
+    inner product."""
 
     def __init__(self, mat, pre=None, maxsteps=2000, tol=1e-10,
                  freedofs=None):

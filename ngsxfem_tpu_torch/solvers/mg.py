@@ -11,7 +11,10 @@ restriction, prolongation, interface block) goes through
 ``ell_spmv.ell_matvec``, the hand-written ELL kernel on the card.  The
 coarse solve is a dense ``torch.matmul`` with the host-computed inverse
 (``prepare_host``) or a Cholesky solve (``prepare``); float32 products run
-in full float32 (``config.py`` turns TF32 off).
+in full float32 (``config.py`` turns TF32 off).  ``prepare`` and
+``prepare_host`` wrap every table of the cycle in an ``ELLMatrix`` and, on
+the card, build its sliced layout there, once per assembled matrix, so that
+no product of a cycle builds one.
 """
 from __future__ import annotations
 
@@ -19,9 +22,8 @@ import numpy as np
 import torch
 
 from ..config import config, resolve_device
-from .ell_spmv import ell_matvec
 from .krylov import cg
-from .sparse import SparseMatrix
+from .sparse import ELLMatrix, SparseMatrix
 
 
 def mesh_hierarchy(make_mesh, nx0: int, levels: int):
@@ -226,14 +228,45 @@ class FunctionalELLMG:
 
     @staticmethod
     def _mv(params, l, x):
-        return ell_matvec(params["vals"][l], params["cols"][l], x)
+        return params["ops"][l].matvec(x)
 
     @staticmethod
-    def _dinv(params, l):
-        cols = params["cols"][l]
-        rid = torch.arange(cols.shape[0], device=cols.device)[:, None]
-        d = torch.where(cols == rid, params["vals"][l], 0.0).sum(1)
+    def _inv_diag(A):
+        d = A.diagonal()
         return torch.where(d.abs() > 1e-30, 1.0 / d, 1.0)
+
+    def _operators(self, params):
+        """The cycle's tables as ``ELLMatrix`` objects, their layouts built
+        here on the card (``ELLMatrix.layout``; none on the CPU): the level
+        operators ``ops`` with their Jacobi inverse diagonals ``dinv``, the
+        transfers ``R_ops`` and ``P_ops``, and per level the interface block
+        ``if_ops`` (None or (dof ids, block, inverse diagonal)), its values
+        gathered from the level's table here, once."""
+        cols, vals = params["cols"], params["vals"]
+
+        def ell(c, v, ncols):
+            A = ELLMatrix(c, v, (c.shape[0], ncols))
+            A.layout()
+            return A
+
+        out = {
+            "ops": [ell(c, v, c.shape[0]) for c, v in zip(cols, vals)],
+            "R_ops": [ell(c, v, cols[l + 1].shape[0])
+                      for l, (c, v) in enumerate(params["R"])],
+            "P_ops": [ell(c, v, cols[l].shape[0])
+                      for l, (c, v) in enumerate(params["P"])],
+            "if_ops": [],
+        }
+        out["dinv"] = [self._inv_diag(A) for A in out["ops"]]
+        for l, s in enumerate(params["if"]):
+            if s is None or self.if_iters <= 0:
+                out["if_ops"].append(None)
+                continue
+            idx, bcols, bslots, bmask = s
+            B = ell(bcols, (vals[l].reshape(-1)[bslots] * bmask).contiguous(),
+                    idx.shape[0])
+            out["if_ops"].append((idx, B, self._inv_diag(B)))
+        return out
 
     def prepare(self, params):
         """Factor the coarse level on the device (dense Cholesky of the full
@@ -251,7 +284,7 @@ class FunctionalELLMG:
         out = dict(params)
         out["chol0"] = torch.linalg.cholesky(A0)
         out["ainv0"] = None
-        out["dinv"] = [self._dinv(params, l) for l in range(self.nlevels)]
+        out.update(self._operators(params))
         return out
 
     def prepare_host(self, params):
@@ -278,22 +311,17 @@ class FunctionalELLMG:
         out = dict(params)
         out["ainv0"] = torch.as_tensor(Ainv, dtype=v0.dtype, device=v0.device)
         out["chol0"] = None
-        out["dinv"] = [self._dinv(params, l) for l in range(self.nlevels)]
+        out.update(self._operators(params))
         return out
 
     def _if_correct(self, params, l, x, b):
-        s = params["if"][l]
-        if s is None or self.if_iters <= 0:
+        s = params["if_ops"][l]
+        if s is None:
             return x
-        idx, bcols, bslots, bmask = s
-        # a fresh (m, Kc) table each call, contiguous as the kernel needs
-        bvals = (params["vals"][l].reshape(-1)[bslots] * bmask).contiguous()
-        rid = torch.arange(idx.shape[0], device=idx.device)[:, None]
-        diag = torch.where(bcols == rid, bvals, 0.0).sum(1)
-        dinv = torch.where(diag.abs() > 1e-30, 1.0 / diag, 1.0)
+        idx, B, dinv = s
         r = (b - self._mv(params, l, x))[idx]
-        z, _, _ = cg(lambda v: ell_matvec(bvals, bcols, v), r,
-                     M=lambda v: dinv * v, maxiter=self.if_iters, tol=0.0)
+        z, _, _ = cg(B.matvec, r, M=lambda v: dinv * v, maxiter=self.if_iters,
+                     tol=0.0)
         return x.index_add(0, idx, z)
 
     def _smooth(self, params, l, x, b):
@@ -310,8 +338,7 @@ class FunctionalELLMG:
         x = self._smooth(params, l, torch.zeros_like(b), b)
         x = self._if_correct(params, l, x, b)
         r = b - self._mv(params, l, x)
-        Rc, Rv = params["R"][l - 1]
-        rc = ell_matvec(Rv, Rc, r)
+        rc = params["R_ops"][l - 1].matvec(r)
         act = params.get("act")
         if act is not None and act[l - 1] is not None:
             # active-set-aware transfer (utils/xprolongation.hpp:60-101):
@@ -319,8 +346,7 @@ class FunctionalELLMG:
             # restricted into them
             rc = torch.where(act[l - 1], rc, 0.0)
         xc = self._cycle(params, l - 1, rc)
-        Pc, Pv = params["P"][l - 1]
-        corr = ell_matvec(Pv, Pc, xc)
+        corr = params["P_ops"][l - 1].matvec(xc)
         if act is not None and act[l] is not None:
             corr = torch.where(act[l], corr, 0.0)
         x = x + corr

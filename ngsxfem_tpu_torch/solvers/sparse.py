@@ -4,12 +4,15 @@ Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-306``.
 ``SparseMatrix`` (COO, ``index_add_`` product, ``todense``, ``to_scipy``,
 ``Inverse``, ``CreateTranspose``) and the DIA operator are plain PyTorch:
 the reference has no Pallas kernel behind them either.
-``ELLMatrix.matvec`` is ``ell_spmv.ell_matvec``, which on CUDA tensors is
-the hand-written kernel ``csrc/ell_spmv.cu`` (the reference's
-``matvec_pallas`` has no separate counterpart).  ``InverseMatrix`` keeps the
-reference's dispatch: the direct-solver names factorize on the host with
-scipy, ``"cg"`` runs Jacobi-CG on the ELL view of the matrix, through that
-kernel.
+``ELLMatrix.matvec`` is ``ell_spmv.ell_matvec`` on the matrix's cached
+sliced layout (on the card; the CPU sums the table itself), which on CUDA
+tensors is the hand-written kernel
+``csrc/ell_spmv.cu`` (the reference's ``matvec_pallas`` has no separate
+counterpart).  ``InverseMatrix`` keeps the reference's dispatch with one
+change on the card: the named direct solvers factorize on the host with
+scipy, ``"cg"`` runs Jacobi-CG on the ELL view of the matrix through that
+kernel, and the default ``""`` does the same for a matrix on the card whose
+free block is symmetric with a positive diagonal (the host LU otherwise).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import config, resolve_device
-from .ell_spmv import ell_matvec
+from . import ell_spmv
+from .ell_spmv import ell_matvec, prepare_ell
 
 
 def _as_array(x):
@@ -129,13 +133,15 @@ class SparseMatrix:
 
 class ELLMatrix:
     """Padded-row sparse matrix: cols (n, K) int32, vals (n, K), shape
-    (n, ncols).  ``matvec`` is ``ell_matvec``: the CUDA kernel on the card,
-    its plain version on the CPU."""
+    (n, ncols).  ``matvec`` is ``ell_matvec`` on ``layout()``: the CUDA
+    kernel on the card, the plain row sum on the CPU.  The table is not to
+    be changed in place: the layout is a copy of it."""
 
     def __init__(self, cols, vals, shape):
         self.cols = cols
         self.vals = vals
         self.shape = tuple(int(s) for s in shape)
+        self._layout = None
 
     @classmethod
     def from_numpy(cls, cols, vals, shape=None, *, device=None):
@@ -158,8 +164,21 @@ class ELLMatrix:
         return cls(torch.as_tensor(cols.astype(np.int32), device=device),
                    torch.as_tensor(vals, device=device), shape)
 
+    def layout(self):
+        """The sliced layout of the table (``ell_spmv.prepare_ell``) on the
+        card, made at the first product and kept while ``vals`` and ``cols``
+        are the same tensors; None on the CPU, whose products sum the table
+        itself (``ell_spmv.uses_layout``)."""
+        if not ell_spmv.uses_layout(self.vals):
+            return None
+        lay = self._layout
+        if lay is None or lay[0] is not self.vals or lay[1] is not self.cols:
+            lay = self._layout = (self.vals, self.cols, prepare_ell(
+                self.vals, self.cols, self.shape[1]))
+        return lay[2]
+
     def matvec(self, x):
-        return ell_matvec(self.vals, self.cols, x)
+        return ell_matvec(self.vals, self.cols, x, self.layout())
 
     __mul__ = matvec
     __matmul__ = matvec
@@ -223,14 +242,55 @@ class DIAMatrix:
         return self.vals[int(k0[0])]
 
 
+# relative residual of the Jacobi-CG of ``Inverse()`` ("cg", and the default
+# on the card): its solutions are within 4.1e-12 of the host LU's on every
+# ported example at the sizes chip_smoke.py solves (f64, nx <= 64 on the CPU)
+INVERSE_CG_TOL = 1e-12
+# symmetry the default ``Inverse()`` asks of the free block on the card, to
+# this share of its largest entry
+SPD_SYM_TOL = 1e-12
+
+
+def _on_card(mat):
+    """Whether the matrix lies on a CUDA card (the tests patch this to run
+    the card's branch of ``InverseMatrix`` on CPU tensors)."""
+    return mat.vals.is_cuda
+
+
+def spd_free_block(ell, free):
+    """Whether the free block of the ELL matrix is symmetric to
+    ``SPD_SYM_TOL`` of its largest entry with a positive diagonal: the
+    matrices on which the default ``Inverse()`` runs Jacobi-CG.  ``free`` is
+    a bool tensor on the matrix's device; the check runs there and reads
+    one bool back."""
+    n = ell.shape[0]
+    cols = ell.cols.long()
+    rows = torch.arange(n, device=cols.device)[:, None].expand_as(cols)
+    sel = free[rows] & free[cols] & (ell.vals != 0)
+    r, c, v = rows[sel], cols[sel], ell.vals[sel]
+    ok = (ell.diagonal()[free] > 0).all()
+    if v.numel():
+        key, order = torch.sort(r * n + c)
+        tkey = c * n + r
+        pos = torch.searchsorted(key, tkey).clamp(max=key.numel() - 1)
+        vt = torch.where(key[pos] == tkey, v[order[pos]], 0.0)
+        ok = ok & ((v - vt).abs().max() <= SPD_SYM_TOL * v.abs().max())
+    return bool(ok)
+
+
 class InverseMatrix:
     """Solver object: `inv * rhs` solves on the free dofs (zero elsewhere).
 
-    method: NGSolve direct-solver names ("", "sparsecholesky", "umfpack",
-    "pardiso", "masterinverse") all dispatch to the host scipy LU;
-    "cg" runs the device Jacobi-CG path (``krylov.CGSolver`` on the ELL view,
-    every product through ``ell_matvec``) for large SPD systems.  Unknown
-    names raise instead of being silently ignored.
+    method: NGSolve direct-solver names ("sparsecholesky", "umfpack",
+    "pardiso", "masterinverse") dispatch to the host scipy LU; "cg" runs
+    the device Jacobi-CG path (``krylov._cg_ell`` on the ELL view, every
+    product through ``ell_matvec``) to ``INVERSE_CG_TOL``.  The
+    default "" takes that device path for a matrix on the card whose free
+    block passes ``spd_free_block`` (checked once, here), and raises
+    ``RuntimeError`` if the solve misses ``INVERSE_CG_TOL`` within its
+    steps; any other matrix, and every matrix on the CPU, gets the host LU,
+    the reference's default.  ``path`` records the choice: "device_cg" or
+    "host_lu".  Unknown names raise instead of being silently ignored.
     """
 
     _DIRECT = ("", "sparsecholesky", "umfpack", "pardiso", "masterinverse")
@@ -254,6 +314,11 @@ class InverseMatrix:
 
             self.free = _arr(freedofs)
         self._factor = None
+        self.path = "host_lu"
+        if self.method == "cg" or (self.method == "" and _on_card(mat)):
+            self._free_t = torch.as_tensor(self.free, device=mat.vals.device)
+            if self.method == "cg" or spd_free_block(mat.ell(), self._free_t):
+                self.path = "device_cg"
 
     def _factorize(self):
         if self._factor is None:
@@ -267,12 +332,22 @@ class InverseMatrix:
 
     def solve(self, rhs):
         rhs = _as_array(rhs)
-        if self.method == "cg":  # device path, no host round trip
-            from .krylov import CGSolver
+        if self.path == "device_cg":  # no host round trip
+            from .krylov import _cg_ell
 
-            return CGSolver(self.mat, freedofs=None if self.free.all()
-                            else self.free, maxsteps=20 * self.mat.shape[0],
-                            tol=1e-12) * rhs
+            tol = INVERSE_CG_TOL
+            x, iters, res = _cg_ell(self.mat.ell(), rhs, self._free_t,
+                                    20 * self.mat.shape[0], tol)
+            if self.method == "":
+                bn = torch.linalg.vector_norm(torch.where(self._free_t, rhs,
+                                                          0.0))
+                if not bool(res <= tol * bn.clamp_min(1e-30)):
+                    raise RuntimeError(
+                        f"Inverse(): Jacobi-CG on the card reached a relative "
+                        f"residual of {float(res / bn.clamp_min(1e-30)):.3e}, "
+                        f"not {tol:.0e}, in {iters} iterations; ask for the "
+                        f"host LU with inverse=\"umfpack\"")
+            return x
         rhs_np = torch.as_tensor(rhs).detach().cpu().numpy().astype(np.float64)
         lu, idx = self._factorize()
         out = np.zeros_like(rhs_np)
