@@ -6,8 +6,9 @@
 The flagship is 3D fictitious-domain Poisson with Nitsche terms and
 facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
 117,649 dofs, float32).  Three paths run through it (and general cut
-quadrature, phase 9, beside it), two more in phases 12-15, and the
-skeleton, vector and XFEM workloads in phases 16-17:
+quadrature, phase 9, beside it), two more in phases 12-15, the
+skeleton, vector and XFEM workloads in phases 16-17, and the isoparametric
+(order-2/3 deformed-mesh) workloads in phases 18-19:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -34,7 +35,14 @@ skeleton, vector and XFEM workloads in phases 16-17:
   (L2, cut-facet interior penalty), ``fictdom_dn_ghostpen`` (``dnjump``
   skeleton ghost penalty), ``stokescutfem`` (``VectorH1``, ``div``, a
   saddle-point system solved by ``MinResSolver``), ``nxfem`` (XFESpace)
-  and ``xfespaces``, their systems' products all through ``ell_matvec``.
+  and ``xfespaces``, their systems' products all through ``ell_matvec``;
+- the isoparametric path: ``LevelSetMeshAdaptation.CalcDeformation`` ->
+  ``mesh.SetDeformation`` -> ``BilinearForm``/``LinearForm`` (deformed
+  volume, interface and facet-patch contexts) -> ``to_ell`` -> the default
+  ``a.mat.Inverse(freedofs)`` (Jacobi-CG through ``ell_matvec``) ->
+  ``Integrate`` of the L2 error on the deformed mesh: ``examples.fictdom3d``
+  with ``isoparametric=True`` (bench.py's high_order workload),
+  ``tracefem3d`` and ``nxfem_higher_order``.
 
 Phases, one line each:
 
@@ -140,7 +148,27 @@ Phases, one line each:
 17. the card-size calls of phase 16: ``Assemble`` by CUDA events and under
    ``torch.profiler`` (device kernels, busy, idle share, host seconds),
    ``to_ell`` (host), each solve over a window of 100 iterations, peak
-   memory.
+   memory;
+18. the isoparametric path at the JAX package's test sizes, launch counters
+   reset before it (with phase 19), card against this host's CPU to 1e-8,
+   f64: the 2D max-distance EOC of orders 2 and 3 (nx = 8, 16, 32; mean EOC
+   above the order), ``fictdom3d(isoparametric=True)`` order 2 at nx = 8,
+   16 (L2 < 1.5e-3, ratio > 6), ``tracefem3d`` at nx = 6, 12 (< 0.06, ratio
+   > 6), ``nxfem_higher_order`` at nx=15 (< 1e-3); order 3 at nx=16
+   (bench.py's high_order size) on the card, its L2 below order 2's; no
+   shift-Newton warning anywhere;
+19. card size: the high_order workload (sphere r=0.7 on [-1,1]^3,
+   threshold 0.2, lambda = 10 k^2, gamma 0.1, f64) at order 2 nx=48
+   (663,552 tets) and order 3 nx=24, and ``tracefem3d`` order 2 at nx=32,
+   each built once through its ``system()``: ``CalcDeformation`` and
+   ``CalcMaxDistance`` by CUDA events, ``Assemble`` by events and under
+   ``torch.profiler``, ``to_ell`` (host), ``a.mat`` symmetric to 1e-12, B2
+   == both plain versions bitwise on each table (a seeded x, the masked
+   load) with its times, bounds, cuSPARSE and slice fill as in phase 8, the
+   default ``Inverse()`` on path ``device_cg`` with ell_spmv launches ==
+   products == iterations + 1, true relative residual <= 1e-10, L2 errors
+   below phase 18's, peak memory; the order-3 facet-patch contraction by
+   ``small_matmul`` against ``torch.matmul``.
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -1603,6 +1631,342 @@ def phases_16_17(T, dev, t_start):
     return sk, sk_launches
 
 
+# --- phases 18-19: isoparametric level-set mesh adaptation ---------------
+
+# phase 18: the JAX package's test sizes; the max-distance EOC of
+# tests/test_lsetcurv.py:15-31, fictdom3d(isoparametric=True) order 2 with
+# the limits of tests/test_workloads.py:239-250, tracefem3d with those of
+# tests/test_tracefem.py:11-19, nxfem_higher_order with
+# tests/test_workloads.py:208-214's
+ISO_EOC_NX = (8, 16, 32)
+ISO_FD_NX, ISO_FD_MAX, ISO_FD_RATE = (8, 16), 1.5e-3, 6.0
+ISO_HO_NX = 16  # bench.py's high_order configuration (BENCH_HO_NX)
+TRACE_NX, TRACE_MAX, TRACE_RATE = (6, 12), 0.06, 6.0
+NXHO_NX, NXHO_MAX = 15, 1e-3
+# phase 19: the high_order workload at card size, (order, nx); the trace-FEM
+# band system at card size
+ISO_BIG = ((2, 48), (3, 24))
+TRACE_BIG_NX = 32
+ISO_TRUE_TOL = 1e-10  # true relative residual of the default Inverse() solves
+
+
+def ell_asym(ell):
+    """max |A - A^T| / max |A| of an ``ELLMatrix``, on its device."""
+    n = ell.shape[0]
+    cols = ell.cols.long()
+    rows = torch.arange(n, device=cols.device)[:, None].expand_as(cols)
+    nz = ell.vals != 0
+    r, c, v = rows[nz], cols[nz], ell.vals[nz]
+    key, order = torch.sort(r * n + c)
+    tkey = c * n + r
+    pos = torch.searchsorted(key, tkey).clamp(max=key.numel() - 1)
+    vt = torch.where(key[pos] == tkey, v[order[pos]], 0.0)
+    return float((v - vt).abs().max() / v.abs().max())
+
+
+def no_shift_warning(fn):
+    """fn(), failing if the isoparametric shift Newton warned."""
+    from ngsxfem_tpu_torch.utils.diagnostics import (
+        NewtonNonConvergenceWarning)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    bad = [str(w.message) for w in caught
+           if issubclass(w.category, NewtonNonConvergenceWarning)]
+    check(not bad, f"the shift Newton did not converge: {bad}")
+    return out
+
+
+def iso_solve(label, parts, device, detail=True):
+    """One assembled isoparametric system, built once through an example's
+    ``system()`` (``parts``; the mesh holds the deformation): ``Assemble``
+    by CUDA events and under ``torch.profiler``, ``to_ell`` (host), the
+    symmetry of ``a.mat``, B2 on its table (with ``detail``), the default
+    ``Inverse()`` solve on the card (path ``device_cg``, ell_spmv launches
+    == products == iterations + 1, the true residual) and the L2 error."""
+    from ngsxfem_tpu_torch import GridFunction
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    a, f, V, free, l2error = parts
+    out = {"label": label}
+    on_card = device.type == "cuda"  # the CPU rehearsal of the tests: no
+    detail = detail and on_card      # profiler, no kernel, no launches
+    try:
+        _, out["asm_a_ms"] = event_ms(a.Assemble)
+        _, out["asm_f_ms"] = event_ms(f.Assemble)
+        if detail:
+            for key, fn in (("prof_a", a.Assemble), ("prof_f", f.Assemble)):
+                kern, wall = device_kernels(fn, 1, warm=False)
+                busy = sum(us for _, us in kern.values()) / 1e3
+                top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:4]
+                out[key] = (sum(c for c, _ in kern.values()), busy,
+                            1 - busy / wall, wall, "; ".join(
+                                f"{k[:48]} x{c} {us / 1e3:.2f} ms"
+                                for k, (c, us) in top))
+        out["ntriplets"] = int(a.mat.vals.shape[0])
+        t0 = time.perf_counter()
+        ell = a.mat.ell()  # the cached ELL view: to_ell on the host, once
+        sync(device)
+        out["to_ell_s"] = time.perf_counter() - t0
+        out["n"], out["K"] = (int(s) for s in ell.vals.shape)
+        out["nnz"] = int((ell.vals != 0).sum())
+        out["asym"] = ell_asym(ell)
+        check(out["asym"] <= 1e-12, f"{label}: a.mat symmetry {out['asym']}")
+        out["nfree"] = int(free.np.sum())
+        if detail:
+            out["b2"] = b2_on_table(label, ell, free.np, f.vec.data, device)
+        rhs = f.vec.data
+        inv = a.mat.Inverse(free)
+        out["path"] = inv.path
+        check(inv.path == "device_cg", f"{label}: default Inverse() took "
+                                       f"{inv.path}, not device_cg")
+        before = ell_spmv.launches
+        with counted_products("cg") as cnt:
+            x, out["solve_ms"] = event_ms(lambda: inv * rhs)
+        out["launches"] = ell_spmv.launches - before
+        out["iters"], out["products"] = cnt.iters, cnt.products
+        check(out["launches"] == (cnt.products if on_card else 0)
+              and cnt.products == cnt.iters + 1,
+              f"{label}: {out['launches']} ell_spmv launches, "
+              f"{cnt.products} products, {cnt.iters} iterations")
+        fm = torch.as_tensor(free.np, device=device)
+        r = torch.where(fm, rhs - a.mat * x, 0.0)
+        out["true_rel"] = float(torch.linalg.vector_norm(r)
+                                / torch.linalg.vector_norm(
+                                    torch.where(fm, rhs, 0.0)))
+        check(out["true_rel"] <= ISO_TRUE_TOL,
+              f"{label}: true relative residual {out['true_rel']}")
+        gfu = GridFunction(V)
+        gfu.vec.data = x
+        out["err"] = l2error(gfu)
+        check(np.isfinite(out["err"]), f"{label}: L2 error {out['err']}")
+    finally:
+        V.mesh.UnsetDeformation()
+    out["peak_gib"] = peak_gib(device)
+    return out
+
+
+def iso_card(T, order, nx, device, detail=True):
+    """The high_order workload (``examples.fictdom3d`` with
+    ``isoparametric=True``: sphere r=0.7 on [-1,1]^3, threshold 0.2,
+    lambda = 10 k^2, gamma 0.1, f64) at (order, nx): ``CalcDeformation`` and
+    ``CalcMaxDistance`` timed by CUDA events on their own, then the system
+    through ``fictdom3d.system`` and ``iso_solve``."""
+    from ngsxfem_tpu_torch.examples import fictdom3d
+
+    t0 = time.perf_counter()
+    peak_gib(device)
+    mesh = T.MakeStructured3DMesh(
+        hexes=False, nx=nx, ny=nx, nz=nx,
+        mapping=lambda a, b, c: (2 * a - 1, 2 * b - 1, 2 * c - 1))
+    levelset = T.sqrt(T.x * T.x + T.y * T.y + T.z * T.z) - 0.7
+    lsa = T.LevelSetMeshAdaptation(mesh, order=order, threshold=0.2,
+                                   device=device)
+    lsa.CalcDeformation(levelset)  # warm-up
+    _, deform_ms = no_shift_warning(
+        lambda: event_ms(lambda: lsa.CalcDeformation(levelset)))
+    maxdist, maxdist_ms = event_ms(lambda: lsa.CalcMaxDistance(levelset))
+    del lsa, mesh
+    t1 = time.perf_counter()
+    parts = no_shift_warning(lambda: fictdom3d.system(
+        nx=nx, order=order, device=device, isoparametric=True))
+    sync(device)
+    system_s = time.perf_counter() - t1
+    out = iso_solve(f"fictdom3d P{order} iso nx={nx}", parts, device, detail)
+    out.update(order=order, nx=nx, deform_ms=deform_ms, maxdist=maxdist,
+               maxdist_ms=maxdist_ms, system_s=system_s,
+               ne=6 * nx ** 3, wall_s=time.perf_counter() - t0)
+    if detail and order == 3:
+        out["small_matmul"] = small_matmul_probe(T, parts, device)
+    return out
+
+
+def small_matmul_probe(T, parts, device):
+    """The contraction of the order-3 facet-patch element matrices (the
+    u*v term: (F, 20, Q) @ (F, Q, 20) over the Q points of both
+    neighbours' order-6 rule) by ``mesh.small_matmul`` (Q unrolled
+    multiply-adds) and by ``torch.matmul`` (a library batched GEMM), ms by
+    CUDA events, and their largest relative difference."""
+    from ngsxfem_tpu_torch.mesh.mesh import small_matmul
+    from ngsxfem_tpu_torch.ops.gauss import reference_rule
+
+    F = int(parts[0].integrals[-1].definedonelements.sum())
+    Q = 2 * len(reference_rule("tet", 6)[1])
+    g = torch.Generator(device=device).manual_seed(2030)
+    a = torch.randn(F, 20, Q, generator=g, device=device, dtype=torch.float64)
+    b = torch.randn(F, Q, 20, generator=g, device=device, dtype=torch.float64)
+    ref = torch.matmul(a, b)
+    diff = float((small_matmul(a, b) - ref).abs().max() / ref.abs().max())
+    return {"F": F, "Q": Q, "diff": diff,
+            "small_ms": time_ms(lambda: small_matmul(a, b)),
+            "matmul_ms": time_ms(lambda: torch.matmul(a, b))}
+
+
+def iso_parity(T, device):
+    """Phase 18: the isoparametric path at the JAX package's test sizes,
+    card against this host's CPU (1e-8) with the tests' limits, and order 3
+    at bench.py's high_order size on the card."""
+    from ngsxfem_tpu_torch.examples import (fictdom3d, nxfem_higher_order,
+                                            tracefem3d)
+
+    out = {}
+    cpu = torch.device("cpu")
+
+    def card_vs_cpu(name, fn):
+        e_dev, e_cpu = no_shift_warning(lambda: fn(device)), fn(cpu)
+        for a, b in zip(np.atleast_1d(e_dev), np.atleast_1d(e_cpu)):
+            check(abs(a - b) <= 1e-8 * abs(b), f"{name}: card {e_dev} vs CPU "
+                                               f"{e_cpu}")
+        out[name] = (e_dev, e_cpu)
+        return e_dev
+
+    def maxdists(order, dev):
+        res = []
+        for nx in ISO_EOC_NX:
+            mesh = T.MakeStructured2DMesh(
+                quads=False, nx=nx, ny=nx,
+                mapping=lambda a, b: (2 * a - 1, 2 * b - 1))
+            lset = T.sqrt(T.x * T.x + T.y * T.y) - 2.0 / 3.0
+            lsa = T.LevelSetMeshAdaptation(mesh, order=order, threshold=10.0,
+                                           device=dev)
+            lsa.CalcDeformation(lset)
+            res.append(lsa.CalcMaxDistance(lset))
+        return res
+
+    for order in (2, 3):
+        d = card_vs_cpu(f"maxdist P{order}", lambda dev, o=order: maxdists(
+            o, dev))
+        eocs = [float(np.log2(d[i] / d[i + 1])) for i in range(len(d) - 1)]
+        check(sum(eocs) / len(eocs) > order,
+              f"max distance P{order} {d}: EOC {eocs}")
+        out[f"eoc P{order}"] = eocs
+    e_fd = [card_vs_cpu(f"fictdom3d P2 iso nx={nx}", lambda dev, nx=nx:
+                        fictdom3d.run(nx=nx, order=2, isoparametric=True,
+                                      verbose=False, device=dev))
+            for nx in ISO_FD_NX]
+    check(e_fd[0] < ISO_FD_MAX and e_fd[0] / e_fd[1] > ISO_FD_RATE,
+          f"fictdom3d P2 iso L2 errors {e_fd}")
+    out["fictdom3d"] = e_fd
+    # bench.py's high_order configuration: order 3 at nx=16, on the card
+    out["ho16"] = iso_card(T, 3, ISO_HO_NX, device, detail=False)
+    check(out["ho16"]["err"] < e_fd[1],
+          f"fictdom3d P3 iso nx={ISO_HO_NX} L2 {out['ho16']['err']} >= P2's "
+          f"{e_fd[1]}")
+    e_tr = [card_vs_cpu(f"tracefem3d nx={nx}", lambda dev, nx=nx:
+                        tracefem3d.run(nx=nx, order=2, verbose=False,
+                                       device=dev))
+            for nx in TRACE_NX]
+    check(e_tr[0] < TRACE_MAX and e_tr[1] < e_tr[0] / TRACE_RATE,
+          f"tracefem3d L2 errors {e_tr}")
+    out["tracefem3d"] = e_tr
+    e_nx = card_vs_cpu(f"nxfem_higher_order nx={NXHO_NX}", lambda dev:
+                       nxfem_higher_order.run(nx=NXHO_NX, order=3,
+                                              verbose=False, device=dev))
+    check(e_nx < NXHO_MAX, f"nxfem_higher_order L2 error {e_nx}")
+    out["nxfem_ho"] = e_nx
+    return out
+
+
+def phases_18_19(T, dev, t_start):
+    """Phases 18 (the isoparametric path at the JAX package's test sizes)
+    and 19 (the high_order workload and the trace-FEM band at card size),
+    launch counters reset just before them.  Returns the phase-19 systems
+    and the ell_spmv launches of the path."""
+    from ngsxfem_tpu_torch.examples import tracefem3d
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+
+    torch.cuda.synchronize()
+    peak_gib(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    par = iso_parity(T, dev)
+    ho = par["ho16"]
+    print(f"[18 parity] card (CPU): max distance P2 "
+          f"{par['maxdist P2'][0]} ({par['maxdist P2'][1]}), EOC "
+          f"{par['eoc P2']}; P3 {par['maxdist P3'][0]} "
+          f"({par['maxdist P3'][1]}), EOC {par['eoc P3']}; fictdom3d P2 iso "
+          f"nx={list(ISO_FD_NX)} L2 "
+          + ", ".join(f"{par[f'fictdom3d P2 iso nx={nx}'][0]:.10e} "
+                      f"({par[f'fictdom3d P2 iso nx={nx}'][1]:.10e})"
+                      for nx in ISO_FD_NX)
+          + f" (ratio {par['fictdom3d'][0] / par['fictdom3d'][1]:.2f}); "
+          f"tracefem3d nx={list(TRACE_NX)} L2 "
+          + ", ".join(f"{par[f'tracefem3d nx={nx}'][0]:.10e} "
+                      f"({par[f'tracefem3d nx={nx}'][1]:.10e})"
+                      for nx in TRACE_NX)
+          + f"; nxfem_higher_order nx={NXHO_NX} L2 "
+          f"{par[f'nxfem_higher_order nx={NXHO_NX}'][0]:.10e} "
+          f"({par[f'nxfem_higher_order nx={NXHO_NX}'][1]:.10e}); fictdom3d "
+          f"P3 iso nx={ISO_HO_NX} (bench.py high_order) on the card: L2 "
+          f"{ho['err']:.10e}, {ho['nfree']} free dofs, ELL {ho['n']} x "
+          f"{ho['K']}, default Inverse() {ho['path']} {ho['iters']} "
+          f"iterations in {ho['solve_ms']:.1f} ms; wall of phase 18 "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 19. card size
+    t0 = time.perf_counter()
+    bigs = []
+    for order, nx in ISO_BIG:
+        b = iso_card(T, order, nx, dev)
+        bigs.append(b)
+        pa, pf = b["prof_a"], b["prof_f"]
+        print(f"[19 card size] {card()} | fictdom3d P{order} iso nx={nx} "
+              f"({b['ne']} tets, f64): CalcDeformation {b['deform_ms']:.3f} "
+              f"ms, CalcMaxDistance {b['maxdist_ms']:.3f} ms (max distance "
+              f"{b['maxdist']:.3e}); system() {b['system_s']:.2f} s; "
+              f"BilinearForm.Assemble {b['asm_a_ms']:.1f} ms ({pa[0]} device "
+              f"kernels, busy {pa[1]:.1f} ms, idle share {pa[2]:.3f}; top: "
+              f"{pa[4]}), LinearForm.Assemble {b['asm_f_ms']:.1f} ms "
+              f"({pf[0]} kernels, busy {pf[1]:.1f} ms, idle {pf[2]:.3f}); "
+              f"{b['ntriplets']} COO triplets, to_ell {b['to_ell_s']:.2f} s "
+              f"(host), ELL {b['n']} x {b['K']} ({b['nnz']} nonzeros), a.mat "
+              f"asymmetry {b['asym']:.2e}; default Inverse() {b['path']}: "
+              f"{b['iters']} iterations = {b['products']} products = "
+              f"{b['launches']} ell_spmv launches, {b['solve_ms']:.1f} ms, "
+              f"true rel res {b['true_rel']:.3e}; L2 error {b['err']:.10e}; "
+              f"peak memory {b['peak_gib']:.2f} GiB; wall {b['wall_s']:.2f} s",
+              flush=True)
+        b2 = b["b2"]
+        print(f"[19 B2] {card()} | {b2['label']}: == plain bitwise (seeded "
+              f"x, masked load, max|dy| {b2['err']:.3e}), slice fill "
+              f"{b2['fill']:.3f}, {b2_text(b2)}", flush=True)
+        if "small_matmul" in b:
+            sm = b["small_matmul"]
+            print(f"[19 small_matmul] {card()} | order-3 facet-patch "
+                  f"contraction ({sm['F']} patches, {sm['Q']} points, 20 x "
+                  f"20): small_matmul {sm['small_ms']:.3f} ms, torch.matmul "
+                  f"{sm['matmul_ms']:.3f} ms, rel diff {sm['diff']:.2e}",
+                  flush=True)
+    trace = iso_solve(f"tracefem3d P2 nx={TRACE_BIG_NX}", no_shift_warning(
+        lambda: tracefem3d.system(nx=TRACE_BIG_NX, order=2, device=dev)), dev)
+    check(trace["err"] < par["tracefem3d"][1],
+          f"tracefem3d nx={TRACE_BIG_NX} L2 {trace['err']} >= nx="
+          f"{TRACE_NX[1]}'s {par['tracefem3d'][1]}")
+    bigs.append(trace)
+    pa = trace["prof_a"]
+    print(f"[19 card size] {card()} | tracefem3d P2 nx={TRACE_BIG_NX}: "
+          f"{trace['nfree']} free dofs, BilinearForm.Assemble "
+          f"{trace['asm_a_ms']:.1f} ms ({pa[0]} kernels, idle {pa[2]:.3f}), "
+          f"to_ell {trace['to_ell_s']:.2f} s, ELL {trace['n']} x "
+          f"{trace['K']}; default Inverse() {trace['path']} {trace['iters']} "
+          f"iterations, {trace['launches']} launches, {trace['solve_ms']:.1f} "
+          f"ms, true rel res {trace['true_rel']:.3e}; L2 {trace['err']:.10e}"
+          f"; B2 == plain bitwise, slice fill {trace['b2']['fill']:.3f}, "
+          f"{b2_text(trace['b2'])}", flush=True)
+    check(bigs[0]["err"] < par["fictdom3d"][1] and bigs[1]["err"] < ho["err"],
+          f"card-size L2 errors {bigs[0]['err']} (P2), {bigs[1]['err']} (P3) "
+          f"not below nx={ISO_FD_NX[1]}'s {par['fictdom3d'][1]} (P2) and "
+          f"nx={ISO_HO_NX}'s {ho['err']} (P3)")
+    launches = ell_spmv.launches
+    check(launches > 0, "the isoparametric path launched ell_spmv no time")
+    print(f"[19 launches] ell_spmv {launches}, dia_cg {dia_cg.launches}; "
+          f"wall of phase 19 {time.perf_counter() - t0:.2f} s, of the whole "
+          f"run {time.perf_counter() - t_start:.2f} s", flush=True)
+    return bigs, launches
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -2148,6 +2512,7 @@ def main():
 
     del api, a_form, f_form, inv_cg
     sk, sk_launches = phases_16_17(T, dev, t_start)
+    iso, iso_launches = phases_18_19(T, dev, t_start)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -2185,6 +2550,10 @@ def main():
         "launches_slice6": sk_launches,
         "slice6_tables": [dict(b2_record(b["b2"]), launches=b["launches"])
                           for b in sk["bigs"]],
+        "launches_isoparametric": iso_launches,
+        "isoparametric_tables": [dict(b2_record(b["b2"]),
+                                      launches=b["launches"])
+                                 for b in iso],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -23,7 +23,11 @@ trial/test proxies with ``grad``, ``div``, ``dn``/``dnjump``,
 (``SymbolicBFI``, ``SymbolicLFI``), skeleton, element-boundary, boundary
 (``VOL_or_BND=BND``) and facet-patch (``SymbolicFacetPatchBFI``)
 integrators, ``a.mat.Inverse`` (host LU, or ``"cg"`` on the device) and
-``MinResSolver`` for saddle-point systems.  ``from
+``MinResSolver`` for saddle-point systems; the isoparametric level-set
+mesh adaptation ``LevelSetMeshAdaptation`` (with ``ProjectShift``,
+``CalcMaxDistance``, ``CalcDistances`` and ``shifted_eval``), whose
+deformation ``Mesh.SetDeformation`` applies to ``Integrate`` and to every
+integrator of the forms.  ``from
 ngsxfem_tpu_torch import *`` runs the README's Quick start and the
 workloads in ``ngsxfem_tpu_torch/examples``.  What is not ported raises
 ``NotImplementedError`` naming its item in ROADMAP.md.
@@ -53,6 +57,8 @@ from .cf.coefficient import (CoefficientFunction, InnerProduct, Parameter,
                              y, z, sin, cos, tan, exp, log, sqrt, atan, sinh,
                              cosh, fabs, floor, ceil, specialcf)
 from .integrate import Integrate, Integrate_X_special_args
+from .lsetcurv import (LevelSetMeshAdaptation, ProjectShift, CalcMaxDistance,
+                       CalcDistances, RefineAtLevelSet, shifted_eval)
 from .geom.cutinfo import (CutInfo, GetFacetsWithNeighborTypes,
                            GetElementsWithNeighborFacets, GetDofsOfFacets,
                            IndicatorCF, CutRatioGF, BitArrayCF)
@@ -88,6 +94,8 @@ __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "InnerProduct", "Parameter", "IfPos", "Norm", "x", "y", "z", "sin", "cos", "tan",
            "exp", "log", "sqrt", "atan", "sinh", "cosh", "fabs", "floor",
            "ceil", "specialcf", "Integrate", "Integrate_X_special_args",
+           "LevelSetMeshAdaptation", "ProjectShift", "CalcMaxDistance",
+           "CalcDistances", "RefineAtLevelSet", "shifted_eval",
            "CutInfo", "GetFacetsWithNeighborTypes",
            "GetElementsWithNeighborFacets", "GetDofsOfFacets", "IndicatorCF",
            "CutRatioGF", "BitArrayCF", "UnfittedPoisson", "DIAMatrix", "ELLMatrix",

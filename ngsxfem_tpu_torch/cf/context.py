@@ -25,11 +25,21 @@ class EvalCtx:
     and ``facet_ids`` (E,) the facet of each row (facet loops).  A facet
     integral attaches the neighbour element's context as ``other_ctx``, on
     which ``u.Other()`` is evaluated.
+
+    ``deformation`` is a vector GridFunction whose value is added to the
+    geometry map (its reference gradient to ``J``), None for none, or
+    ``"inherit"`` (the default) for the mesh's ``SetDeformation`` state, as
+    the reference integrators' ``deformation`` argument
+    (xfem/python_xfem.cpp:512-513).  Without a deformation ``J`` is
+    (E, 1, d, d) on simplices (the affine map); with one it is (E, Q, d, d),
+    and ``detJ``, ``Jinv``, ``h`` and the interface normal follow per point.
     """
 
     def __init__(self, mesh, ref_pts, elem_ids=None, nref=None, normal=None,
-                 facet_ids=None):
+                 facet_ids=None, deformation="inherit"):
         self.mesh = mesh
+        self.deformation = (mesh.deformation if isinstance(deformation, str)
+                            and deformation == "inherit" else deformation)
         self.ref_pts = ref_pts
         self.elem_ids = elem_ids
         self._nref = nref
@@ -56,16 +66,40 @@ class EvalCtx:
             self._cache[key] = make()
         return self._cache[key]
 
+    def _displacement(self):
+        """(value (E, Q, d), reference gradient (E, Q, d, d)) of the
+        deformation at the context's points."""
+        def make():
+            from ..fem.gridfunction import gf_ref_value_and_grad
+
+            val, grad = gf_ref_value_and_grad(self.deformation, self.elem_ids,
+                                              self.ref_pts)
+            return val.to(self.dtype), grad.to(self.dtype)
+
+        return self._cached("displacement", make)
+
     @property
     def phys(self):
-        return self._cached("phys", lambda: small_matmul(
-            geom_shapes(self.mesh.et, self.ref_pts), self.elem_coords))
+        def make():
+            phys = small_matmul(geom_shapes(self.mesh.et, self.ref_pts),
+                                self.elem_coords)
+            if self.deformation is not None:
+                phys = phys + self._displacement()[0]
+            return phys
+
+        return self._cached("phys", make)
 
     @property
     def J(self):
-        """(E, Q, d, d); (E, 1, d, d) on simplices (affine map)."""
-        return self._cached("J", lambda: map_jacobian(
-            self.mesh.et, self.elem_coords, self.ref_pts))
+        """(E, Q, d, d); (E, 1, d, d) on simplices (affine map) without a
+        deformation."""
+        def make():
+            J = map_jacobian(self.mesh.et, self.elem_coords, self.ref_pts)
+            if self.deformation is not None:
+                J = J + self._displacement()[1]
+            return J
+
+        return self._cached("J", make)
 
     @property
     def detJ(self):

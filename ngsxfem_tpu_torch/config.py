@@ -9,6 +9,8 @@ at full precision).
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -28,6 +30,12 @@ class _Config:
         # +eps (sign-collapsing, exactly like the reference guard:
         # straightcutrule.cpp:553-554, spacetimecutrule.cpp:132)
         self.lset_eps = 1e-14
+        # warn (NewtonNonConvergenceWarning) when the fixed-iteration Newton
+        # searches (facet-patch neighbour map, shifted_eval) miss their
+        # tolerance and fall back; off by default because the count is read
+        # back to the host
+        self.newton_debug = os.environ.get(
+            "NGSXFEM_TPU_NEWTON_DEBUG", "0") != "0"
 
 
 config = _Config()

@@ -1,9 +1,9 @@
 """2D unfitted Nitsche interface Poisson (CutFEM formulation).
 
 Counterpart of ``examples/cutfem.py`` (the reference tutorial
-``py_tutorials/cutfem.py``; Hansbo-Nitsche averaging).  Its ``deform=True``
-branch needs the level-set mesh adaptation, which is not ported yet
-(ROADMAP A11).
+``py_tutorials/cutfem.py``; Hansbo-Nitsche averaging).  With
+``deform=True`` the isoparametric mesh adaptation (``LevelSetMeshAdaptation``)
+deforms the mesh for the assembly and the error.
 
 Run: ``python -m ngsxfem_tpu_torch.examples.cutfem``.
 """
@@ -31,10 +31,6 @@ def manufactured_interface_problem():
 
 
 def run(nx=30, order=1, verbose=True, deform=False, mesh=None, device=None):
-    if deform:
-        raise NotImplementedError(
-            "deform=True needs LevelSetMeshAdaptation, which is not ported "
-            "yet (ROADMAP A11)")
     if mesh is None:
         mesh = MakeStructured2DMesh(
             quads=False, nx=nx, ny=nx,
@@ -43,8 +39,15 @@ def run(nx=30, order=1, verbose=True, deform=False, mesh=None, device=None):
 
     solution, coef_f, alpha, levelset = manufactured_interface_problem()
 
-    lsetp1 = GridFunction(H1(mesh, order=1, device=device))
-    InterpolateToP1(levelset, lsetp1)
+    deformation = None
+    if deform:
+        lsetadap = LevelSetMeshAdaptation(mesh, order=order, threshold=1000,
+                                          device=device)
+        deformation = lsetadap.CalcDeformation(levelset)
+        lsetp1 = lsetadap.lset_p1
+    else:
+        lsetp1 = GridFunction(H1(mesh, order=1, device=device))
+        InterpolateToP1(levelset, lsetp1)
 
     Vh = H1(mesh, order=order, dirichlet=[1, 2, 3, 4], device=device)
     VhG = FESpace([Vh, Vh])
@@ -91,21 +94,29 @@ def run(nx=30, order=1, verbose=True, deform=False, mesh=None, device=None):
     gfu = GridFunction(VhG)
     gfu.components[1].Set(solution[1], boundary=True)
 
-    a.Assemble()
-    f.Assemble()
+    if deformation is not None:
+        mesh.SetDeformation(deformation)
+    try:
+        a.Assemble()
+        f.Assemble()
 
-    rhs = f.vec.data - a.mat * gfu.vec.data
-    update = a.mat.Inverse(freedofs) * rhs
-    gfu.vec.data = gfu.vec.data + update
+        rhs = f.vec.data - a.mat * gfu.vec.data
+        update = a.mat.Inverse(freedofs) * rhs
+        gfu.vec.data = gfu.vec.data + update
 
-    err_sqr = [
-        (gfu.components[i] - solution[i]) * (gfu.components[i] - solution[i])
-        for i in [0, 1]
-    ]
-    l2error = (
-        Integrate(levelset_domain=lset_neg, cf=err_sqr[0], mesh=mesh, order=2 * order)
-        + Integrate(levelset_domain=lset_pos, cf=err_sqr[1], mesh=mesh, order=2 * order)
-    ) ** 0.5
+        err_sqr = [
+            (gfu.components[i] - solution[i]) * (gfu.components[i] - solution[i])
+            for i in [0, 1]
+        ]
+        l2error = (
+            Integrate(levelset_domain=lset_neg, cf=err_sqr[0], mesh=mesh,
+                      order=2 * order)
+            + Integrate(levelset_domain=lset_pos, cf=err_sqr[1], mesh=mesh,
+                        order=2 * order)
+        ) ** 0.5
+    finally:
+        if deformation is not None:
+            mesh.UnsetDeformation()
     if verbose:
         print("L2 error:", l2error)
     return l2error

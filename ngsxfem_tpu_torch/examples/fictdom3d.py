@@ -1,18 +1,24 @@
 """3D fictitious-domain Poisson through the general forms API (the flagship
 of ``models/poisson.py`` in its user-API variant): Nitsche BC on a sphere +
-facet-patch ghost penalty.  Counterpart of ``examples/fictdom3d.py``; its
-``isoparametric=True`` branch needs the level-set mesh adaptation, which is
-not ported yet (ROADMAP A11).
+facet-patch ghost penalty.  Counterpart of ``examples/fictdom3d.py``.
+
+With ``isoparametric=True`` the mesh is deformed by a 3D
+LevelSetMeshAdaptation so the high-order scheme sees high-order geometry
+(order k converges at k+1 instead of the P1-geometry-limited 2).  The
+deformation is set on the mesh by ``system`` and unset by ``run`` after the
+L2 error; a caller of ``system`` unsets it with
+``Vh.mesh.UnsetDeformation()``.
 
 Run: ``python -m ngsxfem_tpu_torch.examples.fictdom3d``.
 """
 from ngsxfem_tpu_torch import *
 
 
-def system(nx=8, order=1, device=None):
+def system(nx=8, order=1, device=None, isoparametric=False):
     """The weak forms of the workload, not yet assembled: ``(a, f, Vh,
     freedofs, l2error)`` with ``l2error(gfu)`` the L2 error of a GridFunction
-    on ``Vh`` over the inside of the sphere."""
+    on ``Vh`` over the inside of the sphere.  With ``isoparametric`` the
+    mesh (``Vh.mesh``) holds the deformation on return."""
     mesh = MakeStructured3DMesh(
         hexes=False, nx=nx, ny=nx, nz=nx,
         mapping=lambda a, b, c: (2 * a - 1, 2 * b - 1, 2 * c - 1),
@@ -26,8 +32,15 @@ def system(nx=8, order=1, device=None):
     h = specialcf.mesh_size
     lam = 10 * order * order / h
 
-    lsetp1 = GridFunction(H1(mesh, order=1, device=device))
-    InterpolateToP1(levelset, lsetp1)
+    if isoparametric:
+        lsa = LevelSetMeshAdaptation(mesh, order=order, threshold=0.2,
+                                     discontinuous_qn=True, device=device)
+        deform = lsa.CalcDeformation(levelset)
+        lsetp1 = lsa.lset_p1
+        mesh.SetDeformation(deform)
+    else:
+        lsetp1 = GridFunction(H1(mesh, order=1, device=device))
+        InterpolateToP1(levelset, lsetp1)
     ci = CutInfo(mesh, lsetp1)
     hasneg = ci.GetElementsOfType(HASNEG)
     hasif = ci.GetElementsOfType(IF)
@@ -58,17 +71,16 @@ def system(nx=8, order=1, device=None):
 
 
 def run(nx=8, order=1, verbose=True, isoparametric=False, device=None):
-    if isoparametric:
-        raise NotImplementedError(
-            "isoparametric=True needs LevelSetMeshAdaptation, which is not "
-            "ported yet (ROADMAP A11)")
-    a, f, Vh, freedofs, error = system(nx, order, device)
-    a.Assemble()
-    f.Assemble()
-    gfu = GridFunction(Vh)
-    gfu.vec.data = a.mat.Inverse(freedofs) * f.vec.data
+    a, f, Vh, freedofs, error = system(nx, order, device, isoparametric)
+    try:
+        a.Assemble()
+        f.Assemble()
+        gfu = GridFunction(Vh)
+        gfu.vec.data = a.mat.Inverse(freedofs) * f.vec.data
 
-    l2error = error(gfu)
+        l2error = error(gfu)
+    finally:
+        Vh.mesh.UnsetDeformation()
     if verbose:
         print("L2 Error:", l2error)
     return l2error

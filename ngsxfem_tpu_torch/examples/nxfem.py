@@ -2,8 +2,10 @@
 
 Counterpart of ``examples/nxfem.py`` (the reference tutorial
 ``py_tutorials/nxfem.py``): standard space + XFESpace enrichment,
-Hansbo-averaged Nitsche coupling.  Its ``deform=True`` branch needs the
-level-set mesh adaptation, which is not ported yet (ROADMAP A11).
+Hansbo-averaged Nitsche coupling.  With ``deform=True`` the isoparametric
+mesh adaptation deforms the mesh: ``system`` sets the deformation on the mesh
+after the Dirichlet data (as the JAX example does before assembling), and
+``run`` unsets it after the L2 error.
 
 Run: ``python -m ngsxfem_tpu_torch.examples.nxfem``.
 """
@@ -11,11 +13,12 @@ from ngsxfem_tpu_torch import *
 from ngsxfem_tpu_torch.examples.cutfem import manufactured_interface_problem
 
 
-def system(nx=15, order=1, mesh=None, device=None):
+def system(nx=15, order=1, mesh=None, device=None, deform=False):
     """The weak forms of the workload, not yet assembled: ``(a, f, VhG,
     freedofs, l2error, gfu)`` with ``gfu`` a GridFunction on ``VhG`` that
     holds the Dirichlet data (the solve adds the update to it) and
-    ``l2error(gfu)`` the L2 error over both subdomains."""
+    ``l2error(gfu)`` the L2 error over both subdomains.  With ``deform``
+    the mesh holds the isoparametric deformation on return."""
     if mesh is None:
         mesh = MakeStructured2DMesh(
             quads=False, nx=nx, ny=nx,
@@ -24,8 +27,15 @@ def system(nx=15, order=1, mesh=None, device=None):
 
     solution, coef_f, alpha, levelset = manufactured_interface_problem()
 
-    lsetp1 = GridFunction(H1(mesh, order=1, device=device))
-    InterpolateToP1(levelset, lsetp1)
+    deformation = None
+    if deform:
+        lsetadap = LevelSetMeshAdaptation(mesh, order=order, threshold=1000,
+                                          device=device)
+        deformation = lsetadap.CalcDeformation(levelset)
+        lsetp1 = lsetadap.lset_p1
+    else:
+        lsetp1 = GridFunction(H1(mesh, order=1, device=device))
+        InterpolateToP1(levelset, lsetp1)
 
     Vh = H1(mesh, order=order, dirichlet=[1, 2, 3, 4], device=device)
     Vhx = XFESpace(Vh, lsetp1)
@@ -64,6 +74,8 @@ def system(nx=15, order=1, mesh=None, device=None):
 
     gfu = GridFunction(VhG)
     gfu.components[0].Set(solution[1], boundary=True)
+    if deformation is not None:
+        mesh.SetDeformation(deformation)
 
     def l2error(gfu):
         uh = [gfu.components[0] + op(gfu.components[1]) for op in [neg, pos]]
@@ -77,19 +89,18 @@ def system(nx=15, order=1, mesh=None, device=None):
 
 
 def run(nx=15, order=1, verbose=True, deform=False, mesh=None, device=None):
-    if deform:
-        raise NotImplementedError(
-            "deform=True needs LevelSetMeshAdaptation, which is not ported "
-            "yet (ROADMAP A11)")
-    a, f, VhG, freedofs, error, gfu = system(nx, order, mesh, device)
-    a.Assemble()
-    f.Assemble()
+    a, f, VhG, freedofs, error, gfu = system(nx, order, mesh, device, deform)
+    try:
+        a.Assemble()
+        f.Assemble()
 
-    rhs = f.vec.data - a.mat * gfu.vec.data
-    update = a.mat.Inverse(freedofs) * rhs
-    gfu.vec.data = gfu.vec.data + update
+        rhs = f.vec.data - a.mat * gfu.vec.data
+        update = a.mat.Inverse(freedofs) * rhs
+        gfu.vec.data = gfu.vec.data + update
 
-    l2error = error(gfu)
+        l2error = error(gfu)
+    finally:
+        VhG.components[0].mesh.UnsetDeformation()
     if verbose:
         print("L2 error:", l2error)
     return l2error

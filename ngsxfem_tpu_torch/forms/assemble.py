@@ -14,14 +14,17 @@ skeleton integrals (``skeleton=True``, with a cut rule on the facet itself
 under a level-set domain), element-boundary integrals
 (``element_boundary=True``) and boundary integrals (``VOL_or_BND=BND``, in
 bilinear and linear forms), on scalar, vector, ``XFESpace`` and
-``Compress``ed spaces and compounds of them.  The assembly is eager and takes
+``Compress``ed spaces and compounds of them, each under a mesh deformation
+(``mesh.SetDeformation`` or an integral's ``deformation=``): the volume and
+cut contexts add it to the geometry map, the facet-patch map into the
+neighbour becomes a Newton solve on the deformed coordinates, and the facet
+rules take the deformed tangents.  The assembly is eager and takes
 every selection exactly (facet and element marks select their rows), so the
 reference's per-signature program cache and its capacity-padded dynamic
 selections have no counterpart.  The COO rows and columns are gathered on
 the device from the space's dof map; the values never leave it.  Not
 ported, each raising ``NotImplementedError``: ``time_order >= 0`` (ROADMAP
-A13), ``deformation`` (A11), ``subdivlvl > 0`` (A8b) and
-``AssembleOperator`` (A10).
+A13), ``subdivlvl > 0`` (A8b) and ``AssembleOperator`` (A10).
 """
 from __future__ import annotations
 
@@ -68,6 +71,9 @@ class Integral:
         self.skeleton = skeleton
         self.facet_patch = facet_patch
         self.force_intorder = force_intorder
+        # per-integral deformation (a vector GridFunction); None means the
+        # mesh's SetDeformation state at Assemble time
+        self.deformation = deformation
         # dict-carried options (Integrate convention) apply here too
         if self.levelset_domain is not None:
             if time_order < 0:
@@ -92,9 +98,6 @@ class Integral:
             raise NotImplementedError(
                 "space-time integrals (time_order >= 0) are not ported yet "
                 "(ROADMAP A13)")
-        if deformation is not None:
-            raise NotImplementedError(
-                "mesh deformations are not ported yet (ROADMAP A11)")
 
     def SetDefinedOnElements(self, ba):
         """Re-mark this integral's element/facet selection (reference API:
@@ -214,6 +217,32 @@ def _intorder(integral, order):
     return order
 
 
+def _deformation_of(integral: Integral, mesh):
+    """The deformation an integral is assembled under: its own, else the
+    mesh's (None for none)."""
+    return (integral.deformation if integral.deformation is not None
+            else mesh.deformation)
+
+
+def _deformed_tangents(tang, deform, row_e, pts, dNf, loc_ref):
+    """Correct physical facet tangents (R, nq, d-1, d) for a deformation.
+
+    The facet measure and normal come from the tangents of the
+    facet-parametric geometry map; under a deformation the physical map is
+    ``x + D(x)``, so the tangents gain the displacement's tangential
+    derivative ``dD/dref * dref/ds``.  Shared by the BND, element-boundary
+    and skeleton context builders."""
+    if deform is None:
+        return tang
+    from ..fem.gridfunction import gf_ref_value_and_grad
+
+    _, dgrad = gf_ref_value_and_grad(deform, row_e, pts)  # (R,nq,d,d_ref)
+    # "rqks,rkd->rqsd"
+    dref_ds = small_matmul(dNf.transpose(-1, -2), loc_ref[:, None])
+    # "rqgd,rqsd->rqsg"
+    return tang + small_matmul(dref_ds, dgrad.to(tang.dtype).transpose(-1, -2))
+
+
 def _volume_tiers(integral: Integral, mesh, order, device):
     """Quadrature tiers [(ctx, w_phys (R,Q), mask, elem_ids)] of a
     volume-type integral; ``elem_ids`` None means the rows are all elements.
@@ -223,10 +252,11 @@ def _volume_tiers(integral: Integral, mesh, order, device):
     the requested side and the cut rule on the cut elements only, so the
     expensive path scales with the interface, not the volume."""
     o = _intorder(integral, order)
+    deform = _deformation_of(integral, mesh)
     if integral.levelset_domain is None:
         rp, rw = reference_rule(mesh.et, o)
         pts = torch.as_tensor(rp, dtype=config.dtype, device=device)[None]
-        ctx = EvalCtx(mesh, pts)
+        ctx = EvalCtx(mesh, pts, deformation=deform)
         w = torch.as_tensor(rw, dtype=config.dtype, device=device) \
             * ctx.detJ.abs()
         w = w.expand(mesh.ne, len(rw))
@@ -234,7 +264,7 @@ def _volume_tiers(integral: Integral, mesh, order, device):
     else:
         ld = integral.levelset_domain
         tiers = two_tier_tiers(mesh, ld["levelset"], int(ld["domain_type"]),
-                               o, ld["quad_dir_policy"])
+                               o, ld["quad_dir_policy"], deform=deform)
     if integral.definedonelements is not None:
         sel = torch.as_tensor(integral.definedonelements, device=device)
         masked = []
@@ -263,7 +293,8 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
     symboliccutbfi.cpp:1116-1199): on simplices the affine map through the
     target cell's Jacobian is exact; on quads/hexes it is the initial guess
     of four Newton steps, and a point that has not converged falls back to
-    it.
+    it.  Under a deformation the map is eight Newton steps on the deformed
+    physical coordinates from the same guess, with the same fallback.
     """
     f2e = mesh.facet2el_np
     fids = _facet_patch_fids(integral, mesh)
@@ -280,10 +311,20 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
     coords1 = verts[els[e1]]
     coords2 = verts[els[e2]]
     base = rp[None]  # (1, nq, d): one rule for every facet
-    niter = 4 if et in ("quad", "hex") else 0
+    deform = _deformation_of(integral, mesh)
+    niter = 8 if deform is not None else 4 if et in ("quad", "hex") else 0
 
-    def other_refpts(coords_from, coords_to):
-        target, _ = map_points(et, coords_from, base)
+    def def_map(coords, eids, pts):
+        phys, J = map_points(et, coords, pts)
+        if deform is not None:
+            from ..fem.gridfunction import gf_ref_value_and_grad
+
+            disp, dgrad = gf_ref_value_and_grad(deform, eids, pts)
+            phys, J = phys + disp.to(dtype), J + dgrad.to(dtype)
+        return phys, J
+
+    def other_refpts(coords_from, e_from, coords_to, e_to):
+        target, _ = def_map(coords_from, e_from, base)
         # initial affine guess using the target cell's center Jacobian
         center = torch.full((1, 1, d), 0.5 if et in ("quad", "hex") else 0.25,
                             dtype=dtype, device=device)
@@ -296,7 +337,7 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
             return xr0
         xr = xr0
         for _ in range(niter):
-            p, J = map_points(et, coords_to, xr)
+            p, J = def_map(coords_to, e_to, xr)
             _, Jinv = det_and_inv(J)
             # "eqg,eqdg->eqd"
             xr = xr + (Jinv * (target - p)[..., None, :]).sum(-1)
@@ -304,25 +345,33 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
         # warns and falls back to a low-order rule on non-convergence,
         # symboliccutbfi.cpp:1184-1199): non-converged points revert to the
         # affine initial guess
-        p, _ = map_points(et, coords_to, xr)
+        p, _ = def_map(coords_to, e_to, xr)
         err = torch.linalg.vector_norm(target - p, dim=-1)  # (F, Q)
         h = detc[:, :1].abs() ** (1.0 / d)
         tol = 1e4 * torch.finfo(dtype).eps * h.clamp_min(1e-30)
-        return torch.where((err <= tol)[..., None], xr, xr0)
+        conv = err <= tol
+        if config.newton_debug:
+            from ..utils.diagnostics import emit_nonconverged
 
-    pts1_in_2 = other_refpts(coords1, coords2)
-    pts2_in_1 = other_refpts(coords2, coords1)
+            emit_nonconverged("facet-patch Newton map",
+                              "the affine patch map", (~conv).sum(),
+                              conv.numel())
+        return torch.where(conv[..., None], xr, xr0)
+
+    pts1_in_2 = other_refpts(coords1, e1, coords2, e2)
+    pts2_in_1 = other_refpts(coords2, e2, coords1, e1)
     basef = base.expand(F, -1, -1)
     self_pts = torch.cat([basef, pts2_in_1], dim=1)  # on e1
     other_pts = torch.cat([pts1_in_2, basef], dim=1)  # on e2
 
     ctx = EvalCtx(mesh, self_pts, elem_ids=e1,
                   facet_ids=torch.as_tensor(fids, dtype=torch.int64,
-                                            device=device))
+                                            device=device),
+                  deformation=deform)
     ctx.other_ctx = EvalCtx(mesh, other_pts, elem_ids=e2,
-                            facet_ids=ctx.facet_ids)
-    det1 = EvalCtx(mesh, base, elem_ids=e1).detJ.abs()
-    det2 = EvalCtx(mesh, base, elem_ids=e2).detJ.abs()
+                            facet_ids=ctx.facet_ids, deformation=deform)
+    det1 = EvalCtx(mesh, base, elem_ids=e1, deformation=deform).detJ.abs()
+    det2 = EvalCtx(mesh, base, elem_ids=e2, deformation=deform).detJ.abs()
     w = torch.cat([(det1 * rw).expand(F, len(rw)),
                    (det2 * rw).expand(F, len(rw))], dim=1)
     return ctx, e1, e2, w, torch.ones_like(w, dtype=torch.bool)
@@ -421,12 +470,14 @@ def _facet_measure_normal(tang, nref_if, rw, d):
     return w, n / torch.where(nn < 1e-30, 1.0, nn)
 
 
-def _facet_rows(integral, mesh, order, fverts, row_e, loc_refs, device):
+def _facet_rows(integral, mesh, order, fverts, row_e, loc_refs, device,
+                deform=None):
     """Quadrature on R facet rows: the facet rule mapped into the reference
     cell of each ``loc_refs`` side ((R, nvf, d) local vertex coordinates of
     the facet), the physical weights (R, nq) and the unit normal oriented
     away from the centroid of the ``row_e`` element (the outward normal of
-    that element).  Returns ([pts per side], w, n)."""
+    that element), the tangents of a ``deform``ed facet seen from the first
+    side.  Returns ([pts per side], w, n)."""
     mesh_fet = FACET_ET[mesh.et]
     rp, rw, nref_if = _facet_param_rule(integral, mesh_fet, order, fverts,
                                         device)
@@ -436,6 +487,7 @@ def _facet_rows(integral, mesh, order, fverts, row_e, loc_refs, device):
     pf = verts[fverts]  # (R, nvf, d)
     dNf = geom_dshapes(mesh_fet, rp)  # (R, nq, nvf, d-1)
     tang = small_matmul(dNf.transpose(-1, -2), pf[:, None])  # (R,nq,d-1,d)
+    tang = _deformed_tangents(tang, deform, row_e, pts[0], dNf, loc_refs[0])
     w, n = _facet_measure_normal(tang, nref_if, rw, mesh.dim)
     cent = verts[els[row_e]].mean(1)  # (R, d)
     sign = torch.sign((n * (pf.mean(1) - cent)[:, None, :]).sum(-1))
@@ -458,12 +510,14 @@ def _skeleton_ctx(integral: Integral, mesh, order, device):
                              device=device)
     e1 = torch.as_tensor(f2e[fids, 0], dtype=torch.int64, device=device)
     e2 = torch.as_tensor(f2e[fids, 1], dtype=torch.int64, device=device)
+    deform = _deformation_of(integral, mesh)
     (pts1, pts2), w, n = _facet_rows(integral, mesh, order, fverts, e1,
-                                     (loc[0], loc[1]), device)
+                                     (loc[0], loc[1]), device, deform)
     fid_t = torch.as_tensor(fids, dtype=torch.int64, device=device)
-    ctx = EvalCtx(mesh, pts1, elem_ids=e1, normal=n, facet_ids=fid_t)
+    ctx = EvalCtx(mesh, pts1, elem_ids=e1, normal=n, facet_ids=fid_t,
+                  deformation=deform)
     ctx.other_ctx = EvalCtx(mesh, pts2, elem_ids=e2, normal=-n,
-                            facet_ids=fid_t)
+                            facet_ids=fid_t, deformation=deform)
     return ctx, e1, e2, w, w > 0
 
 
@@ -484,11 +538,13 @@ def _element_boundary_ctx(integral: Integral, mesh, order, device):
     loc = torch.as_tensor(REF_VERTS[mesh.et][fv_loc[lf]],
                           dtype=config.dtype, device=device)
     row_e = torch.as_tensor(rows_e, dtype=torch.int64, device=device)
+    deform = _deformation_of(integral, mesh)
     (pts,), w, n = _facet_rows(integral, mesh, order, fverts, row_e, (loc,),
-                               device)
+                               device, deform)
     fid = torch.as_tensor(mesh.el2facet_np[rows_e, lf], dtype=torch.int64,
                           device=device)
-    ctx = EvalCtx(mesh, pts, elem_ids=row_e, normal=n, facet_ids=fid)
+    ctx = EvalCtx(mesh, pts, elem_ids=row_e, normal=n, facet_ids=fid,
+                  deformation=deform)
     return ctx, row_e, w, w > 0
 
 
@@ -528,11 +584,13 @@ def _boundary_ctx(integral: Integral, mesh, order, device):
     loc = torch.as_tensor(_facet_locref_tables(mesh)[0][bf],
                           dtype=config.dtype, device=device)
     row_e = torch.as_tensor(rows_e, dtype=torch.int64, device=device)
+    deform = _deformation_of(integral, mesh)
     (pts,), w, n = _facet_rows(integral, mesh, order, fverts, row_e, (loc,),
-                               device)
+                               device, deform)
     ctx = EvalCtx(mesh, pts, elem_ids=row_e, normal=n,
                   facet_ids=torch.as_tensor(bf, dtype=torch.int64,
-                                            device=device))
+                                            device=device),
+                  deformation=deform)
     return ctx, row_e, w, w > 0
 
 

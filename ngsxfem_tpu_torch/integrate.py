@@ -8,10 +8,11 @@ evaluate-multiply-reduce, eagerly on the device of the level set.
 
 Two tiers, as in the reference's default path: elements that the level set
 does not cut take the element's standard rule, and only the cut elements
-(found exactly with ``torch.nonzero``) run the cut-rule construction.  Out of
-scope here, and raising ``NotImplementedError``: ``subdivlvl > 0``
-(ROADMAP A8b), space-time integrals (``time_order >= 0``; ROADMAP A13), and
-``deformation=`` (ROADMAP A11).
+(found exactly with ``torch.nonzero``) run the cut-rule construction.  A
+mesh deformation (``mesh.SetDeformation`` or ``deformation=``) enters every
+tier through the evaluation context.  Out of scope here, and raising
+``NotImplementedError``: ``subdivlvl > 0`` (ROADMAP A8b) and space-time
+integrals (``time_order >= 0``; ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -118,7 +119,7 @@ def normalize_levelset_domain(levelset_domain: dict):
     return ld
 
 
-def _not_ported(subdivlvl=0, time_order=-1, deformation=None):
+def _not_ported(subdivlvl=0, time_order=-1):
     """Raise for the features of the reference's quadrature that the port
     does not have yet."""
     if subdivlvl > 0:
@@ -129,34 +130,33 @@ def _not_ported(subdivlvl=0, time_order=-1, deformation=None):
         raise NotImplementedError(
             "space-time integrals (time_order >= 0) are not ported yet "
             "(ROADMAP A13)")
-    if deformation is not None:
-        raise NotImplementedError(
-            "mesh deformations are not ported yet (ROADMAP A11)")
 
 
 def _rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if, nref,
-                      elem_ids=None):
+                      elem_ids=None, deformation="inherit"):
     """Rule tensors -> (ctx, physical weights, validity mask): IF rules get
     the ``‖J⁻ᵀn_ref‖·|detJ|`` interface weighting, NEG/POS rules the side
     selection x ``|detJ|``.  ``elem_ids`` restricts the rows to an element
-    subset."""
+    subset; ``deformation`` is passed to the context (``EvalCtx``)."""
     if dt == IF:
-        ctx = EvalCtx(mesh, pts_if, nref=nref, elem_ids=elem_ids)
+        ctx = EvalCtx(mesh, pts_if, nref=nref, elem_ids=elem_ids,
+                      deformation=deformation)
         w_ref = w_if
         w_phys = w_ref * ctx.detJ.abs() * ctx.if_scale
     else:
-        ctx = EvalCtx(mesh, pts, elem_ids=elem_ids)
+        ctx = EvalCtx(mesh, pts, elem_ids=elem_ids, deformation=deformation)
         w_ref = w * (side == int(dt)).to(w.dtype)
         w_phys = w_ref * ctx.detJ.abs()
     return ctx, w_phys, w_ref > 0
 
 
-def two_tier_tiers(mesh, lgf, dt, order, policy):
+def two_tier_tiers(mesh, lgf, dt, order, policy, deform="inherit"):
     """Two-tier cut quadrature tiers [(ctx, w_phys (R,Q), mask, elem_ids)]:
     the standard rule on the uncut elements of the requested side (NEG/POS
     only), and the cut rule on the cut elements, each set taken exactly with
     ``torch.nonzero``.  The cut-rule construction then scales with the
-    interface, not the volume."""
+    interface, not the volume.  ``deform`` is the deformation of both
+    tiers' contexts (``EvalCtx``)."""
     dt = int(dt)
     if dt not in (int(NEG), int(POS), int(IF)):
         raise ValueError(
@@ -170,15 +170,15 @@ def two_tier_tiers(mesh, lgf, dt, order, policy):
         ids = torch.nonzero(sel)[:, 0]
         rp, rw = reference_rule(mesh.et, order)
         pts = torch.as_tensor(rp, dtype=vals.dtype, device=vals.device)[None]
-        ctx = EvalCtx(mesh, pts, elem_ids=ids)
+        ctx = EvalCtx(mesh, pts, elem_ids=ids, deformation=deform)
         w = torch.as_tensor(rw, dtype=vals.dtype, device=vals.device) \
             * ctx.detJ.abs()
         w = w.expand(len(ids), len(rw))
         tiers.append((ctx, w, torch.ones_like(w, dtype=torch.bool), ids))
     cut_ids = torch.nonzero(has_neg & has_pos)[:, 0]
     rule = cut_rule_element(mesh.et, vals[cut_ids], order, policy)
-    tiers.append((*_rule_ctx_weights(mesh, dt, *rule, elem_ids=cut_ids),
-                  cut_ids))
+    tiers.append((*_rule_ctx_weights(mesh, dt, *rule, elem_ids=cut_ids,
+                                     deformation=deform), cut_ids))
     return tiers
 
 
@@ -195,15 +195,15 @@ def _two_tier_integrate(mesh, cf, lgf, dt, order, policy, ew):
 
 
 def _cut_ctx_and_weights(mesh, lset_gf, domain_type, order, time_order=-1,
-                         quad_dir_policy="OPTIMAL", deformation=None,
+                         quad_dir_policy="OPTIMAL", deformation="inherit",
                          subdivlvl=0):
     """(ctx, physical weights, validity mask) of the cut rule on every
     element of the mesh (one tier; ``two_tier_tiers`` splits it)."""
-    _not_ported(subdivlvl, time_order, deformation)
+    _not_ported(subdivlvl, time_order)
     dt = DOMAIN_TYPE(int(domain_type))
     rule = cut_rule_element(mesh.et, lset_vertex_values(lset_gf), order,
                             quad_dir_policy)
-    return _rule_ctx_weights(mesh, dt, *rule)
+    return _rule_ctx_weights(mesh, dt, *rule, deformation=deformation)
 
 
 def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
@@ -219,7 +219,9 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
     GridFunction; with a CoefficientFunction level set, or no level set, on
     ``device`` (the card unless the caller asks for the CPU).  Returns a
     float, with ``element_wise`` a (ne,) tensor, with ``region_wise`` one
-    numpy value per material.
+    numpy value per material.  ``deformation`` (a vector GridFunction) is
+    set on the mesh for the call and unset afterwards, as in the JAX
+    package; without it the mesh's own ``SetDeformation`` state applies.
     """
     if levelset_domain is not None and not isinstance(levelset_domain, dict):
         if cf is not None and mesh is None:
@@ -242,25 +244,30 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
     if cf.dims != ():
         raise TypeError("Integrate expects a scalar integrand")
 
-    if levelset_domain is None:
-        _not_ported(deformation=deformation)
-        dev = resolve_device(device)
-        rp, rw = reference_rule(mesh.et, order)
-        pts = torch.as_tensor(rp, dtype=config.dtype, device=dev)[None]
-        ctx = EvalCtx(mesh, pts)
-        w = torch.as_tensor(rw, dtype=config.dtype, device=dev) * ctx.detJ.abs()
-        f = torch.broadcast_to(eval_pure(cf, ctx), (mesh.ne, len(rw)))
-        out = (f * w).sum(1)
-        if not element_wise:
-            out = out.sum()
-    else:
-        ld = normalize_levelset_domain(levelset_domain)
-        time_order = ld.get("time_order", time_order)
-        _not_ported(ld["subdivlvl"], time_order, deformation)
-        o = order if ld["force_intorder"] < 0 else ld["force_intorder"]
-        lgf = ensure_p1_levelset(ld["levelset"], mesh, device)
-        out = _two_tier_integrate(mesh, cf, lgf, int(ld["domain_type"]), o,
-                                  ld["quad_dir_policy"], element_wise)
+    if deformation is not None:
+        mesh.SetDeformation(deformation)
+    try:
+        if levelset_domain is None:
+            dev = resolve_device(device)
+            rp, rw = reference_rule(mesh.et, order)
+            pts = torch.as_tensor(rp, dtype=config.dtype, device=dev)[None]
+            ctx = EvalCtx(mesh, pts)
+            w = torch.as_tensor(rw, dtype=config.dtype, device=dev) * ctx.detJ.abs()
+            f = torch.broadcast_to(eval_pure(cf, ctx), (mesh.ne, len(rw)))
+            out = (f * w).sum(1)
+            if not element_wise:
+                out = out.sum()
+        else:
+            ld = normalize_levelset_domain(levelset_domain)
+            time_order = ld.get("time_order", time_order)
+            _not_ported(ld["subdivlvl"], time_order)
+            o = order if ld["force_intorder"] < 0 else ld["force_intorder"]
+            lgf = ensure_p1_levelset(ld["levelset"], mesh, device)
+            out = _two_tier_integrate(mesh, cf, lgf, int(ld["domain_type"]), o,
+                                      ld["quad_dir_policy"], element_wise)
+    finally:
+        if deformation is not None:
+            mesh.UnsetDeformation()
     if region_wise:
         ew = out.detach().cpu().numpy()
         ids = mesh.mat_of_el_np

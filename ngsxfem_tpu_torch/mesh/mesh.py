@@ -74,6 +74,10 @@ class Mesh:
         # one material (id 1, as NGSolve numbers them) for every element
         self.mat_of_el_np = np.ones(self.ne, dtype=np.int32)
         self._views = {}
+        # deformation slot (set by SetDeformation): a GridFunction of a
+        # vector space, or None.  Every evaluation context inherits it.
+        self.deformation = None
+        self._version = 0  # bumped when the deformation is (un)set
 
     def material_ids(self):
         """Ascending material ids of the elements."""
@@ -144,6 +148,18 @@ class Mesh:
         self.facet2el_np = f2e
         self.facet2elloc_np = f2eloc
         self.boundary_facets_np = np.nonzero(f2e[:, 1] < 0)[0].astype(np.int32)
+
+    # -- deformation -------------------------------------------------------
+    def SetDeformation(self, deformation):
+        """Apply a (vector) GridFunction as mesh deformation: the geometry
+        map becomes x + deformation(x) in every evaluation context (the
+        reference's ``mesh.SetDeformation`` after lsetcurving)."""
+        self.deformation = deformation
+        self._version += 1
+
+    def UnsetDeformation(self):
+        self.deformation = None
+        self._version += 1
 
     def __repr__(self):
         return f"Mesh(et={self.et}, nv={self.nv}, ne={self.ne}, nfacets={self.nfacets})"

@@ -415,9 +415,6 @@ def test_not_ported_raises():
         (lambda: T.SymbolicBFI(dict(ld, time_order=1), form=u * v), "A13"),
         (lambda: T.SymbolicLFI(ld, form=v, time_order=0), "A13"),
         (lambda: T.SymbolicFacetPatchBFI(form=u * v, time_order=0), "A13"),
-        (lambda: T.SymbolicBFI(form=u * v, deformation=lset), "A11"),
-        (lambda: T.SymbolicLFI(form=v, deformation=lset), "A11"),
-        (lambda: T.SymbolicFacetPatchBFI(form=u * v, deformation=lset), "A11"),
         (lambda: T.SymbolicBFI(dict(ld, subdivlvl=1), form=u * v), "A8b"),
         (lambda: T.SymbolicFacetPatchBFI(form=u * v, skeleton=True),
          "skeleton"),
@@ -458,11 +455,16 @@ def test_not_ported_raises():
         b.Assemble()
         assert b.mat.todense().abs().sum() > 0
     assert u.Operator("grad").op == "grad" and u.Operator("id") is u
-    from ngsxfem_tpu_torch.examples import cutfem, fictdom3d
-    with pytest.raises(NotImplementedError, match="A11"):
-        fictdom3d.run(nx=2, isoparametric=True, **CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        cutfem.run(nx=2, deform=True, **CPU)
+    # mesh deformations are ported now (ROADMAP A11): the integrators keep
+    # theirs, and the isoparametric branches of the examples run
+    deform = T.GridFunction(T.VectorH1(mesh, order=1, **CPU))
+    for integral in (T.SymbolicBFI(form=u * v, deformation=deform),
+                     T.SymbolicLFI(form=v, deformation=deform),
+                     T.SymbolicFacetPatchBFI(form=u * v, deformation=deform)):
+        assert integral.deformation is deform
+    from ngsxfem_tpu_torch.examples import cutfem
+    err = cutfem.run(nx=6, order=2, deform=True, verbose=False, **CPU)
+    assert 0 < err < 0.5, err
 
 
 def test_integral_options_and_helpers():

@@ -36,6 +36,16 @@ import ngsxfem_tpu_torch.examples.xfespaces
 import ngsxfem_tpu_torch.fem.xfespace
 import ngsxfem_tpu_torch.ops.multilinear
 import ngsxfem_tpu_torch.geom.cutinfo
+import ngsxfem_tpu_torch.utils.diagnostics
+import ngsxfem_tpu_torch.lsetcurv
+import ngsxfem_tpu_torch.lsetcurv.lsetcurv
+import ngsxfem_tpu_torch.lsetcurv.shifted
+import ngsxfem_tpu_torch.examples.nxfem_higher_order
+import ngsxfem_tpu_torch.examples.fictdom_ghostpen_restrictedblf
+import ngsxfem_tpu_torch.examples.tracefem
+import ngsxfem_tpu_torch.examples.tracefem3d
+import ngsxfem_tpu_torch.examples.traceconverg
+import ngsxfem_tpu_torch.examples.stokesxfem
 import chip_smoke
 from ngsxfem_tpu_torch import *
 
@@ -61,6 +71,13 @@ assert 0.1 < err < 0.5, err
 u_err, p_err = ngsxfem_tpu_torch.examples.stokescutfem.run(nx=4, verbose=False,
                                                            device="cpu")
 assert u_err < 0.5 and p_err < 1.0, (u_err, p_err)
+# the isoparametric mesh adaptation and a deformed integral
+lsa = LevelSetMeshAdaptation(mesh, order=2, threshold=10.0, device="cpu")
+deform = lsa.CalcDeformation(sqrt(x*x + y*y) - 0.5)
+assert lsa.CalcMaxDistance(sqrt(x*x + y*y) - 0.5) < 1e-4
+area = Integrate({"levelset": lsa.lset_p1, "domain_type": NEG},
+                 CoefficientFunction(1.0), mesh, order=4, deformation=deform)
+assert abs(area - 0.19634954084936207) < 1e-6 and mesh.deformation is None
 mg1 = LatticeDIAMG([[-1, 0, 1]], [5], dim=1)
 pp = mg1.prepare_safe(mg1.params([[[0, -1, -1, -1, -1], [2] * 5,
                                    [-1, -1, -1, -1, 0]]], device="cpu"))
@@ -74,8 +91,9 @@ sys.exit(1 if bad else 0)
 
 def test_port_imports_no_jax():
     """Importing the port, its modules, its examples and chip_smoke, and
-    running the Quick start, five examples and a coarse multigrid inverse
-    on the CPU, loads no jax and no ngsxfem_tpu module."""
+    running the Quick start, five examples, the isoparametric adaptation
+    and a coarse multigrid inverse on the CPU, loads no jax and no
+    ngsxfem_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -226,8 +226,12 @@ def test_unported_features_raise():
             T.Integrate(dict(ld, **kw), 1.0, mesh)
     with pytest.raises(NotImplementedError, match="A13"):
         T.Integrate(ld, 1.0, mesh, time_order=0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        T.Integrate(ld, 1.0, mesh, deformation=lset)
+    # deformations are ported (ROADMAP A11): a zero one changes nothing and
+    # is unset after the call
+    zero = T.GridFunction(T.VectorH1(mesh, order=1, device="cpu"))
+    assert T.Integrate(ld, 1.0, mesh, deformation=zero) == \
+        T.Integrate(ld, 1.0, mesh)
+    assert mesh.deformation is None
     with pytest.raises(NotImplementedError, match="A13"):
         T.CutInfo(mesh, lset, time_order=0)
 
