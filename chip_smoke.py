@@ -7,8 +7,9 @@ The flagship is 3D fictitious-domain Poisson with Nitsche terms and
 facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
 117,649 dofs, float32).  Three paths run through it (and general cut
 quadrature, phase 9, beside it), two more in phases 12-15, the
-skeleton, vector and XFEM workloads in phases 16-17, and the isoparametric
-(order-2/3 deformed-mesh) workloads in phases 18-19:
+skeleton, vector and XFEM workloads in phases 16-17, the isoparametric
+(order-2/3 deformed-mesh) workloads in phases 18-19, and the space-time
+moving-domain workloads in phases 20-21:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -42,7 +43,14 @@ skeleton, vector and XFEM workloads in phases 16-17, and the isoparametric
   ``a.mat.Inverse(freedofs)`` (Jacobi-CG through ``ell_matvec``) ->
   ``Integrate`` of the L2 error on the deformed mesh: ``examples.fictdom3d``
   with ``isoparametric=True`` (bench.py's high_order workload),
-  ``tracefem3d`` and ``nxfem_higher_order``.
+  ``tracefem3d`` and ``nxfem_higher_order``;
+- the space-time path: per slab ``SpaceTimeInterpolateToP1`` (or
+  ``LevelSetMeshAdaptation_Spacetime.CalcDeformation``) ->
+  ``CutInfo.Update(time_order=)`` -> re-marked ``BilinearForm``/
+  ``LinearForm`` (space-time cut rules, facet patches, Petrov-Galerkin
+  blocks) -> ``a.mat.Inverse(active)`` (the host LU: the slab systems are
+  not symmetric) -> ``RestrictGFInTime``: ``examples.moving_domain`` (also
+  with ``deform=True``), ``heateq_cg_spacetime`` and ``moving_domain3d``.
 
 Phases, one line each:
 
@@ -168,7 +176,26 @@ Phases, one line each:
    default ``Inverse()`` on path ``device_cg`` with ell_spmv launches ==
    products == iterations + 1, true relative residual <= 1e-10, L2 errors
    below phase 18's, peak memory; the order-3 facet-patch contraction by
-   ``small_matmul`` against ``torch.matmul``.
+   ``small_matmul`` against ``torch.matmul``;
+20. the space-time path at the JAX package's test sizes, launch counters
+   reset before it (with phase 21), card against this host's CPU, f64: one
+   space-time ``Integrate`` (NEG/POS/IF, kt=2, tets nx=12) and one
+   ``CutInfo.Update(time_order=2)`` to 1e-12, and ``moving_domain`` (12, 4)
+   / (24, 8), ``heateq_cg_spacetime`` (12, 8) / (24, 16),
+   ``moving_domain3d`` (6, 2) / (12, 4) and ``moving_domain(deform=True)``
+   order 2 (8, 2) / (16, 4) as (nx, nslab): L2 errors to 1e-8, halving
+   over the doubling;
+21. card size: ``moving_domain`` (128, 8) / (256, 16), ``moving_domain3d``
+   (24, 8) and the deformed one (32, 8) / (64, 16), each L2 error below
+   phase 20's and halving over each doubling; ``heateq_cg_spacetime`` (64,
+   16) / (128, 32), card == CPU at (64, 16) (its scheme stops converging
+   past (24, 16), in the JAX package too); every slab solve on the host LU,
+   ``a.mat.shape == (W_t.ndof, W_i.ndof)`` for every Petrov-Galerkin form,
+   no shift-Newton warning; per slab ``CutInfo.Update`` and both
+   ``Assemble`` by CUDA events, ``Inverse()`` (its ``to_ell``),
+   ``to_scipy``, ``splu`` and the solve by the host clock, one
+   ``BilinearForm.Assemble`` under ``torch.profiler``, peak memory; B2 and
+   B1 launches of the path (0: the record's ``launches_spacetime``).
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -1967,6 +1994,314 @@ def phases_18_19(T, dev, t_start):
     return bigs, launches
 
 
+# --- phases 20-21: space-time unfitted FEM ---------------------------------
+
+# phase 20: the JAX package's test sizes, (nx, nslab) each doubled once:
+# moving_domain (tests/test_spacetime.py:65-70), heateq_cg_spacetime at
+# tend 0.25 (:122-131), moving_domain3d (tests/test_workloads.py:228-235),
+# and moving_domain(deform=True) at order 2 (tests/test_torch_spacetime.py)
+ST_MD = ((12, 4), (24, 8))
+ST_HEAT = ((12, 8), (24, 16))
+ST_3D = ((6, 2), (12, 4))
+ST_DEF = ((8, 2), (16, 4))
+ST_HEAT_TEND = 0.25
+ST_DEF_ORDER = 2
+# phase 21: card size, each pair a doubling of (nx, nslab); 3D doubles the
+# last of ST_3D
+ST_MD_BIG = ((128, 8), (256, 16))
+ST_HEAT_BIG = ((64, 16), (128, 32))
+ST_3D_BIG = ((24, 8),)
+ST_DEF_BIG = ((32, 8), (64, 16))
+ST_RULE_NX = 12        # tets of the Integrate / CutInfo parity
+ST_PARITY_TOL = 1e-8   # card vs CPU, L2 errors (relative)
+ST_RULE_TOL = 1e-12    # card vs CPU, Integrate and CutInfo ratios
+
+
+class SlabClock:
+    """While active, the per-call times of a slab loop's steps:
+    ``CutInfo.Update``, ``BilinearForm.Assemble`` and
+    ``LinearForm.Assemble`` by CUDA events (by the host clock without a
+    card); by the host clock ``a.mat.Inverse(free)`` (on the card it builds
+    the ELL view, ``to_ell``, to test for an SPD free block), the host LU's
+    ``SparseMatrix.to_scipy``, ``splu`` and whole ``InverseMatrix.solve``;
+    the path of every solve,
+    and each rectangular form's (shape, (test ndof, trial ndof)).  With
+    ``profile_call`` = k, the k-th ``BilinearForm.Assemble`` is run once
+    more under ``torch.profiler`` (device kernels, busy ms, wall ms)."""
+
+    def __init__(self, profile_call=None):
+        from ngsxfem_tpu_torch.forms import assemble
+        from ngsxfem_tpu_torch.geom import cutinfo
+        from ngsxfem_tpu_torch.solvers import sparse
+        import scipy.sparse.linalg as spla
+
+        self.targets = [
+            (cutinfo.CutInfo, "Update", "cutinfo", True),
+            (assemble.BilinearForm, "Assemble", "bfi", True),
+            (assemble.LinearForm, "Assemble", "lfi", True),
+            (sparse.InverseMatrix, "__init__", "inverse_init", False),
+            (sparse.SparseMatrix, "to_ell", "to_ell", False),
+            (sparse.SparseMatrix, "to_scipy", "to_scipy", False),
+            (spla, "splu", "splu", False),
+            (sparse.InverseMatrix, "solve", "solve", False),
+        ]
+        self.times = {key: [] for _, _, key, _ in self.targets}
+        self.paths, self.rect = [], []
+        self.profile_call, self.profile = profile_call, None
+        self.saved = []
+
+    def _wrap(self, orig, key, events):
+        clock = self
+
+        def run(*args, **kw):
+            if key == "solve":
+                clock.paths.append(args[0].path)
+            if events:
+                out, ms = event_ms(lambda: orig(*args, **kw))
+            else:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*args, **kw)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            clock.times[key].append(ms)
+            if key == "bfi":
+                form = args[0]
+                if form.space_u is not form.space_v:
+                    clock.rect.append((tuple(form.mat.shape),
+                                       (form.space_v.ndof, form.space_u.ndof)))
+                if (clock.profile_call == len(clock.times["bfi"])
+                        and torch.cuda.is_available()):
+                    kern, wall = device_kernels(lambda: orig(*args, **kw), 1,
+                                                warm=False)
+                    busy = sum(us for _, us in kern.values()) / 1e3
+                    clock.profile = (sum(c for c, _ in kern.values()), busy,
+                                     wall)
+            return out
+
+        return run
+
+    def __enter__(self):
+        for obj, name, key, events in self.targets:
+            orig = getattr(obj, name)
+            self.saved.append((obj, name, orig))
+            setattr(obj, name, self._wrap(orig, key, events))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self.saved:
+            setattr(obj, name, orig)
+
+    def split(self):
+        """{step: (median ms per call, total ms, calls)}; ``lu`` is the
+        solve without ``to_scipy`` (factorization + triangular solves)."""
+        t = dict(self.times)
+        t["lu"] = [a - b for a, b in zip(t["solve"], t["to_scipy"])]
+        return {k: (statistics.median(v) if v else 0.0, sum(v), len(v))
+                for k, v in t.items()}
+
+
+def st_rule_parity(T, device):
+    """One space-time ``Integrate`` (NEG/POS/IF, kt = 2, a moving sphere on
+    tets nx=ST_RULE_NX) and one ``CutInfo.Update(time_order=2)``, on
+    ``device`` and on the CPU: values equal to ST_RULE_TOL."""
+    out = {}
+    n = ST_RULE_NX
+    for dev in (device, torch.device("cpu")):
+        mesh = T.MakeStructured3DMesh(hexes=False, nx=n, ny=n, nz=n)
+        st = T.SpaceTimeFESpace(T.H1(mesh, order=1, device=dev),
+                                T.ScalarTimeFE(2))
+        lset = T.GridFunction(st)
+        T.SpaceTimeInterpolateToP1(
+            T.sqrt((T.x - 0.35 - 0.3 * T.tref * T.tref) ** 2
+                   + (T.y - 0.5) ** 2 + (T.z - 0.5) ** 2) - 0.3, T.tref, lset)
+        f = 1 + T.sin(T.x * T.tref) + T.exp(T.y) * T.tref ** 3
+        vals = [T.Integrate({"levelset": lset, "domain_type": dom}, f, mesh,
+                            order=3, time_order=4)
+                for dom in (T.NEG, T.POS, T.IF)]
+        ci = T.CutInfo(mesh)
+        ci.Update(lset, time_order=2)
+        out[dev.type] = (vals, ci.dt_of_elem, ci.GetCutRatios(),
+                         lset.vec.data.device.type)
+    card_, host = out[device.type], out["cpu"]
+    check(card_[3] == device.type, "the space-time level set left the card")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_[0], host[0]))
+    check(rel <= ST_RULE_TOL, f"space-time Integrate card vs CPU rel {rel}")
+    check(np.array_equal(card_[1], host[1]), "space-time CutInfo: dt_of_elem "
+                                             "differs between card and CPU")
+    dr = float(np.abs(card_[2] - host[2]).max())
+    check(dr <= ST_RULE_TOL, f"space-time CutInfo ratios card vs CPU {dr}")
+    nif = int((card_[1] == 2).sum())
+    check(0 < nif < len(card_[1]), f"space-time CutInfo: {nif} IF elements")
+    return card_[0], rel, dr, nif
+
+
+def st_runs(T, device):
+    """The space-time examples' runners: name -> fn(nx, nslab, dev)
+    returning the final L2 error (heateq: the list of per-slab errors)."""
+    from ngsxfem_tpu_torch.examples import (heateq_cg_spacetime,
+                                            moving_domain, moving_domain3d)
+
+    return {
+        "moving_domain": lambda nx, ns, dev: moving_domain.run(
+            nx=nx, nslab=ns, verbose=False, device=dev),
+        "heateq_cg_spacetime": lambda nx, ns, dev: heateq_cg_spacetime.run(
+            nx=nx, nslab=ns, tend=ST_HEAT_TEND, verbose=False, device=dev),
+        "moving_domain3d": lambda nx, ns, dev: moving_domain3d.run(
+            nx=nx, nslab=ns, verbose=False, device=dev),
+        f"moving_domain(deform=True, order={ST_DEF_ORDER})":
+            lambda nx, ns, dev: moving_domain.run(
+                nx=nx, nslab=ns, order=ST_DEF_ORDER, deform=True,
+                verbose=False, device=dev),
+    }
+
+
+def _final(e):
+    return e[-1] if isinstance(e, list) else e
+
+
+def st_parity(T, device):
+    """Phase 20: the three examples (and the deformed moving domain) at the
+    JAX tests' sizes on ``device`` and on the CPU: L2 errors equal to
+    ST_PARITY_TOL, and the tests' rule (the final error halves when nx and
+    nslab double)."""
+    runs = st_runs(T, device)
+    sizes = dict(zip(runs, (ST_MD, ST_HEAT, ST_3D, ST_DEF)))
+    out = {}
+    for name, fn in runs.items():
+        if not sizes[name]:
+            continue
+        errs = []
+        for nx, ns in sizes[name]:
+            e_dev = no_shift_warning(lambda: fn(nx, ns, device))
+            e_cpu = fn(nx, ns, torch.device("cpu"))
+            for a, b in zip(np.atleast_1d(e_dev), np.atleast_1d(e_cpu)):
+                check(abs(a - b) <= ST_PARITY_TOL * abs(b),
+                      f"{name} nx={nx} nslab={ns}: card {a} vs CPU {b}")
+            errs.append((nx, ns, _final(e_dev), _final(e_cpu)))
+        check(errs[1][2] < errs[0][2] / 2,
+              f"{name}: L2 errors {errs} do not halve")
+        out[name] = errs
+    return out
+
+
+def st_card(T, device, par):
+    """Phase 21: each example at card size (ST_*_BIG), its final L2 error
+    below the phase-20 ones and halving over each doubling (moving_domain,
+    its deformed variant, moving_domain3d); heateq_cg_spacetime's error is
+    reported with its card-vs-CPU parity at the smaller size (the
+    scheme's error does not halve beyond (24, 16), on the card as in the
+    JAX package).  The largest moving_domain run is clocked per slab
+    (``SlabClock``, its second slab's ``BilinearForm.Assemble`` profiled)."""
+    runs = st_runs(T, device)
+    out = {}
+    for name, sizes in zip(runs, (ST_MD_BIG, ST_HEAT_BIG, ST_3D_BIG,
+                                  ST_DEF_BIG)):
+        if not sizes:
+            continue
+        fn = runs[name]
+        rows = []
+        for nx, ns in sizes:
+            peak_gib(device)
+            clock = SlabClock(profile_call=2)
+            t0 = time.perf_counter()
+            with clock:
+                e = no_shift_warning(lambda: fn(nx, ns, device))
+            sync(device)
+            row = {"nx": nx, "nslab": ns, "err": _final(e),
+                   "wall_s": time.perf_counter() - t0,
+                   "peak_gib": peak_gib(device), "clock": clock}
+            check(np.isfinite(row["err"]), f"{name} nx={nx}: L2 {row['err']}")
+            check(set(clock.paths) == {"host_lu"} and len(clock.paths) > 0,
+                  f"{name} nx={nx}: slab solves took {set(clock.paths)}")
+            for shape, want in clock.rect:
+                check(shape == want, f"{name}: a.mat.shape {shape} != "
+                                     f"(W_t.ndof, W_i.ndof) {want}")
+            rows.append(row)
+        small = par[name][-1][2]
+        if name == "heateq_cg_spacetime":
+            nx, ns = sizes[0]
+            e_cpu = fn(nx, ns, torch.device("cpu"))[-1]
+            check(abs(rows[0]["err"] - e_cpu) <= ST_PARITY_TOL * abs(e_cpu),
+                  f"{name} nx={nx}: card {rows[0]['err']} vs CPU {e_cpu}")
+            rows[0]["cpu"] = e_cpu
+            check(len(rows[0]["clock"].rect) > 0,
+                  "heateq_cg_spacetime assembled no Petrov-Galerkin form")
+        else:
+            check(rows[0]["err"] < small,
+                  f"{name}: card-size L2 {rows[0]['err']} not below the "
+                  f"phase-20 one {small}")
+            # each doubling of (nx, nslab): 3D's card size doubles the last
+            # of ST_3D, the others' second card size doubles their first
+            pairs = ([(small, rows[0])] if name == "moving_domain3d" else
+                     list(zip((r["err"] for r in rows), rows[1:])))
+            for p, r in pairs:
+                check(r["err"] < p / 2, f"{name}: L2 {r['err']} does not "
+                                        f"halve from {p}")
+        out[name] = rows
+    return out
+
+
+def phases_20_21(T, dev, t_start):
+    """Phases 20 (the space-time path at the JAX package's test sizes, card
+    against CPU) and 21 (card size, per-slab clock, profile, peak memory),
+    launch counters reset just before them.  Returns the ell_spmv launches
+    of the path."""
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+
+    torch.cuda.synchronize()
+    peak_gib(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    vals, rel, dr, nif = st_rule_parity(T, dev)
+    par = st_parity(T, dev)
+    print(f"[20 parity] space-time Integrate NEG/POS/IF (tets nx="
+          f"{ST_RULE_NX}, kt=2) "
+          + ", ".join(f"{v:.15f}" for v in vals)
+          + f" card vs CPU rel {rel:.3e}; CutInfo.Update(time_order=2) "
+          f"dt_of_elem equal ({nif} IF), ratios max diff {dr:.3e}; "
+          + "; ".join(f"{name} (nx, nslab, card L2, CPU L2) "
+                      + ", ".join(f"({nx}, {ns}, {a:.10e}, {b:.10e})"
+                                  for nx, ns, a, b in errs)
+                      for name, errs in par.items())
+          + f"; peak memory {peak_gib(dev):.2f} GiB; wall of phase 20 "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    big = st_card(T, dev, par)
+    for name, rows in big.items():
+        print(f"[21 card] {card()} | {name}: "
+              + "; ".join(f"nx={r['nx']} nslab={r['nslab']} L2 "
+                          f"{r['err']:.10e}"
+                          + (f" (CPU {r['cpu']:.10e})" if "cpu" in r else "")
+                          + f", wall {r['wall_s']:.2f} s, peak memory "
+                          f"{r['peak_gib']:.2f} GiB" for r in rows), flush=True)
+    for name, rows in big.items():
+        r = rows[-1]
+        sp = r["clock"].split()
+        prof = r["clock"].profile
+        ptxt = ("not profiled" if prof is None else
+                f"{prof[0]} device kernels, device busy {prof[1]:.3f} ms of "
+                f"{prof[2]:.3f} ms wall (idle share "
+                f"{1 - prof[1] / prof[2]:.3f})")
+        print(f"[21 slab split] {card()} | {name} nx={r['nx']} nslab="
+              f"{r['nslab']}, median per call (total, calls): "
+              + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]:.1f} ms, {v[2]})"
+                          for k, v in sp.items())
+              + f" | 2nd BilinearForm.Assemble under torch.profiler: {ptxt}",
+              flush=True)
+    launches = ell_spmv.launches
+    check(dia_cg.launches == 0, f"the space-time path launched dia_cg "
+                                f"{dia_cg.launches} times")
+    print(f"[21 launches] space-time path: ell_spmv {launches}, dia_cg "
+          f"{dia_cg.launches} (every slab solve is the host LU); wall of "
+          f"phase 21 {time.perf_counter() - t0:.2f} s, of the whole run "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    return launches
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -2513,6 +2848,7 @@ def main():
     del api, a_form, f_form, inv_cg
     sk, sk_launches = phases_16_17(T, dev, t_start)
     iso, iso_launches = phases_18_19(T, dev, t_start)
+    st_launches = phases_20_21(T, dev, t_start)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -2554,6 +2890,7 @@ def main():
         "isoparametric_tables": [dict(b2_record(b["b2"]),
                                       launches=b["launches"])
                                  for b in iso],
+        "launches_spacetime": st_launches,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,7 +27,12 @@ integrators, ``a.mat.Inverse`` (host LU, or ``"cg"`` on the device) and
 mesh adaptation ``LevelSetMeshAdaptation`` (with ``ProjectShift``,
 ``CalcMaxDistance``, ``CalcDistances`` and ``shifted_eval``), whose
 deformation ``Mesh.SetDeformation`` applies to ``Integrate`` and to every
-integrator of the forms.  ``from
+integrator of the forms; and space-time unfitted FEM: ``ScalarTimeFE``,
+``SpaceTimeFESpace`` with ``tref``, ``dt``, ``fix_t`` and the time
+restrictions, space-time cut quadrature (``time_order=`` in ``Integrate``,
+``CutInfo.Update`` and every integrator), Petrov-Galerkin forms across
+space-time spaces, ``SpaceTimeWeakSet`` and
+``LevelSetMeshAdaptation_Spacetime``.  ``from
 ngsxfem_tpu_torch import *`` runs the README's Quick start and the
 workloads in ``ngsxfem_tpu_torch/examples``.  What is not ported raises
 ``NotImplementedError`` naming its item in ROADMAP.md.
@@ -58,7 +63,12 @@ from .cf.coefficient import (CoefficientFunction, InnerProduct, Parameter,
                              cosh, fabs, floor, ceil, specialcf)
 from .integrate import Integrate, Integrate_X_special_args
 from .lsetcurv import (LevelSetMeshAdaptation, ProjectShift, CalcMaxDistance,
-                       CalcDistances, RefineAtLevelSet, shifted_eval)
+                       CalcDistances, RefineAtLevelSet, shifted_eval,
+                       LevelSetMeshAdaptation_Spacetime)
+from .spacetime import (ScalarTimeFE, SpaceTimeFESpace, ReferenceTimeVariable,
+                        tref, dt, fix_t, CreateTimeRestrictedGF,
+                        RestrictGFInTime, SpaceTimeInterpolateToP1)
+from .utils.utils import SpaceTimeWeakSet
 from .geom.cutinfo import (CutInfo, GetFacetsWithNeighborTypes,
                            GetElementsWithNeighborFacets, GetDofsOfFacets,
                            IndicatorCF, CutRatioGF, BitArrayCF)
@@ -74,6 +84,7 @@ from .solvers.latticemg import LatticeDIAMG
 
 FIRST, OPTIMAL, FALLBACK = "FIRST", "OPTIMAL", "FALLBACK"
 CXFESpace = XFESpace  # the reference's C++ class name
+CSpaceTimeFESpace = SpaceTimeFESpace
 SymbolicCutBFI, SymbolicCutLFI = SymbolicBFI, SymbolicLFI
 
 __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
@@ -101,4 +112,8 @@ __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "CutRatioGF", "BitArrayCF", "UnfittedPoisson", "DIAMatrix", "ELLMatrix",
            "SparseMatrix", "dia_matvec", "ell_matvec", "ell_matvec_plain",
            "CGSolver", "cg", "cg_ir", "jacobi_preconditioner", "dia_cg_fused",
-           "dia_cg_fused_plain", "FunctionalELLMG"]
+           "dia_cg_fused_plain", "FunctionalELLMG", "ScalarTimeFE",
+           "SpaceTimeFESpace", "CSpaceTimeFESpace", "ReferenceTimeVariable",
+           "tref", "dt", "fix_t", "CreateTimeRestrictedGF",
+           "RestrictGFInTime", "SpaceTimeInterpolateToP1",
+           "SpaceTimeWeakSet", "LevelSetMeshAdaptation_Spacetime"]

@@ -33,10 +33,15 @@ class EvalCtx:
     (xfem/python_xfem.cpp:512-513).  Without a deformation ``J`` is
     (E, 1, d, d) on simplices (the affine map); with one it is (E, Q, d, d),
     and ``detJ``, ``Jinv``, ``h`` and the interface normal follow per point.
+
+    ``time`` is the slab-reference time in [0, 1] of each point, a tensor
+    broadcastable to (E, Q), or None outside a space-time integral: it is
+    what ``tref``, space-time proxies and GridFunctions, and a space-time
+    deformation are evaluated at.
     """
 
     def __init__(self, mesh, ref_pts, elem_ids=None, nref=None, normal=None,
-                 facet_ids=None, deformation="inherit"):
+                 facet_ids=None, deformation="inherit", time=None):
         self.mesh = mesh
         self.deformation = (mesh.deformation if isinstance(deformation, str)
                             and deformation == "inherit" else deformation)
@@ -45,6 +50,7 @@ class EvalCtx:
         self._nref = nref
         self._normal = normal
         self.facet_ids = facet_ids
+        self.time = time
         self.other_ctx = None
         self._cache = {}
         self.E = mesh.ne if elem_ids is None else elem_ids.shape[0]
@@ -73,7 +79,7 @@ class EvalCtx:
             from ..fem.gridfunction import gf_ref_value_and_grad
 
             val, grad = gf_ref_value_and_grad(self.deformation, self.elem_ids,
-                                              self.ref_pts)
+                                              self.ref_pts, time=self.time)
             return val.to(self.dtype), grad.to(self.dtype)
 
         return self._cached("displacement", make)

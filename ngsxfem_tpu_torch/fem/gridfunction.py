@@ -2,8 +2,9 @@
 
 Counterpart of ``ngsxfem_tpu/fem/gridfunction.py:32-407`` for ``H1``,
 ``L2``, ``NumberSpace`` and vector spaces, their ``Compress``ed
-restrictions, ``XFESpace`` and compounds of them (without the jit cache of
-``Set`` and without the space-time branches, ROADMAP A13).  A GridFunction
+restrictions, ``XFESpace``, ``SpaceTimeFESpace`` (``Set`` node by node in
+time, evaluation at the context's time) and compounds of them (without the
+jit cache of ``Set``).  A GridFunction
 IS a CoefficientFunction (as in NGSolve); its evaluation at a batch of
 quadrature points is a gather + contraction over the basis tables from
 ``fem.basis``, of every component for a vector space.  The dof vector is a
@@ -142,11 +143,13 @@ class GridFunction(CF):
     def __init__(self, space, name="gf", device=None, dtype=None,
                  _parent=None, _block=None):
         from .xfespace import XFESpace
+        from ..spacetime.space import SpaceTimeFESpace
 
-        if not isinstance(space, (FESpace, CompoundFESpace, XFESpace)):
+        if not isinstance(space, (FESpace, CompoundFESpace, XFESpace,
+                                  SpaceTimeFESpace)):
             raise NotImplementedError(
-                f"GridFunction on {type(space).__name__} (space-time and "
-                "facet spaces: ROADMAP A13)")
+                f"GridFunction on {type(space).__name__} (facet, HDiv and "
+                "SFE spaces: ROADMAP A13b)")
         self.space = space
         self.name = name
         self._parent = _parent
@@ -203,6 +206,23 @@ class GridFunction(CF):
         sp = self.space
         if isinstance(sp, CompoundFESpace):
             raise TypeError("Set on compound GF: use components")
+        from ..spacetime.space import SpaceTimeFESpace
+
+        if isinstance(sp, SpaceTimeFESpace):
+            # reference semantics (spacetime/py_demos/set_test.py): Set on a
+            # space-time GF interpolates spatially at each active time node
+            # (tref fixed to the node's value) into the time-major blocks
+            from ..spacetime.space import TimeFixedCF
+
+            tmp = GridFunction(sp.spacefes, device=self.device,
+                               dtype=self.dtype)
+            arr = self._arr.clone()
+            for i, ti in enumerate(sp.tfe.nodes):
+                tmp.Set(TimeFixedCF(cf, float(ti)), boundary=boundary,
+                        definedonelements=definedonelements, BND=BND)
+                arr[i * sp.ndof_s:(i + 1) * sp.ndof_s] = tmp._arr
+            self._set_array(arr)
+            return
         scal = sp.scalar if isinstance(sp, VectorFESpace) else sp
         ref = torch.as_tensor(scal.dof_rep_ref, dtype=self.dtype,
                               device=self.device)[:, None, :]
@@ -288,9 +308,18 @@ def gf_value(gf: GridFunction, elem_ids, ref_pts):
     return vals[0] if len(vals) == 1 else torch.stack(vals, dim=-1)
 
 
-def gf_ref_value_and_grad(gf: GridFunction, elem_ids, ref_pts):
-    """(value (E,Q,vdim), ref-grad (E,Q,vdim,d)) of gf at ref points."""
+def gf_ref_value_and_grad(gf: GridFunction, elem_ids, ref_pts, time=None):
+    """(value (E,Q,vdim), ref-grad (E,Q,vdim,d)) of gf at ref points.
+
+    A space-time GridFunction (the space-time mesh deformation of
+    ``LevelSetMeshAdaptation_Spacetime``) is evaluated at each point's
+    ``time``, (E, Q) or broadcastable to it, by contracting the time basis
+    with its time-major dof blocks."""
+    from ..spacetime.space import SpaceTimeFESpace
+
     sp = gf.space
+    if isinstance(sp, SpaceTimeFESpace):
+        return _st_ref_value_and_grad(gf, elem_ids, ref_pts, time)
     B = shapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl)
     G = dshapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl,d)
     vals, grads = [], []
@@ -300,9 +329,45 @@ def gf_ref_value_and_grad(gf: GridFunction, elem_ids, ref_pts):
     return torch.stack(vals, dim=-1), torch.stack(grads, dim=-2)
 
 
+def _st_ref_value_and_grad(gf, elem_ids, ref_pts, time):
+    """``gf_ref_value_and_grad`` of a space-time GridFunction."""
+    if time is None:
+        raise ValueError(
+            "space-time GridFunction evaluated without a time context "
+            "(use time_order>=0 integrals or RestrictGFInTime first)")
+    sp = gf.space
+    ssp = sp.spacefes
+    vec = gf._arr
+    vdim = getattr(ssp, "vdim", 1)
+    e2d = ssp.el2dof_on(gf.device)
+    if elem_ids is not None:
+        e2d = e2d[elem_ids]
+    B = shapes(ssp.mesh.et, ssp.order, ref_pts)  # (E|1,Q,ndl)
+    G = dshapes(ssp.mesh.et, ssp.order, ref_pts)  # (E|1,Q,ndl,d)
+    E, Q = e2d.shape[0], ref_pts.shape[1]
+    Bt = sp.tfe.eval(torch.broadcast_to(time, (E, Q)).to(vec.dtype))
+    nscal = ssp.nscal if vdim > 1 else 0
+    vals, grads = [], []
+    for c in range(vdim):
+        v_c, g_c = 0.0, 0.0
+        for t in range(sp.ndof_t):
+            dofs = vec[t * sp.ndof_s + c * nscal + e2d]  # (E, ndl)
+            v_c = v_c + Bt[..., t] * (B * dofs[:, None, :]).sum(-1)
+            g_c = g_c + Bt[..., t, None] * (G * dofs[:, None, :, None]).sum(-2)
+        vals.append(v_c)
+        grads.append(g_c)
+    return torch.stack(vals, dim=-1), torch.stack(grads, dim=-2)
+
+
 def grad(obj):
     """grad() for GridFunctions and proxies (NGSolve-style free function)."""
     if isinstance(obj, GridFunction):
+        from ..spacetime.space import SpaceTimeFESpace
+
+        if isinstance(obj.space, SpaceTimeFESpace):
+            from ..spacetime.space import STGFValueCF
+
+            return STGFValueCF(obj, grad=True)
         return GradGF(obj)
     g = getattr(obj, "grad_op", None)
     if g is not None:

@@ -22,9 +22,15 @@ rules take the deformed tangents.  The assembly is eager and takes
 every selection exactly (facet and element marks select their rows), so the
 reference's per-signature program cache and its capacity-padded dynamic
 selections have no counterpart.  The COO rows and columns are gathered on
-the device from the space's dof map; the values never leave it.  Not
-ported, each raising ``NotImplementedError``: ``time_order >= 0`` (ROADMAP
-A13), ``subdivlvl > 0`` (A8b) and ``AssembleOperator`` (A10).
+the device from the space's dof map; the values never leave it.  Every
+integral kind takes ``time_order >= 0`` on space-time spaces: a volume
+integral runs the space-time tiers of ``integrate.cut_tiers`` (or, without
+a level set, the spatial rule x the time Gauss rule), and the facet-patch,
+skeleton, element-boundary and BND contexts tensorize their parametric
+rule with the time Gauss points before any geometry is derived from it,
+so that a space-time deformation is applied per (point, time) pair.  Not
+ported, each raising ``NotImplementedError``: ``subdivlvl > 0`` (A8b) and
+``AssembleOperator`` (A10).
 """
 from __future__ import annotations
 
@@ -38,13 +44,14 @@ from ..config import config
 from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx
 from ..domaintype import IF, NEG, POS
-from ..integrate import (_p1_vertex_dofs, ensure_p1_levelset,
-                         normalize_levelset_domain, two_tier_tiers)
+from ..integrate import (_p1_vertex_dofs, cut_tiers, ensure_p1_levelset,
+                         normalize_levelset_domain)
 from ..mesh.mesh import (FACET_ET, FACET_VERTS, det_and_inv, geom_dshapes,
                          geom_shapes, map_points, small_matmul)
 from ..ops.cuttables import ET_SPLIT, REF_VERTS
 from ..ops.gauss import ET_DIM, reference_rule
 from ..ops.scatter import ScatterPlan
+from ..ops.spacetimecut import time_tensorize
 from ..ops.straightcut import _gram_measure, cut_rule_simplices, eps_guard
 from ..fem.space import CompoundFESpace, VectorFESpace, _arr
 from ..solvers.sparse import SparseMatrix
@@ -94,10 +101,7 @@ class Integral:
                 "VOL_or_BND=BND cannot be combined with element_boundary/"
                 "skeleton/facet_patch integrals")
         self.vb = vb
-        if time_order >= 0:
-            raise NotImplementedError(
-                "space-time integrals (time_order >= 0) are not ported yet "
-                "(ROADMAP A13)")
+        self.time_order = int(time_order)
 
     def SetDefinedOnElements(self, ba):
         """Re-mark this integral's element/facet selection (reference API:
@@ -224,19 +228,21 @@ def _deformation_of(integral: Integral, mesh):
             else mesh.deformation)
 
 
-def _deformed_tangents(tang, deform, row_e, pts, dNf, loc_ref):
+def _deformed_tangents(tang, deform, row_e, pts, dNf, loc_ref, time=None):
     """Correct physical facet tangents (R, nq, d-1, d) for a deformation.
 
     The facet measure and normal come from the tangents of the
     facet-parametric geometry map; under a deformation the physical map is
     ``x + D(x)``, so the tangents gain the displacement's tangential
-    derivative ``dD/dref * dref/ds``.  Shared by the BND, element-boundary
-    and skeleton context builders."""
+    derivative ``dD/dref * dref/ds`` (of a space-time deformation, at each
+    point's ``time``).  Shared by the BND, element-boundary and skeleton
+    contexts."""
     if deform is None:
         return tang
     from ..fem.gridfunction import gf_ref_value_and_grad
 
-    _, dgrad = gf_ref_value_and_grad(deform, row_e, pts)  # (R,nq,d,d_ref)
+    _, dgrad = gf_ref_value_and_grad(deform, row_e, pts,
+                                     time=time)  # (R,nq,d,d_ref)
     # "rqks,rkd->rqsd"
     dref_ds = small_matmul(dNf.transpose(-1, -2), loc_ref[:, None])
     # "rqgd,rqsd->rqsg"
@@ -255,16 +261,18 @@ def _volume_tiers(integral: Integral, mesh, order, device):
     deform = _deformation_of(integral, mesh)
     if integral.levelset_domain is None:
         rp, rw = reference_rule(mesh.et, o)
-        pts = torch.as_tensor(rp, dtype=config.dtype, device=device)[None]
-        ctx = EvalCtx(mesh, pts, deformation=deform)
-        w = torch.as_tensor(rw, dtype=config.dtype, device=device) \
-            * ctx.detJ.abs()
-        w = w.expand(mesh.ne, len(rw))
+        rp = torch.as_tensor(rp, dtype=config.dtype, device=device)[None]
+        rw = torch.as_tensor(rw, dtype=config.dtype, device=device)[None]
+        # the plain space-time volume rule: spatial rule x time Gauss
+        pts, rw, _, times = time_tensorize(rp, rw, integral.time_order)
+        ctx = EvalCtx(mesh, pts, deformation=deform, time=times)
+        w = (rw * ctx.detJ.abs()).expand(mesh.ne, rw.shape[1])
         tiers = [(ctx, w, torch.ones_like(w, dtype=torch.bool), None)]
     else:
         ld = integral.levelset_domain
-        tiers = two_tier_tiers(mesh, ld["levelset"], int(ld["domain_type"]),
-                               o, ld["quad_dir_policy"], deform=deform)
+        tiers = cut_tiers(mesh, ld["levelset"], int(ld["domain_type"]), o,
+                          ld["quad_dir_policy"], integral.time_order,
+                          deform=deform)
     if integral.definedonelements is not None:
         sel = torch.as_tensor(integral.definedonelements, device=device)
         masked = []
@@ -294,7 +302,10 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
     target cell's Jacobian is exact; on quads/hexes it is the initial guess
     of four Newton steps, and a point that has not converged falls back to
     it.  Under a deformation the map is eight Newton steps on the deformed
-    physical coordinates from the same guess, with the same fallback.
+    physical coordinates from the same guess, with the same fallback.  With
+    ``time_order >= 0`` the rule is tensorized with the time Gauss points
+    first, so that a space-time deformation is applied per time point (the
+    reference's space-time variant, symboliccutbfi.cpp:1256-1324).
     """
     f2e = mesh.facet2el_np
     fids = _facet_patch_fids(integral, mesh)
@@ -304,13 +315,15 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
     verts, els = mesh.device_view(device, dtype)
 
     rp, rw = reference_rule(mesh.et, _intorder(integral, order))
-    rp = torch.as_tensor(rp, dtype=dtype, device=device)
-    rw = torch.as_tensor(rw, dtype=dtype, device=device)
+    rp = torch.as_tensor(rp, dtype=dtype, device=device)[None]
+    rw = torch.as_tensor(rw, dtype=dtype, device=device)[None]
+    # tensorize with time first: a deformed patch map depends on time
+    base, rw, _, times = time_tensorize(rp, rw, integral.time_order)
+    rw = rw[0]  # base (1, nq, d): one rule for every facet
     F, d = len(fids), mesh.dim
     et = mesh.et
     coords1 = verts[els[e1]]
     coords2 = verts[els[e2]]
-    base = rp[None]  # (1, nq, d): one rule for every facet
     deform = _deformation_of(integral, mesh)
     niter = 8 if deform is not None else 4 if et in ("quad", "hex") else 0
 
@@ -319,7 +332,7 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
         if deform is not None:
             from ..fem.gridfunction import gf_ref_value_and_grad
 
-            disp, dgrad = gf_ref_value_and_grad(deform, eids, pts)
+            disp, dgrad = gf_ref_value_and_grad(deform, eids, pts, time=times)
             phys, J = phys + disp.to(dtype), J + dgrad.to(dtype)
         return phys, J
 
@@ -364,14 +377,18 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
     self_pts = torch.cat([basef, pts2_in_1], dim=1)  # on e1
     other_pts = torch.cat([pts1_in_2, basef], dim=1)  # on e2
 
+    times2 = None if times is None else torch.cat([times, times], dim=1)
     ctx = EvalCtx(mesh, self_pts, elem_ids=e1,
                   facet_ids=torch.as_tensor(fids, dtype=torch.int64,
                                             device=device),
-                  deformation=deform)
+                  deformation=deform, time=times2)
     ctx.other_ctx = EvalCtx(mesh, other_pts, elem_ids=e2,
-                            facet_ids=ctx.facet_ids, deformation=deform)
-    det1 = EvalCtx(mesh, base, elem_ids=e1, deformation=deform).detJ.abs()
-    det2 = EvalCtx(mesh, base, elem_ids=e2, deformation=deform).detJ.abs()
+                            facet_ids=ctx.facet_ids, deformation=deform,
+                            time=times2)
+    det1 = EvalCtx(mesh, base, elem_ids=e1, deformation=deform,
+                   time=times).detJ.abs()
+    det2 = EvalCtx(mesh, base, elem_ids=e2, deformation=deform,
+                   time=times).detJ.abs()
     w = torch.cat([(det1 * rw).expand(F, len(rw)),
                    (det2 * rw).expand(F, len(rw))], dim=1)
     return ctx, e1, e2, w, torch.ones_like(w, dtype=torch.bool)
@@ -477,22 +494,28 @@ def _facet_rows(integral, mesh, order, fverts, row_e, loc_refs, device,
     the facet), the physical weights (R, nq) and the unit normal oriented
     away from the centroid of the ``row_e`` element (the outward normal of
     that element), the tangents of a ``deform``ed facet seen from the first
-    side.  Returns ([pts per side], w, n)."""
+    side.  With ``time_order >= 0`` the parametric rule is tensorized with
+    the time Gauss points before any geometry is derived from it, so that
+    the tangents of a space-time deformation are taken per (point, time)
+    pair.  Returns ([pts per side], w, n, times)."""
     mesh_fet = FACET_ET[mesh.et]
     rp, rw, nref_if = _facet_param_rule(integral, mesh_fet, order, fverts,
                                         device)
+    rp, rw, nref_if, times = time_tensorize(rp, rw, integral.time_order,
+                                             nref_if)
     Nf = geom_shapes(mesh_fet, rp)  # (R, nq, nvf)
     pts = [small_matmul(Nf, lr) for lr in loc_refs]  # "rqk,rkd->rqd"
     verts, els = mesh.device_view(device, rp.dtype)
     pf = verts[fverts]  # (R, nvf, d)
     dNf = geom_dshapes(mesh_fet, rp)  # (R, nq, nvf, d-1)
     tang = small_matmul(dNf.transpose(-1, -2), pf[:, None])  # (R,nq,d-1,d)
-    tang = _deformed_tangents(tang, deform, row_e, pts[0], dNf, loc_refs[0])
+    tang = _deformed_tangents(tang, deform, row_e, pts[0], dNf, loc_refs[0],
+                              time=times)
     w, n = _facet_measure_normal(tang, nref_if, rw, mesh.dim)
     cent = verts[els[row_e]].mean(1)  # (R, d)
     sign = torch.sign((n * (pf.mean(1) - cent)[:, None, :]).sum(-1))
     n = n * torch.where(sign == 0, 1.0, sign)[..., None]
-    return pts, w, n
+    return pts, w, n, times
 
 
 def _skeleton_ctx(integral: Integral, mesh, order, device):
@@ -511,13 +534,13 @@ def _skeleton_ctx(integral: Integral, mesh, order, device):
     e1 = torch.as_tensor(f2e[fids, 0], dtype=torch.int64, device=device)
     e2 = torch.as_tensor(f2e[fids, 1], dtype=torch.int64, device=device)
     deform = _deformation_of(integral, mesh)
-    (pts1, pts2), w, n = _facet_rows(integral, mesh, order, fverts, e1,
-                                     (loc[0], loc[1]), device, deform)
+    (pts1, pts2), w, n, times = _facet_rows(
+        integral, mesh, order, fverts, e1, (loc[0], loc[1]), device, deform)
     fid_t = torch.as_tensor(fids, dtype=torch.int64, device=device)
     ctx = EvalCtx(mesh, pts1, elem_ids=e1, normal=n, facet_ids=fid_t,
-                  deformation=deform)
+                  deformation=deform, time=times)
     ctx.other_ctx = EvalCtx(mesh, pts2, elem_ids=e2, normal=-n,
-                            facet_ids=fid_t, deformation=deform)
+                            facet_ids=fid_t, deformation=deform, time=times)
     return ctx, e1, e2, w, w > 0
 
 
@@ -539,12 +562,12 @@ def _element_boundary_ctx(integral: Integral, mesh, order, device):
                           dtype=config.dtype, device=device)
     row_e = torch.as_tensor(rows_e, dtype=torch.int64, device=device)
     deform = _deformation_of(integral, mesh)
-    (pts,), w, n = _facet_rows(integral, mesh, order, fverts, row_e, (loc,),
-                               device, deform)
+    (pts,), w, n, times = _facet_rows(integral, mesh, order, fverts, row_e,
+                                      (loc,), device, deform)
     fid = torch.as_tensor(mesh.el2facet_np[rows_e, lf], dtype=torch.int64,
                           device=device)
     ctx = EvalCtx(mesh, pts, elem_ids=row_e, normal=n, facet_ids=fid,
-                  deformation=deform)
+                  deformation=deform, time=times)
     return ctx, row_e, w, w > 0
 
 
@@ -585,12 +608,12 @@ def _boundary_ctx(integral: Integral, mesh, order, device):
                           dtype=config.dtype, device=device)
     row_e = torch.as_tensor(rows_e, dtype=torch.int64, device=device)
     deform = _deformation_of(integral, mesh)
-    (pts,), w, n = _facet_rows(integral, mesh, order, fverts, row_e, (loc,),
-                               device, deform)
+    (pts,), w, n, times = _facet_rows(integral, mesh, order, fverts, row_e,
+                                      (loc,), device, deform)
     ctx = EvalCtx(mesh, pts, elem_ids=row_e, normal=n,
                   facet_ids=torch.as_tensor(bf, dtype=torch.int64,
                                             device=device),
-                  deformation=deform)
+                  deformation=deform, time=times)
     return ctx, row_e, w, w > 0
 
 

@@ -5,10 +5,11 @@ NGSolve's symbolic proxy framework that the reference's cut integrators plug
 into, ``xfem/symboliccutbfi.cpp:151-215``): a proxy evaluates to a *basis
 factor tensor* ``(E, Q, ndof_el, *comps)``; form evaluation propagates
 bilinear jets (forms/evaluate.py).  Ported: value and gradient proxies,
-``.Other()``, ``div``, the exact normal derivatives ``dn``/``dnjump`` and
-``Operator`` for the names the reference accepts on these spaces; HDiv
-(``dn(..., hdiv=True)``) and space-time operators raise
-``NotImplementedError`` (ROADMAP A13).
+``.Other()``, ``div``, the exact normal derivatives ``dn``/``dnjump``,
+``Operator`` for the names the reference accepts on these spaces, and the
+space-time operators ``dt``/``fix_t`` (``spacetime/space.py``, evaluated by
+``SpaceTimeFESpace.proxy_factor_hook``); HDiv (``dn(..., hdiv=True)``) and
+the facet-space operators raise ``NotImplementedError`` (ROADMAP A13b).
 """
 from __future__ import annotations
 
@@ -81,8 +82,8 @@ class ProxyFunction(CF):
         if name in ("val", "id"):
             return self
         raise NotImplementedError(
-            f"Operator({name!r}) on this space (the space-time and facet "
-            "space operators are not ported yet, ROADMAP A13)")
+            f"Operator({name!r}) on this space (the HDiv and facet space "
+            "operators are not ported yet, ROADMAP A13b)")
 
     def __repr__(self):
         kind = "test" if self.test else "trial"
@@ -108,7 +109,7 @@ def dn(proxy, order=1, comp=-1, hdiv=False):
     if hdiv:
         raise NotImplementedError(
             "dn(hdiv=True) needs HDiv spaces, which are not ported yet "
-            "(ROADMAP A13)")
+            "(ROADMAP A13b)")
     vd = getattr(proxy.space, "vdim", 1)
     return proxy._clone(op="dnk", op_args=(int(order),),
                         dims=() if vd == 1 else (vd,))

@@ -5,7 +5,10 @@ Update at ``xfem/cutinfo.cpp:54-188``; facet/dof algebra ``:191-329``):
 element and vertex classification and the cut ratios (from the order-0 cut
 rule on the cut elements) are batched tensor reductions on the device of
 the level set; the results, and all mark sets, are host numpy arrays
-(``BitArray``), as in the reference.  The space-time branch is not ported (ROADMAP A13).
+(``BitArray``), as in the reference.  A space-time level set (``Update``
+of a GridFunction on a ``SpaceTimeFESpace``) classifies an element as cut
+if it is cut at any time node or interior Gauss time of the slab, and takes
+its cut ratio from the order-0 space-time rule.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from ..domaintype import NEG, POS, IF, as_cdt
 from ..fem.space import BitArray, _arr
 from ..cf.coefficient import ElementValuesCF, FacetValuesCF
 from ..ops.straightcut import cut_rule_element, eps_guard
-from ..integrate import ensure_p1_levelset, lset_vertex_values, _p1_vertex_dofs
+from ..integrate import (ensure_p1_levelset, lset_st_vertex_values,
+                         lset_vertex_values, _p1_vertex_dofs)
 
 VOL = "VOL"
 BND = "BND"
@@ -58,10 +62,12 @@ class CutInfo:
             self.Update(levelset, time_order=time_order)
 
     def Update(self, levelset, time_order=-1, heapsize=None):
-        if time_order >= 0:
-            raise NotImplementedError(
-                "space-time CutInfo is not ported yet (ROADMAP A13)")
+        from ..spacetime.space import SpaceTimeFESpace
+
         mesh = self.mesh
+        if isinstance(getattr(levelset, "space", None), SpaceTimeFESpace):
+            self._lset_gf = levelset
+            return self._update_spacetime(levelset, time_order)
         levelset = ensure_p1_levelset(levelset, mesh, self.device)
         self._lset_gf = levelset
         has_neg, has_pos, ratio, vg = _classify(mesh.et,
@@ -107,9 +113,54 @@ class CutInfo:
         self.dt_of_belem = _dt(has_neg, has_pos)
         self.cut_ratio_bnd = ratio.cpu().numpy()
 
+    def _update_spacetime(self, levelset, time_order):
+        """Space-time classification: an element is IF if it is cut at any
+        time node or interior Gauss time of the slab; its NEG ratio comes
+        from the order-0 space-time rule, built on the elements whose rule
+        is not the plain one (``spacetime_split``; the others have ratio
+        1 or 0, as that rule gives them)."""
+        from ..ops.gauss import gauss_legendre_01
+        from ..ops.spacetimecut import spacetime_cut_rule, spacetime_split
+
+        mesh = self.mesh
+        sp = levelset.space
+        vals_st = lset_st_vertex_values(levelset)  # (E, ndt, nvel)
+        ts = np.concatenate([sp.tfe.nodes,
+                             gauss_legendre_01(max(2, sp.k_t + 1))[0]])
+        Bt = torch.as_tensor(sp.tfe.eval_np(ts), dtype=vals_st.dtype,
+                             device=vals_st.device)  # (nt, ndt)
+        # "tm,emv->etv", then the sign-collapsing zero guard of the rule's
+        # eps_guard (|v| < 1e-14 -> +1e-14, the reference's
+        # spacetimecutrule.cpp:132), so that this classification and the
+        # rule agree
+        g = eps_guard((Bt[None, :, :, None] * vals_st[:, None]).sum(2))
+        has_neg = (g < 0).any(2).any(1)
+        has_pos = (g > 0).any(2).any(1)
+        self.dt_of_elem = _dt(has_neg, has_pos)
+        to = time_order if time_order >= 0 else sp.k_t
+        split = spacetime_split(vals_st, sp.k_t, to)
+        ratio = (split == 0).to(vals_st.dtype)
+        cut = torch.nonzero(split < 0)[:, 0]
+        rule = spacetime_cut_rule(mesh.et, vals_st[cut], sp.k_t, 0, to)
+        ratio[cut] = (rule.w * (rule.side == 0)).sum(1) / rule.w.sum(1)
+        self.cut_ratio = ratio.cpu().numpy()
+        f2e = mesh.facet2el_np
+        dtl = self.dt_of_elem[f2e[:, 0]]
+        dtr = np.where(f2e[:, 1] >= 0,
+                       self.dt_of_elem[np.maximum(f2e[:, 1], 0)], dtl)
+        self.cdt_of_facet = (
+            np.left_shift(1, dtl.astype(np.int32))
+            | np.left_shift(1, dtr.astype(np.int32))).astype(np.int8)
+        self.dt_of_vertex = None
+        self.dt_of_belem = None
+        self.cut_ratio_bnd = None
+
     # -- queries -------------------------------------------------------------
     def GetElementsOfType(self, dt=IF, VOL_or_BND=VOL) -> BitArray:
         cdt = int(as_cdt(dt))
+        if VOL_or_BND != VOL and self.dt_of_belem is None:
+            raise NotImplementedError(
+                "BND element queries for space-time level sets")
         dts = self.dt_of_elem if VOL_or_BND == VOL else self.dt_of_belem
         bits = np.left_shift(1, dts.astype(np.int32))
         return BitArray((bits & cdt) == bits)
@@ -120,7 +171,12 @@ class CutInfo:
         return BitArray((self.cdt_of_facet & ~cdt) == 0)
 
     def GetCutRatios(self, VOL_or_BND=VOL):
-        return self.cut_ratio if VOL_or_BND == VOL else self.cut_ratio_bnd
+        if VOL_or_BND == VOL:
+            return self.cut_ratio
+        if self.cut_ratio_bnd is None:
+            raise NotImplementedError(
+                "BND cut ratios for space-time level sets")
+        return self.cut_ratio_bnd
 
     def GetElementsWithThresholdContribution(self, dt=NEG, threshold=1.0):
         r = self.cut_ratio if int(dt) == int(NEG) else 1.0 - self.cut_ratio

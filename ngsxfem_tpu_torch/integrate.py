@@ -10,9 +10,13 @@ Two tiers, as in the reference's default path: elements that the level set
 does not cut take the element's standard rule, and only the cut elements
 (found exactly with ``torch.nonzero``) run the cut-rule construction.  A
 mesh deformation (``mesh.SetDeformation`` or ``deformation=``) enters every
-tier through the evaluation context.  Out of scope here, and raising
-``NotImplementedError``: ``subdivlvl > 0`` (ROADMAP A8b) and space-time
-integrals (``time_order >= 0``; ROADMAP A13).
+tier through the evaluation context.  Space-time integrals
+(``time_order >= 0``, a space-time P1 level set or a spatial one taken as
+constant in time) split the same way: ``ops.spacetimecut.spacetime_split``
+finds the elements whose space-time rule is the plain spatial rule x the
+time Gauss rule, and only the others run ``spacetime_cut_rule``.  Out of
+scope here, and raising ``NotImplementedError``: ``subdivlvl > 0`` (ROADMAP
+A8b).
 """
 from __future__ import annotations
 
@@ -67,6 +71,43 @@ def lset_vertex_values(lset_gf):
     return lset_gf.vec.data[sp.el2dof_on(lset_gf.device)[:, vperm]]
 
 
+def lset_st_vertex_values(lset_gf):
+    """(E, ndt, nvel) level-set values of a space-time P1 GridFunction.
+
+    A purely spatial P1 GridFunction is accepted too and broadcast constant
+    in time over two time nodes (k_t=1), as the reference routes a spatial
+    level set through space-time integrals (the all-NEG dummy level set of
+    the fitted heat solve, ``tests/pytests/test_spacetimecutrule.py:106-115``).
+    """
+    from .spacetime.space import SpaceTimeFESpace
+
+    sp = lset_gf.space
+    if not isinstance(sp, SpaceTimeFESpace):
+        vals = lset_vertex_values(lset_gf)  # validates spatial P1
+        return vals[:, None, :].expand(vals.shape[0], 2, vals.shape[1])
+    if sp.spacefes.order != 1:
+        raise TypeError("space-time levelset must live on SpaceTimeFESpace "
+                        "over H1(order=1)")
+    if sp.ndof_t != sp.k_t + 1:
+        # the nodal time polynomials below need the full Gauss-Lobatto node
+        # set; a reduced space would silently build wrong polynomials
+        raise TypeError("level sets on reduced time spaces "
+                        "(skip_first_node/only_first_node) are not supported")
+    dev = lset_gf.device
+    vperm = torch.as_tensor(vertex_local_ids(sp.mesh.et, 1), dtype=torch.int64,
+                            device=dev)
+    sdofs = sp.spacefes.el2dof_on(dev)[:, vperm]  # (E, nvel) spatial dofs
+    vec = lset_gf.vec.data
+    return torch.stack([vec[t * sp.ndof_s + sdofs] for t in range(sp.ndof_t)],
+                       dim=1)
+
+
+def _lset_time_order(lset_gf):
+    """Time order of a level set's vertex polynomials (1 for a spatial
+    level set, broadcast over two nodes)."""
+    return getattr(lset_gf.space, "k_t", 1)
+
+
 def _p1_vertex_dofs(space):
     """vertex id -> P1 dof id (host numpy), cached on the space."""
     vd = getattr(space, "_p1_vertex_dofs_np", None)
@@ -78,6 +119,14 @@ def _p1_vertex_dofs(space):
     return vd
 
 
+def _is_spacetime_gf(gf):
+    from .fem.gridfunction import GridFunction
+    from .spacetime.space import SpaceTimeFESpace
+
+    return isinstance(gf, GridFunction) and isinstance(gf.space,
+                                                       SpaceTimeFESpace)
+
+
 def ensure_p1_levelset(levelset, mesh, device=None):
     """Route non-P1 level sets to the straight-cut path by interpolation.
 
@@ -86,8 +135,9 @@ def ensure_p1_levelset(levelset, mesh, device=None):
     falls back to its legacy adaptive engine, which is not reproduced: a
     CoefficientFunction level set is interpolated to P1 on ``device`` (with
     a warning), the same geometry approximation as InterpolateToP1 + straight
-    cut.  A P1 GridFunction is returned as it is."""
-    if _is_p1(levelset):
+    cut.  A P1 GridFunction, and a space-time GridFunction, is returned as it
+    is."""
+    if _is_p1(levelset) or _is_spacetime_gf(levelset):
         return levelset
     from .fem.gridfunction import GridFunction, InterpolateToP1
     from .fem.space import H1
@@ -119,32 +169,32 @@ def normalize_levelset_domain(levelset_domain: dict):
     return ld
 
 
-def _not_ported(subdivlvl=0, time_order=-1):
-    """Raise for the features of the reference's quadrature that the port
+def _not_ported(subdivlvl=0):
+    """Raise for the feature of the reference's quadrature that the port
     does not have yet."""
     if subdivlvl > 0:
         raise NotImplementedError(
             "subdivlvl > 0 (subdivision quadrature) is not ported yet "
             "(ROADMAP A8b)")
-    if time_order >= 0:
-        raise NotImplementedError(
-            "space-time integrals (time_order >= 0) are not ported yet "
-            "(ROADMAP A13)")
 
 
 def _rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if, nref,
-                      elem_ids=None, deformation="inherit"):
+                      elem_ids=None, deformation="inherit", times=None,
+                      times_if=None):
     """Rule tensors -> (ctx, physical weights, validity mask): IF rules get
     the ``‖J⁻ᵀn_ref‖·|detJ|`` interface weighting, NEG/POS rules the side
     selection x ``|detJ|``.  ``elem_ids`` restricts the rows to an element
-    subset; ``deformation`` is passed to the context (``EvalCtx``)."""
+    subset; ``deformation`` is passed to the context (``EvalCtx``), and so
+    are the points' slab times of a space-time rule (``times`` of the
+    volume part, ``times_if`` of the interface part)."""
     if dt == IF:
         ctx = EvalCtx(mesh, pts_if, nref=nref, elem_ids=elem_ids,
-                      deformation=deformation)
+                      deformation=deformation, time=times_if)
         w_ref = w_if
         w_phys = w_ref * ctx.detJ.abs() * ctx.if_scale
     else:
-        ctx = EvalCtx(mesh, pts, elem_ids=elem_ids, deformation=deformation)
+        ctx = EvalCtx(mesh, pts, elem_ids=elem_ids, deformation=deformation,
+                      time=times)
         w_ref = w * (side == int(dt)).to(w.dtype)
         w_phys = w_ref * ctx.detJ.abs()
     return ctx, w_phys, w_ref > 0
@@ -182,11 +232,58 @@ def two_tier_tiers(mesh, lgf, dt, order, policy, deform="inherit"):
     return tiers
 
 
-def _two_tier_integrate(mesh, cf, lgf, dt, order, policy, ew):
+def spacetime_tiers(mesh, lgf, dt, order, time_order, policy,
+                    deform="inherit"):
+    """The two tiers of a space-time cut integral, as ``two_tier_tiers``
+    gives them: the plain spatial rule x the time Gauss rule on the
+    elements that ``spacetime_split`` finds on the requested side (NEG/POS
+    only), and ``spacetime_cut_rule`` on the others.  Each tier's context
+    carries the points' slab times."""
+    from .ops.spacetimecut import (spacetime_cut_rule, spacetime_split,
+                                   time_tensorize)
+
+    dt = int(dt)
+    if dt not in (int(NEG), int(POS), int(IF)):
+        raise ValueError(
+            f"space-time cut quadrature supports NEG/POS/IF, got {dt}")
+    vals = lset_st_vertex_values(lgf)
+    kt = _lset_time_order(lgf)
+    split = spacetime_split(vals, kt, time_order)
+    tiers = []
+    if dt != int(IF):
+        ids = torch.nonzero(split == dt)[:, 0]
+        rp, rw = reference_rule(mesh.et, order)
+        pts, rw, _, times = time_tensorize(
+            torch.as_tensor(rp, dtype=vals.dtype, device=vals.device)[None],
+            torch.as_tensor(rw, dtype=vals.dtype, device=vals.device)[None],
+            time_order)
+        ctx = EvalCtx(mesh, pts, elem_ids=ids, deformation=deform, time=times)
+        w = (rw * ctx.detJ.abs()).expand(len(ids), rw.shape[1])
+        tiers.append((ctx, w, torch.ones_like(w, dtype=torch.bool), ids))
+    cut_ids = torch.nonzero(split < 0)[:, 0]
+    rule = spacetime_cut_rule(mesh.et, vals[cut_ids], kt, order, time_order,
+                              policy)
+    pts, times, w, side, pts_if, times_if, w_if, nref = rule
+    tiers.append((*_rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if,
+                                     nref, elem_ids=cut_ids,
+                                     deformation=deform, times=times,
+                                     times_if=times_if), cut_ids))
+    return tiers
+
+
+def cut_tiers(mesh, lgf, dt, order, policy, time_order=-1, deform="inherit"):
+    """``two_tier_tiers``, or ``spacetime_tiers`` for ``time_order >= 0``."""
+    if time_order >= 0:
+        return spacetime_tiers(mesh, lgf, dt, order, time_order, policy,
+                               deform)
+    return two_tier_tiers(mesh, lgf, dt, order, policy, deform)
+
+
+def _two_tier_integrate(mesh, cf, lgf, dt, order, policy, ew, time_order=-1):
     """Two-tier cut integration of a CoefficientFunction over the tiers of
-    ``two_tier_tiers``: per-element sums (ne,) when ``ew``, else the 0-d
+    ``cut_tiers``: per-element sums (ne,) when ``ew``, else the 0-d
     integral."""
-    tiers = two_tier_tiers(mesh, lgf, dt, order, policy)
+    tiers = cut_tiers(mesh, lgf, dt, order, policy, time_order)
     total_e = torch.zeros(mesh.ne, dtype=lgf.dtype, device=lgf.device)
     for ctx, w, mask, ids in tiers:
         f = torch.broadcast_to(eval_pure(cf, ctx), w.shape)
@@ -198,9 +295,20 @@ def _cut_ctx_and_weights(mesh, lset_gf, domain_type, order, time_order=-1,
                          quad_dir_policy="OPTIMAL", deformation="inherit",
                          subdivlvl=0):
     """(ctx, physical weights, validity mask) of the cut rule on every
-    element of the mesh (one tier; ``two_tier_tiers`` splits it)."""
-    _not_ported(subdivlvl, time_order)
+    element of the mesh (one tier; ``cut_tiers`` splits it): the space-time
+    rule for ``time_order >= 0``."""
+    _not_ported(subdivlvl)
     dt = DOMAIN_TYPE(int(domain_type))
+    if time_order >= 0:
+        from .ops.spacetimecut import spacetime_cut_rule
+
+        pts, times, w, side, pts_if, times_if, w_if, nref = \
+            spacetime_cut_rule(mesh.et, lset_st_vertex_values(lset_gf),
+                               _lset_time_order(lset_gf), order, time_order,
+                               quad_dir_policy)
+        return _rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if, nref,
+                                 deformation=deformation, times=times,
+                                 times_if=times_if)
     rule = cut_rule_element(mesh.et, lset_vertex_values(lset_gf), order,
                             quad_dir_policy)
     return _rule_ctx_weights(mesh, dt, *rule, deformation=deformation)
@@ -259,12 +367,13 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
                 out = out.sum()
         else:
             ld = normalize_levelset_domain(levelset_domain)
-            time_order = ld.get("time_order", time_order)
-            _not_ported(ld["subdivlvl"], time_order)
+            time_order = int(ld.get("time_order", time_order))
+            _not_ported(ld["subdivlvl"])
             o = order if ld["force_intorder"] < 0 else ld["force_intorder"]
             lgf = ensure_p1_levelset(ld["levelset"], mesh, device)
             out = _two_tier_integrate(mesh, cf, lgf, int(ld["domain_type"]), o,
-                                      ld["quad_dir_policy"], element_wise)
+                                      ld["quad_dir_policy"], element_wise,
+                                      time_order)
     finally:
         if deformation is not None:
             mesh.UnsetDeformation()

@@ -1,5 +1,5 @@
-"""Isoparametric level-set mesh adaptation (counterpart of
-``ngsxfem_tpu/lsetcurv``; the space-time adaptation is ROADMAP A13)."""
+"""Isoparametric level-set mesh adaptation, stationary and space-time
+(counterpart of ``ngsxfem_tpu/lsetcurv``)."""
 from .lsetcurv import (  # noqa: F401
     LevelSetMeshAdaptation,
     ProjectShift,
@@ -8,3 +8,4 @@ from .lsetcurv import (  # noqa: F401
     RefineAtLevelSet,
 )
 from .shifted import shifted_eval  # noqa: F401
+from .lset_spacetime import LevelSetMeshAdaptation_Spacetime  # noqa: F401

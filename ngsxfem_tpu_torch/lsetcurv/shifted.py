@@ -76,7 +76,7 @@ class ShiftedEvalCF(CF):
                               (~conv).sum(), conv.numel())
         yhat = torch.where(conv[..., None], yhat, xhat)
 
-        sub = EvalCtx(ctx.mesh, yhat, elem_ids=ctx.elem_ids)
+        sub = EvalCtx(ctx.mesh, yhat, elem_ids=ctx.elem_ids, time=ctx.time)
         hook = getattr(self.gf.space, "gf_eval_hook", None)
         if hook is not None:
             return hook(self.gf, sub)

@@ -19,6 +19,31 @@ def gauss_legendre_01(n: int):
     return (0.5 * (x + 1.0)), (0.5 * w)
 
 
+@lru_cache(maxsize=None)
+def gauss_lobatto_01(n: int):
+    """n-point Gauss-Lobatto rule on [0,1] (nodes include the endpoints),
+    exact for degree <= 2n-3: the nodes of the nodal time finite elements
+    (reference ``spacetime/SpaceTimeFE.hpp:50-97``)."""
+    if n < 2:
+        raise ValueError("Gauss-Lobatto needs n >= 2")
+    if n == 2:
+        x = np.array([-1.0, 1.0])
+    else:
+        # interior nodes: roots of P'_{n-1}, the eigenvalues of the
+        # (n-2) x (n-2) Jacobi matrix of the (1,1) Jacobi polynomials
+        k = np.arange(1, n - 2, dtype=np.float64)
+        a = np.sqrt(k * (k + 2.0) / ((2.0 * k + 1.0) * (2.0 * k + 3.0)))
+        J = np.diag(a, 1) + np.diag(a, -1)
+        if J.shape[0] == 0:
+            J = np.zeros((n - 2, n - 2))
+        xi = np.linalg.eigvalsh(J)
+        x = np.concatenate([[-1.0], np.sort(xi), [1.0]])
+    # weights: w_i = 2 / (n(n-1) [P_{n-1}(x_i)]^2)
+    Pnm1 = np.polynomial.legendre.Legendre.basis(n - 1)(x)
+    w = 2.0 / (n * (n - 1) * Pnm1**2)
+    return 0.5 * (x + 1.0), 0.5 * w
+
+
 def _n_for_degree(p: int) -> int:
     """#Gauss points for exactness at total degree p."""
     return max(1, (p + 2) // 2)

@@ -411,16 +411,12 @@ def test_not_ported_raises():
         (lambda: T.SymbolicBFI(form=u * v, element_boundary=True,
                                VOL_or_BND=T.BND), "BND cannot"),
         (lambda: T.SymbolicBFI(form=u * v, VOL_or_BND="BBND"), "BBND"),
-        (lambda: T.SymbolicBFI(ld, form=u * v, time_order=1), "A13"),
-        (lambda: T.SymbolicBFI(dict(ld, time_order=1), form=u * v), "A13"),
-        (lambda: T.SymbolicLFI(ld, form=v, time_order=0), "A13"),
-        (lambda: T.SymbolicFacetPatchBFI(form=u * v, time_order=0), "A13"),
         (lambda: T.SymbolicBFI(dict(ld, subdivlvl=1), form=u * v), "A8b"),
         (lambda: T.SymbolicFacetPatchBFI(form=u * v, skeleton=True),
          "skeleton"),
         (lambda: T.BilinearForm(V).AssembleOperator(), "A10"),
-        (lambda: T.dn(u, 1, hdiv=True), "A13"),
-        (lambda: u.Operator("hesse"), "A13"),
+        (lambda: T.dn(u, 1, hdiv=True), "A13b"),
+        (lambda: u.Operator("hesse"), "A13b"),
         (lambda: T.Periodic(V), "A9d"),
         (lambda: mesh.Materials("inner"), "A9d"),
         (lambda: mesh.GetMaterials(), "A9d"),
@@ -465,6 +461,40 @@ def test_not_ported_raises():
     from ngsxfem_tpu_torch.examples import cutfem
     err = cutfem.run(nx=6, order=2, deform=True, verbose=False, **CPU)
     assert 0 < err < 0.5, err
+
+
+def _time_order_forms(N, kw):
+    """The four integrals that raised before space-time was ported
+    (ROADMAP A13): ``time_order`` as an argument and in the level-set dict,
+    on a linear form and on a facet-patch integral, over a spatial space
+    and a spatial P1 level set (constant in time)."""
+    mesh = N.MakeStructured2DMesh(quads=False, nx=2, ny=2)
+    V = N.H1(mesh, order=1, **kw)
+    u, v = V.TnT()
+    lset = N.GridFunction(N.H1(mesh, order=1, **kw))
+    lset.Set(N.x - 0.3)
+    ld = {"levelset": lset, "domain_type": N.NEG}
+    out = []
+    for integral in (N.SymbolicBFI(ld, form=u * v, time_order=1),
+                     N.SymbolicBFI(dict(ld, time_order=1), form=u * v),
+                     N.SymbolicFacetPatchBFI(form=u * v, time_order=0)):
+        a = N.BilinearForm(V)
+        a += integral
+        a.Assemble()
+        out.append(np.asarray(a.mat.todense()))
+    f = N.LinearForm(V)
+    f += N.SymbolicLFI(ld, form=v, time_order=0)
+    f.Assemble()
+    out.append(np.asarray(f.vec.data))
+    return out
+
+
+def test_time_order_integrals_match_jax():
+    """The integrals with ``time_order`` that ``test_not_ported_raises``
+    held to ``NotImplementedError`` before space-time was ported now equal
+    the JAX package's."""
+    for a, b in zip(_time_order_forms(T, CPU), _time_order_forms(J, {})):
+        _close(a, b)
 
 
 def test_integral_options_and_helpers():

@@ -46,6 +46,15 @@ import ngsxfem_tpu_torch.examples.tracefem
 import ngsxfem_tpu_torch.examples.tracefem3d
 import ngsxfem_tpu_torch.examples.traceconverg
 import ngsxfem_tpu_torch.examples.stokesxfem
+import ngsxfem_tpu_torch.spacetime
+import ngsxfem_tpu_torch.spacetime.timefe
+import ngsxfem_tpu_torch.spacetime.space
+import ngsxfem_tpu_torch.ops.spacetimecut
+import ngsxfem_tpu_torch.lsetcurv.lset_spacetime
+import ngsxfem_tpu_torch.utils.utils
+import ngsxfem_tpu_torch.examples.moving_domain
+import ngsxfem_tpu_torch.examples.moving_domain3d
+import ngsxfem_tpu_torch.examples.heateq_cg_spacetime
 import chip_smoke
 from ngsxfem_tpu_torch import *
 
@@ -78,6 +87,18 @@ assert lsa.CalcMaxDistance(sqrt(x*x + y*y) - 0.5) < 1e-4
 area = Integrate({"levelset": lsa.lset_p1, "domain_type": NEG},
                  CoefficientFunction(1.0), mesh, order=4, deformation=deform)
 assert abs(area - 0.19634954084936207) < 1e-6 and mesh.deformation is None
+# space-time: a slab of the moving-domain example, the CG-in-time heat
+# example and the space-time mesh adaptation
+err = ngsxfem_tpu_torch.examples.moving_domain.run(nx=8, nslab=2,
+                                                   verbose=False, device="cpu")
+assert 0 < err < 1.0, err
+errs = ngsxfem_tpu_torch.examples.heateq_cg_spacetime.run(
+    nx=6, nslab=2, tend=0.1, verbose=False, device="cpu")
+assert 0 < errs[-1] < 1.0, errs
+lst = LevelSetMeshAdaptation_Spacetime(mesh, order_space=2, order_time=1,
+                                       threshold=0.5, device="cpu")
+lst.CalcDeformation(sqrt((x - 0.1 * tref) ** 2 + y * y) - 0.5)
+assert lst.CalcMaxDistance() < 1e-3
 mg1 = LatticeDIAMG([[-1, 0, 1]], [5], dim=1)
 pp = mg1.prepare_safe(mg1.params([[[0, -1, -1, -1, -1], [2] * 5,
                                    [-1, -1, -1, -1, 0]]], device="cpu"))
@@ -91,9 +112,9 @@ sys.exit(1 if bad else 0)
 
 def test_port_imports_no_jax():
     """Importing the port, its modules, its examples and chip_smoke, and
-    running the Quick start, five examples, the isoparametric adaptation
-    and a coarse multigrid inverse on the CPU, loads no jax and no
-    ngsxfem_tpu module."""
+    running the Quick start, five examples, the isoparametric adaptation,
+    the space-time examples and adaptation and a coarse multigrid inverse
+    on the CPU, loads no jax and no ngsxfem_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -221,19 +221,29 @@ def test_unported_features_raise():
     lset = T.GridFunction(T.H1(mesh, order=1, device="cpu"))
     lset.Set(T.x - 0.3)
     ld = {"levelset": lset, "domain_type": T.NEG}
-    for kw, item in (({"subdivlvl": 1}, "A8b"), ({"time_order": 0}, "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.Integrate(dict(ld, **kw), 1.0, mesh)
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.Integrate(ld, 1.0, mesh, time_order=0)
+    with pytest.raises(NotImplementedError, match="A8b"):
+        T.Integrate(dict(ld, subdivlvl=1), 1.0, mesh)
+    # space-time integrals are ported (ROADMAP A13): ``time_order`` in the
+    # dict or as an argument, and CutInfo's, give the JAX package's values
+    mj = J.MakeStructured2DMesh(quads=False, nx=2, ny=2)
+    lj = J.GridFunction(J.H1(mj, order=1))
+    lj.Set(J.x - 0.3)
+    ldj = {"levelset": lj, "domain_type": J.NEG}
+    f_t, f_j = 1 + T.x * T.tref, 1 + J.x * J.tref
+    assert _close(T.Integrate(dict(ld, time_order=0), f_t, mesh),
+                  J.Integrate(dict(ldj, time_order=0), f_j, mj))
+    assert _close(T.Integrate(ld, f_t, mesh, time_order=0),
+                  J.Integrate(ldj, f_j, mj, time_order=0))
     # deformations are ported (ROADMAP A11): a zero one changes nothing and
     # is unset after the call
     zero = T.GridFunction(T.VectorH1(mesh, order=1, device="cpu"))
     assert T.Integrate(ld, 1.0, mesh, deformation=zero) == \
         T.Integrate(ld, 1.0, mesh)
     assert mesh.deformation is None
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.CutInfo(mesh, lset, time_order=0)
+    ci_t, ci_j = T.CutInfo(mesh, lset, time_order=0), J.CutInfo(mj, lj,
+                                                                time_order=0)
+    assert np.array_equal(ci_t.dt_of_elem, ci_j.dt_of_elem)
+    assert _close(ci_t.GetCutRatios(), np.asarray(ci_j.GetCutRatios()))
 
 
 def test_entry_points_need_a_device(monkeypatch):
