@@ -8,8 +8,9 @@ facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
 117,649 dofs, float32).  Three paths run through it (and general cut
 quadrature, phase 9, beside it), two more in phases 12-15, the
 skeleton, vector and XFEM workloads in phases 16-17, the isoparametric
-(order-2/3 deformed-mesh) workloads in phases 18-19, and the space-time
-moving-domain workloads in phases 20-21:
+(order-2/3 deformed-mesh) workloads in phases 18-19, the space-time
+moving-domain workloads in phases 20-21, and the matrix-free operators, the
+subdivision quadrature and the HDG trace FEM in phases 22-23:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -50,7 +51,15 @@ moving-domain workloads in phases 20-21:
   ``LinearForm`` (space-time cut rules, facet patches, Petrov-Galerkin
   blocks) -> ``a.mat.Inverse(active)`` (the host LU: the slab systems are
   not symmetric) -> ``RestrictGFInTime``: ``examples.moving_domain`` (also
-  with ``deform=True``), ``heateq_cg_spacetime`` and ``moving_domain3d``.
+  with ``deform=True``), ``heateq_cg_spacetime`` and ``moving_domain3d``;
+- the matrix-free path: ``BilinearForm.AssembleOperator()`` (the channel-
+  lattice stencil, per-offset apply on the card, or the partial assembly
+  with its fixed-order scatter) -> ``matvec``/``diagonal()`` -> Jacobi-PCG
+  through ``krylov.cg`` on the high_order systems, beside the same PCG
+  through ``ell_matvec``; ``Integrate`` with ``subdivlvl > 0`` on a level-
+  set CoefficientFunction; ``examples.tracefem_hdg`` (L2 x FacetFESpace x
+  FacetFESpace, an HDiv normal helper, element-boundary cut integrals,
+  ``condensed_solve`` on the host).
 
 Phases, one line each:
 
@@ -195,7 +204,35 @@ Phases, one line each:
    ``Assemble`` by CUDA events, ``Inverse()`` (its ``to_ell``),
    ``to_scipy``, ``splu`` and the solve by the host clock, one
    ``BilinearForm.Assemble`` under ``torch.profiler``, peak memory; B2 and
-   B1 launches of the path (0: the record's ``launches_spacetime``).
+   B1 launches of the path (0: the record's ``launches_spacetime``);
+22. matrix-free operators, subdivision quadrature and the new spaces at the
+   JAX package's test sizes, launch counters reset before it (with phase
+   23), f64, card against this host's CPU: ``AssembleOperator()`` (stencil)
+   and ``lattice=False`` (PA) of tests/test_operator.py's fictdom form in
+   2D and 3D at orders 1 and 2 (nx=6) and of the order-2 Laplace on 7 x 5:
+   ``matvec``/``diagonal()`` against ``a.mat`` to 1e-12 of the largest
+   entry, stencil vs PA to 5e-13, the per-offset apply vs
+   ``stencil_apply_plain`` to 1e-13, card == CPU to 1e-12;
+   tests/test_backuprule.py's cases (straight cuts exact, circle EOC > 1.75,
+   ~4x per level, the space-time plane) card == CPU to 1e-12; HDiv RT0
+   constants and divergence theorem, the SFESpace projection;
+   ``tracefem_hdg`` orders 1, 2 at nx = 8, 16 (EOC > 1.75 / > 2.6, order-2
+   error < 3e-4), ``condense=True`` == the direct solve to 1e-8 at nx=12,
+   card == CPU to 1e-8;
+23. card size: on phase 19's high_order systems (P2 nx=48, P3 nx=24, kept
+   with their deformations, not rebuilt) ``AssembleOperator()`` by CUDA
+   events (the kind ``"auto"`` took, bytes), the symmetry probe, ``matvec``
+   vs B2's product of ``a.mat`` (1e-12), one apply's time, device kernels
+   and bound, Jacobi-PCG-50 on ``op.diagonal()`` by events and under
+   ``torch.profiler`` (kernels per iteration, busy, idle share) beside the
+   same PCG through B2 (ell_spmv launches == products), and at P2 the same
+   for ``lattice=False``; ``Integrate`` of the sphere r=0.4 (a CF) on tets
+   nx=48 at subdivlvl 0, 1, 2 (error ratio > 2.5 per level, band and
+   mixed-child counts, ms, peak memory); ``tracefem_hdg`` order 2 at nx =
+   128, 256 (``Assemble`` ms, ``to_ell``, the default ``Inverse()`` path,
+   on ``device_cg`` launches == iterations + 1, L2 below nx=16's); B2 and
+   B1 launches of phases 22-23 (the record's ``launches_matrix_free`` and
+   ``matrix_free_tables``).
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -1705,13 +1742,15 @@ def no_shift_warning(fn):
     return out
 
 
-def iso_solve(label, parts, device, detail=True):
+def iso_solve(label, parts, device, detail=True, keep=False):
     """One assembled isoparametric system, built once through an example's
     ``system()`` (``parts``; the mesh holds the deformation): ``Assemble``
     by CUDA events and under ``torch.profiler``, ``to_ell`` (host), the
     symmetry of ``a.mat``, B2 on its table (with ``detail``), the default
     ``Inverse()`` solve on the card (path ``device_cg``, ell_spmv launches
-    == products == iterations + 1, the true residual) and the L2 error."""
+    == products == iterations + 1, the true residual) and the L2 error.
+    With ``keep`` the result holds the system (``"system"``) and its
+    deformation (``"deformation"``) for phase 23."""
     from ngsxfem_tpu_torch import GridFunction
     from ngsxfem_tpu_torch.solvers import ell_spmv
 
@@ -1768,13 +1807,15 @@ def iso_solve(label, parts, device, detail=True):
         gfu.vec.data = x
         out["err"] = l2error(gfu)
         check(np.isfinite(out["err"]), f"{label}: L2 error {out['err']}")
+        if keep:
+            out["system"], out["deformation"] = parts, V.mesh.deformation
     finally:
         V.mesh.UnsetDeformation()
     out["peak_gib"] = peak_gib(device)
     return out
 
 
-def iso_card(T, order, nx, device, detail=True):
+def iso_card(T, order, nx, device, detail=True, keep=False):
     """The high_order workload (``examples.fictdom3d`` with
     ``isoparametric=True``: sphere r=0.7 on [-1,1]^3, threshold 0.2,
     lambda = 10 k^2, gamma 0.1, f64) at (order, nx): ``CalcDeformation`` and
@@ -1800,7 +1841,8 @@ def iso_card(T, order, nx, device, detail=True):
         nx=nx, order=order, device=device, isoparametric=True))
     sync(device)
     system_s = time.perf_counter() - t1
-    out = iso_solve(f"fictdom3d P{order} iso nx={nx}", parts, device, detail)
+    out = iso_solve(f"fictdom3d P{order} iso nx={nx}", parts, device, detail,
+                    keep)
     out.update(order=order, nx=nx, deform_ms=deform_ms, maxdist=maxdist,
                maxdist_ms=maxdist_ms, system_s=system_s,
                ne=6 * nx ** 3, wall_s=time.perf_counter() - t0)
@@ -1936,7 +1978,7 @@ def phases_18_19(T, dev, t_start):
     t0 = time.perf_counter()
     bigs = []
     for order, nx in ISO_BIG:
-        b = iso_card(T, order, nx, dev)
+        b = iso_card(T, order, nx, dev, keep=True)  # reused by phase 23
         bigs.append(b)
         pa, pf = b["prof_a"], b["prof_f"]
         print(f"[19 card size] {card()} | fictdom3d P{order} iso nx={nx} "
@@ -2300,6 +2342,616 @@ def phases_20_21(T, dev, t_start):
           f"phase 21 {time.perf_counter() - t0:.2f} s, of the whole run "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     return launches
+
+
+# --- phases 22-23: matrix-free operators, subdivision quadrature, HDG ------
+
+# phase 22: the JAX package's test sizes.  tests/test_operator.py's fictdom
+# form (sphere r=0.4 in the unit square/cube, nx=6) as (dim, order), and
+# tests/test_stencilop.py's plain order-2 Laplace on a 7 x 5 mesh;
+# tests/test_backuprule.py's cases; tests/test_tracefem.py's HDG limits
+MF_PARITY = ((2, 1), (2, 2), (3, 1), (3, 2))
+MF_TOL, MF_ST_TOL, MF_OFF_TOL = 1e-12, 5e-13, 1e-13
+SUBDIV_EOC_NX = (2, 4, 8, 16, 32)
+HDG_NX, HDG_COND_NX = (8, 16), 12
+HDG_EOC, HDG_P2_MAX = {1: 1.75, 2: 2.6}, 3e-4
+# phase 23: card size.  The matrix-free operators on phase 19's systems;
+# the sphere r=0.4 (a CoefficientFunction) on tets nx=48 at subdivlvl
+# 0, 1, 2; tracefem_hdg order 2 at nx = 128, 256
+MF_PCG_ITERS = 50
+SUBDIV_BIG_NX, SUBDIV_LVLS, SUBDIV_RATIO = 48, (0, 1, 2), 2.5
+HDG_BIG_NX = (128, 256)
+
+
+def mf_fictdom(T, dim, nx, order, device):
+    """tests/test_operator.py's fictdom form: NEG volume, Nitsche IF and
+    facet-patch ghost penalty of the sphere r=0.4 at the centre of the unit
+    square/cube.  Returns (space, form, free mask)."""
+    if dim == 3:
+        mesh = T.MakeStructured3DMesh(hexes=False, nx=nx, ny=nx, nz=nx)
+        lev = (T.sqrt((T.x - .5) ** 2 + (T.y - .5) ** 2 + (T.z - .5) ** 2)
+               - 0.4)
+    else:
+        mesh = T.MakeStructured2DMesh(quads=False, nx=nx, ny=nx)
+        lev = T.sqrt((T.x - .5) ** 2 + (T.y - .5) ** 2) - 0.4
+    lsetp1 = _p1(T, mesh, lev, device)
+    ci = T.CutInfo(mesh, lsetp1)
+    hasneg = ci.GetElementsOfType(T.HASNEG)
+    hasif = ci.GetElementsOfType(T.IF)
+    V = T.H1(mesh, order=order, dgjumps=True, device=device)
+    u, v = V.TnT()
+    h = T.specialcf.mesh_size
+    nl = 1.0 / T.Norm(T.grad(lsetp1)) * T.grad(lsetp1)
+    gp = T.GetFacetsWithNeighborTypes(mesh, a=hasneg, b=hasif)
+    a = T.BilinearForm(V)
+    a += T.SymbolicBFI({"levelset": lsetp1, "domain_type": T.NEG},
+                       form=T.grad(u) * T.grad(v), definedonelements=hasneg)
+    a += T.SymbolicBFI({"levelset": lsetp1, "domain_type": T.IF},
+                       form=-(T.grad(u) * nl) * v - (T.grad(v) * nl) * u
+                       + 40.0 / h * u * v)
+    a += T.SymbolicFacetPatchBFI(
+        form=0.1 / (h * h) * (u - u.Other()) * (v - v.Other()),
+        definedonelements=gp)
+    return V, a, T.GetDofsOfElements(V, hasneg)
+
+
+def _rel_max(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _rel_2(a, b):
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-300))
+
+
+def mf_parity(T, device):
+    """Phase 22, operators: ``AssembleOperator()`` (stencil) and
+    ``lattice=False`` (partial assembly) of each ``MF_PARITY`` form and of
+    the plain order-2 Laplace: ``matvec`` and ``diagonal()`` against
+    ``a.mat`` (its B2 product on the card) to 1e-12 of the largest entry,
+    stencil against PA to 5e-13, the per-offset apply against
+    ``stencil_apply_plain`` to 1e-13 (both on the device), card against
+    CPU to 1e-12."""
+    from ngsxfem_tpu_torch.solvers.stencilop import (stencil_apply_offsets,
+                                                     stencil_apply_plain)
+
+    def laplace(dev):
+        mesh = T.MakeStructured2DMesh(quads=False, nx=7, ny=5)
+        V = T.H1(mesh, order=2, device=dev)
+        u, v = V.TnT()
+        a = T.BilinearForm(V)
+        a += T.SymbolicBFI(form=T.grad(u) * T.grad(v) + u * v)
+        return V, a, None
+
+    cases = [(f"fictdom {dim}D P{order} nx=6",
+              lambda dev, d=dim, o=order: mf_fictdom(T, d, 6, o, dev))
+             for dim, order in MF_PARITY]
+    cases.append(("laplace 2D P2 7x5", laplace))
+    rows = []
+    for label, build in cases:
+        ys = {}
+        for dev in (device, torch.device("cpu")):
+            V, a, _ = build(dev)
+            a.Assemble()
+            x = torch.as_tensor(np.random.default_rng(11).standard_normal(
+                V.ndof), device=dev)
+            y_mat = a.mat.ell() @ x
+            d_mat = a.mat.diagonal()
+            st = a.AssembleOperator()
+            pa = a.AssembleOperator(lattice=False)
+            check(st.kind == "stencil" and pa.kind == "pa",
+                  f"{label}: operator kinds {st.kind}, {pa.kind}")
+            errs = {}
+            for op in (st, pa):
+                y = op.matvec(x)
+                errs[op.kind] = (_rel_max(y, y_mat),
+                                 _rel_max(op.diagonal(), d_mat))
+                check(max(errs[op.kind]) <= MF_TOL,
+                      f"{label} {op.kind} on {dev}: matvec/diagonal vs a.mat "
+                      f"{errs[op.kind]}")
+                ys[(dev.type, op.kind)] = y
+            e_st = _rel_2(ys[(dev.type, "stencil")], ys[(dev.type, "pa")])
+            check(e_st <= MF_ST_TOL, f"{label}: stencil vs PA {e_st}")
+            e_off = _rel_2(
+                stencil_apply_offsets(st.tables, st.offsets, st.reach,
+                                      st.chan, st.fs, x),
+                stencil_apply_plain(st.tables, st.meta, st.offsets,
+                                    st.reach, st.chan, st.fs, x))
+            check(e_off <= MF_OFF_TOL,
+                  f"{label}: per-offset vs plain apply {e_off}")
+            if dev == device:
+                row = {"label": label, "ndof": V.ndof, "ncombo": st.ncombo,
+                       "noff": len(st.offsets), "errs": errs, "st_pa": e_st,
+                       "off_plain": e_off}
+        e_cpu = max(_rel_max(ys[(device.type, k)].cpu(), ys[("cpu", k)])
+                    for k in ("stencil", "pa"))
+        check(e_cpu <= MF_TOL, f"{label}: card vs CPU {e_cpu}")
+        row["card_cpu"] = e_cpu
+        rows.append(row)
+    return rows
+
+
+def _both(fn, device, tol, what):
+    """fn(device) and fn(cpu), equal to ``tol`` relative (at least 1)."""
+    a, b = fn(device), fn(torch.device("cpu"))
+    for u, w in zip(np.atleast_1d(a), np.atleast_1d(b)):
+        check(abs(u - w) <= tol * max(1.0, abs(w)),
+              f"{what}: card {a} vs CPU {b}")
+    return a
+
+
+def subdiv_parity(T, device):
+    """Phase 22, subdivision quadrature, tests/test_backuprule.py's cases:
+    straight cuts exact to 5e-15 (k+1)^2 (2D lvl 1-2, 3D lvl 1, orders 2
+    and 8), the circle r=0.6 EOC > 1.75, ~4x per level (ratios > 2.5, mean
+    > 3.4), the space-time plane exact to 5e-14; card == CPU to 1e-12."""
+    out = {"cases": 0}
+
+    def integ(mesh_fn, lset, dt, lvl, order, **kw):
+        def run(dev):
+            return T.Integrate({"levelset": lset, "domain_type": getattr(T, dt),
+                                "subdivlvl": lvl}, 1.0, mesh_fn(), order=order,
+                               device=dev, **kw)
+        out["cases"] += 1
+        return _both(run, device, 1e-12, f"subdiv {dt} lvl={lvl} o={order}")
+
+    for quad in (True, False):
+        for order in (2, 8):
+            for dt, ref in (("NEG", 7 / 8), ("POS", 1 / 8),
+                            ("IF", 1 / np.sqrt(2))):
+                for lvl in (1, 2):
+                    v = integ(lambda: T.MakeStructured2DMesh(
+                        quads=quad, nx=2, ny=2), 1 - 2 * T.x - 2 * T.y, dt,
+                        lvl, order)
+                    check(abs(v - ref) < 5e-15 * (order + 1) ** 2,
+                          f"subdiv 2D straight {dt} quad={quad} lvl={lvl}: "
+                          f"{v} vs {ref}")
+    for hex_ in (True, False):
+        for order in (2, 8):
+            for dt, ref in (("NEG", 47 / 48), ("POS", 1 / 48),
+                            ("IF", np.sqrt(3) / 8)):
+                v = integ(lambda: T.MakeStructured3DMesh(
+                    hexes=hex_, nx=1, ny=1, nz=1),
+                    1 - 2 * T.x - 2 * T.y - 2 * T.z, dt, 1, order)
+                check(abs(v - ref) < 5e-15 * (order + 1) ** 2,
+                      f"subdiv 3D straight {dt} hex={hex_}: {v} vs {ref}")
+    r = 0.6
+    circle = T.sqrt(T.x * T.x + T.y * T.y) - r
+    refs = {"NEG": np.pi * r * r / 4, "POS": 1 - np.pi * r * r / 4,
+            "IF": r * np.pi / 2}
+    out["eoc"] = {}
+    for dt in ("NEG", "POS", "IF"):
+        e = [abs(integ(lambda n=n: T.MakeStructured2DMesh(
+            quads=False, nx=n, ny=n), circle, dt, 1, 4) - refs[dt])
+            for n in SUBDIV_EOC_NX]
+        eoc = [float(np.log2(e[i] / e[i + 1])) for i in range(len(e) - 1)]
+        check(sum(eoc[1:]) / len(eoc[1:]) > 1.75, f"subdiv circle {dt} EOC "
+                                                  f"{eoc}")
+        out["eoc"][dt] = eoc
+    out["levels"] = {}
+    for dt in ("NEG", "IF"):
+        e = [abs(integ(lambda: T.MakeStructured2DMesh(quads=False, nx=2,
+                                                      ny=2),
+                       circle, dt, lvl, 4) - refs[dt]) for lvl in (1, 2, 3, 4)]
+        ratios = [e[i] / e[i + 1] for i in range(3)]
+        check(min(ratios) > 2.5 and sum(ratios) / 3 > 3.4,
+              f"subdiv levels {dt}: ratios {ratios}")
+        out["levels"][dt] = ratios
+    for quad in (True, False):
+        for dt, ref in (("NEG", 7 / 8), ("POS", 1 / 8), ("IF", 0.5)):
+            v = integ(lambda: T.MakeStructured2DMesh(quads=quad, nx=1, ny=1),
+                      1 - 2 * T.x - 2 * T.tref, dt, 1, 1, time_order=1)
+            check(abs(v - ref) < 5e-14, f"subdiv space-time {dt}: {v}")
+    return out
+
+
+def _rt0_constant_dofs(mesh, v0):
+    """RT0 dofs of a constant field: outward fluxes over the facets, each
+    oriented away from the facet's first neighbour."""
+    fverts = mesh.vertices_np[mesh.facets_np]
+    if mesh.dim == 2:
+        t = fverts[:, 1] - fverts[:, 0]
+        n = np.stack([t[:, 1], -t[:, 0]], axis=1)
+    else:
+        n = 0.5 * np.cross(fverts[:, 1] - fverts[:, 0],
+                           fverts[:, 2] - fverts[:, 0])
+    e0 = mesh.facet2el_np[:, 0]
+    cent = mesh.vertices_np[mesh.elements_np[e0]].mean(axis=1)
+    s = np.sign(np.einsum("fd,fd->f", n, fverts.mean(axis=1) - cent))
+    return (n * s[:, None]) @ np.asarray(v0)
+
+
+def spaces_parity(T, device):
+    """Phase 22, spaces: HDiv RT0 reproduces constants (2D nx=3, 3D nx=2,
+    error < 1e-22), its divergence theorem (1e-12), and the SFESpace L2
+    projection of x + y (error < 1e-20), card == CPU."""
+    from ngsxfem_tpu_torch.cf.context import EvalCtx
+
+    def rt0(dev):
+        errs = []
+        for mesh in (T.MakeStructured2DMesh(quads=False, nx=3, ny=3),
+                     T.MakeStructured3DMesh(hexes=False, nx=2, ny=2, nz=2)):
+            gf = T.GridFunction(T.HDiv(mesh, order=0, device=dev))
+            v0 = np.arange(1, mesh.dim + 1, dtype=float)
+            gf.vec.data = _rt0_constant_dofs(mesh, v0)
+            c = T.CoefficientFunction(tuple(float(a) for a in v0))
+            errs.append(T.Integrate(cf=T.InnerProduct(gf - c, gf - c),
+                                    mesh=mesh, order=3, device=dev))
+        return errs
+
+    errs = _both(rt0, device, 1e-20, "HDiv RT0 constants")
+    check(max(abs(e) for e in errs) < 1e-22, f"HDiv RT0 constants {errs}")
+
+    def divthm(dev):
+        mesh = T.MakeStructured2DMesh(quads=False, nx=4, ny=4)
+        V = T.HDiv(mesh, order=0, device=dev)
+        vec = np.random.default_rng(3).standard_normal(V.ndof)
+        cent = torch.full((mesh.ne, 1, 2), 1.0 / 3.0, dtype=torch.float64,
+                          device=dev)
+        ctx = EvalCtx(mesh, cent)
+        _, dv = V._piola(ctx, ctx.ref_pts)
+        div_el = (dv[:, 0] * torch.as_tensor(vec, device=dev)[
+            V.el2dof_on(dev)]).sum(1)
+        return (float((div_el * ctx.detJ.abs()[:, 0] * 0.5).sum()),
+                float(vec[mesh.boundary_facets_np].sum()))
+
+    d = _both(divthm, device, 1e-12, "HDiv divergence theorem")
+    check(abs(d[0] - d[1]) < 1e-12, f"HDiv divergence theorem {d}")
+
+    def sfe(dev):
+        mesh = T.MakeStructured2DMesh(
+            quads=False, nx=10, ny=10,
+            mapping=lambda a, b: (3 * a - 1.5, 3 * b - 1.5))
+        lset = _p1(T, mesh, T.sqrt(T.x * T.x + T.y * T.y) - 1.0, dev)
+        S = T.SFESpace(mesh, lset, order=1, device=dev)
+        u, v = S.TnT()
+        lif = {"levelset": lset, "domain_type": T.IF}
+        a = T.BilinearForm(S)
+        a += T.SymbolicBFI(lif, form=u * v)
+        a.Assemble()
+        f = T.LinearForm(S)
+        f += T.SymbolicLFI(lif, form=(T.x + T.y) * v)
+        f.Assemble()
+        gfu = T.GridFunction(S)
+        gfu.vec.data = a.mat.Inverse(S.FreeDofs()) * f.vec.data
+        err = T.Integrate(lif, (gfu - (T.x + T.y)) * (gfu - (T.x + T.y)),
+                          mesh, order=4)
+        return [err] + gfu.vec.data.cpu().tolist()
+
+    s = _both(sfe, device, 1e-12, "SFESpace projection")
+    check(abs(s[0]) < 1e-20, f"SFESpace projection error {s[0]}")
+    return {"rt0": errs, "divthm": d, "sfe_err": s[0], "sfe_ndof": len(s) - 1}
+
+
+def hdg_parity(T, device):
+    """Phase 22, ``tracefem_hdg``: orders 1 and 2 at nx = 8, 16 (EOC > 1.75
+    / > 2.6, order 2 error < 3e-4) and ``condense=True`` equal to the direct
+    solve to 1e-8 at nx=12, card == CPU to 1e-8."""
+    from ngsxfem_tpu_torch.examples import tracefem_hdg
+
+    out = {}
+    for order in (1, 2):
+        e = [_both(lambda dev, nx=nx: tracefem_hdg.run(
+            nx, order=order, verbose=False, device=dev), device, 1e-8,
+            f"tracefem_hdg P{order} nx={nx}") for nx in HDG_NX]
+        eoc = float(np.log2(e[0] / e[1]))
+        check(eoc > HDG_EOC[order], f"tracefem_hdg P{order} {e}: EOC {eoc}")
+        out[order] = (e, eoc)
+    check(out[2][0][1] < HDG_P2_MAX, f"tracefem_hdg P2 nx=16 {out[2][0][1]}")
+    ec, ed = (_both(lambda dev, c=c: tracefem_hdg.run(
+        HDG_COND_NX, order=1, verbose=False, condense=c, device=dev), device,
+        1e-8, f"tracefem_hdg condense={c}") for c in (True, False))
+    check(abs(ec - ed) < 1e-8, f"tracefem_hdg condensed {ec} vs direct {ed}")
+    out["condense"] = (ec, ed)
+    return out
+
+
+def mf_pcg(matvec, diag, free, load, device, iters=MF_PCG_ITERS):
+    """Jacobi-PCG of ``iters`` iterations (tol 0: a fixed budget) on the
+    free block through ``matvec``: (x, ms by CUDA events, profile
+    (kernels, busy ms, idle share, wall ms), products over all the runs
+    made here)."""
+    from ngsxfem_tpu_torch.solvers.krylov import cg
+
+    fm = torch.as_tensor(free, device=device)
+    dinv = torch.where(fm & (diag.abs() > 1e-30), 1.0 / diag, 0.0)
+    b = torch.where(fm, load, 0.0)
+    products = [0]
+
+    def mv(z):
+        products[0] += 1
+        return torch.where(fm, matvec(torch.where(fm, z, 0.0)), 0.0)
+
+    def run():
+        return cg(mv, b, M=lambda r: dinv * r, maxiter=iters, tol=0.0)[0]
+
+    x, ms = event_ms(run)
+    prof = None
+    if device.type == "cuda":
+        ms = time_ms(run, reps=3)
+        kern, wall = device_kernels(run, 1, warm=False)
+        busy = sum(us for _, us in kern.values()) / 1e3
+        prof = (sum(c for c, _ in kern.values()), busy, 1 - busy / wall, wall)
+    return x, ms, prof, products[0]
+
+
+def mf_card(T, rec, device, lattices):
+    """Phase 23 on one of phase 19's systems (``rec``, kept with its
+    deformation): per ``lattice`` the operator by CUDA events, its kind and
+    bytes, the symmetry probe, ``matvec`` against B2's product of ``a.mat``
+    (1e-12 relative), one apply's time, kernels and bound, Jacobi-PCG-50 on
+    ``op.diagonal()`` beside the same PCG through B2 (ell_spmv launches ==
+    products), and the peak memory."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    a, f, V, free, _ = rec["system"]
+    mesh = V.mesh
+    mesh.SetDeformation(rec["deformation"])
+    rows = []
+    try:
+        n = V.ndof
+        ar = torch.arange(n, dtype=torch.float64, device=device)
+        xu, xv = torch.cos(ar), torch.sin(ar)
+        ell = a.mat.ell()
+        before = ell_spmv.launches
+        y_b2 = ell @ xu
+        x_b2, b2_ms, b2_prof, calls = mf_pcg(
+            lambda z: ell @ z, a.mat.diagonal(), free.np, f.vec.data, device)
+        b2_launches = ell_spmv.launches - before
+        check(b2_launches == ((1 + calls) if device.type == "cuda" else 0),
+              f"{rec['label']}: {b2_launches} ell_spmv launches, "
+              f"{1 + calls} products")
+        fm = torch.as_tensor(free.np, device=device)
+        load = torch.where(fm, f.vec.data, 0.0)
+
+        def res_of(z):  # true relative residual on the free block, via B2
+            r = torch.where(fm, load - ell @ torch.where(fm, z, 0.0), 0.0)
+            return float(torch.linalg.vector_norm(r)
+                         / torch.linalg.vector_norm(load))
+
+        res_b2 = res_of(x_b2)
+        for lattice in lattices:
+            peak_gib(device)
+            op, build_ms = event_ms(lambda: a.AssembleOperator(lattice))
+            row = {"label": rec["label"], "lattice": lattice,
+                   "kind": op.kind, "build_ms": build_ms,
+                   "nbytes": op.nbytes(), "ndof": n}
+            y = op.matvec(xu)
+            row["vs_b2"] = _rel_max(y, y_b2)
+            check(row["vs_b2"] <= MF_TOL, f"{rec['label']} {op.kind}: matvec "
+                                          f"vs B2 {row['vs_b2']}")
+            uav = float(torch.dot(xu, op.matvec(xv)))
+            vau = float(torch.dot(xv, y))
+            row["sym"] = abs(uav - vau) / max(abs(uav), 1e-30)
+            if op.kind == "stencil":
+                row.update(ncombo=op.ncombo, noff=len(op.offsets),
+                           reach=op.reach)
+            x, row["pcg_ms"], row["pcg_prof"], _ = mf_pcg(
+                op.matvec, op.diagonal(), free.np, f.vec.data, device)
+            # the two PCG-50 iterates part by round-off amplified over the
+            # iterations; their true residuals (through B2) must agree
+            row["pcg_vs_b2"] = _rel_2(x, x_b2)
+            row["res"] = (res_of(x), res_b2)
+            check(np.isfinite(row["res"][0])
+                  and row["res"][0] <= 2 * res_b2 + 1e-12,
+                  f"{rec['label']} {op.kind}: PCG-{MF_PCG_ITERS} true "
+                  f"residual {row['res'][0]} vs B2's {res_b2}")
+            if device.type == "cuda":
+                row["apply_ms"] = time_ms(lambda: op.matvec(xu), reps=5)
+                kern, wall = device_kernels(lambda: op.matvec(xu), 1)
+                busy = sum(us for _, us in kern.values()) / 1e3
+                row["apply_prof"] = (sum(c for c, _ in kern.values()), busy,
+                                     1 - busy / wall)
+                nvals = (op.tables.numel() if op.kind == "stencil" else
+                         sum(m.numel() for m, _, _ in op.parts))
+                row["bound_ms"] = bound(op.nbytes() + 2 * n * 8, 2 * nvals,
+                                        F64_FLOP_PER_S)
+            row["peak_gib"] = peak_gib(device)
+            rows.append(row)
+            del op
+    finally:
+        mesh.UnsetDeformation()
+    return {"rows": rows, "b2_ms": b2_ms, "b2_prof": b2_prof,
+            "b2_launches": b2_launches, "label": rec["label"]}
+
+
+def subdiv_card(T, device):
+    """Phase 23, subdivision ``Integrate``: the NEG volume of the sphere
+    r=0.4 (a CoefficientFunction) at the centre of the unit cube on tets
+    nx=48 at subdivlvl 0, 1, 2 (order 2): errors against 4/3 pi r^3 falling
+    ~4x per level, the band and mixed-child counts, ms by CUDA events, peak
+    memory."""
+    from ngsxfem_tpu_torch.integrate import subdiv_tiers
+
+    mesh = T.MakeStructured3DMesh(hexes=False, nx=SUBDIV_BIG_NX,
+                                  ny=SUBDIV_BIG_NX, nz=SUBDIV_BIG_NX)
+    c = (T.sqrt((T.x - 0.5) ** 2 + (T.y - 0.5) ** 2 + (T.z - 0.5) ** 2)
+         - SPHERE_R)
+    exact = 4 / 3 * np.pi * SPHERE_R ** 3
+    rows = []
+    for lvl in SUBDIV_LVLS:
+        ld = {"levelset": c, "domain_type": T.NEG, "subdivlvl": lvl}
+        peak_gib(device)
+        with warnings.catch_warnings():  # lvl 0: the P1 interpolation
+            warnings.simplefilter("ignore")
+            T.Integrate(ld, 1.0, mesh, order=2, device=device)  # warm-up
+            v, ms = event_ms(lambda: T.Integrate(ld, 1.0, mesh, order=2,
+                                                 device=device))
+        row = {"lvl": lvl, "vol": v, "err": abs(v - exact), "ms": ms,
+               "peak_gib": peak_gib(device)}
+        if lvl > 0:
+            tiers = subdiv_tiers(mesh, c, T.NEG, 2, lvl, device)
+            row["band"], row["mixed"] = len(tiers[1][3]), len(tiers[2][3])
+            del tiers
+        rows.append(row)
+    for r0, r1 in zip(rows, rows[1:]):
+        check(r0["err"] / r1["err"] > SUBDIV_RATIO,
+              f"subdiv nx={SUBDIV_BIG_NX}: errors {[r['err'] for r in rows]}")
+    return rows
+
+
+def hdg_card(T, device, small_err):
+    """Phase 23, ``tracefem_hdg`` order 2 at ``HDG_BIG_NX``, each built once
+    through ``system()``: ``Assemble`` by CUDA events, ``to_ell`` (host),
+    the default ``Inverse()`` (its path; on ``device_cg`` ell_spmv launches
+    == products == iterations + 1), the L2 error below nx=16's."""
+    from ngsxfem_tpu_torch import GridFunction
+    from ngsxfem_tpu_torch.examples import tracefem_hdg
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    rows = []
+    for nx in HDG_BIG_NX:
+        t0 = time.perf_counter()
+        peak_gib(device)
+        s = tracefem_hdg.system(nx, order=2, device=device)
+        mesh, a, f = s["mesh"], s["a"], s["f"]
+        mesh.SetDeformation(s["deformation"])
+        try:
+            row = {"nx": nx, "ndof": s["Vhg"].ndof,
+                   "nfree": int(s["freedofs"].np.sum())}
+            _, row["asm_a_ms"] = event_ms(a.Assemble)
+            _, row["asm_f_ms"] = event_ms(f.Assemble)
+            t1 = time.perf_counter()
+            a.mat.ell()
+            sync(device)
+            row["to_ell_s"] = time.perf_counter() - t1
+            inv = a.mat.Inverse(s["freedofs"])
+            row["path"] = inv.path
+            before = ell_spmv.launches
+            with counted_products("cg") as cnt:
+                x, row["solve_ms"] = event_ms(lambda: inv * f.vec.data)
+            row["launches"] = ell_spmv.launches - before
+            row["iters"], row["products"] = cnt.iters, cnt.products
+            if inv.path == "device_cg":
+                check(row["launches"] == (cnt.products
+                                          if device.type == "cuda" else 0)
+                      and cnt.products == cnt.iters + 1,
+                      f"tracefem_hdg nx={nx}: {row['launches']} launches, "
+                      f"{cnt.products} products, {cnt.iters} iterations")
+            gfu = GridFunction(s["Vhg"])
+            gfu.vec.data = x
+            row["err"] = tracefem_hdg.error(s, gfu, 2)
+        finally:
+            mesh.UnsetDeformation()
+        check(row["err"] < small_err, f"tracefem_hdg nx={nx} L2 "
+                                      f"{row['err']} >= nx=16's {small_err}")
+        row["peak_gib"] = peak_gib(device)
+        row["wall_s"] = time.perf_counter() - t0
+        rows.append(row)
+    return rows
+
+
+def _prof_text(p):
+    if p is None:
+        return "not profiled"
+    return (f"{p[0]} device kernels ({p[0] / MF_PCG_ITERS:.1f} per "
+            f"iteration), busy {p[1]:.2f} ms of {p[3]:.2f} ms wall, idle "
+            f"share {p[2]:.3f}")
+
+
+def phases_22_23(T, dev, t_start, iso):
+    """Phases 22 (matrix-free operators, subdivision quadrature, the new
+    spaces and tracefem_hdg at the JAX package's test sizes, card against
+    CPU) and 23 (card size: the matrix-free operators on phase 19's
+    systems, subdivision Integrate at nx=48, tracefem_hdg at nx=128, 256),
+    launch counters reset just before them.  Returns (ell_spmv launches of
+    the path, B2's launches per table)."""
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+
+    sync(dev)
+    peak_gib(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    mf = mf_parity(T, dev)
+    print("[22 operators] card (CPU) f64: " + "; ".join(
+        f"{r['label']} ({r['ndof']} dofs, {r['ncombo']} combos on "
+        f"{r['noff']} offsets): matvec/diagonal vs a.mat stencil "
+        f"{r['errs']['stencil'][0]:.1e}/{r['errs']['stencil'][1]:.1e}, PA "
+        f"{r['errs']['pa'][0]:.1e}/{r['errs']['pa'][1]:.1e}, stencil vs PA "
+        f"{r['st_pa']:.1e}, per-offset vs plain {r['off_plain']:.1e}, card "
+        f"vs CPU {r['card_cpu']:.1e}" for r in mf), flush=True)
+    sd = subdiv_parity(T, dev)
+    print(f"[22 subdiv] {sd['cases']} Integrate cases card == CPU to 1e-12, "
+          f"straight cuts exact; circle EOC "
+          + ", ".join(f"{k} {[round(e, 3) for e in v]}"
+                      for k, v in sd["eoc"].items())
+          + "; level ratios "
+          + ", ".join(f"{k} {[round(e, 2) for e in v]}"
+                      for k, v in sd["levels"].items()), flush=True)
+    sp = spaces_parity(T, dev)
+    hd = hdg_parity(T, dev)
+    print(f"[22 spaces] HDiv RT0 constants {sp['rt0']}, divergence theorem "
+          f"{sp['divthm'][0]:.15f} = {sp['divthm'][1]:.15f}; SFESpace "
+          f"({sp['sfe_ndof']} dofs) projection error {sp['sfe_err']:.2e}; "
+          f"tracefem_hdg P1 nx={list(HDG_NX)} "
+          f"{[f'{e:.10e}' for e in hd[1][0]]} (EOC {hd[1][1]:.3f}), P2 "
+          f"{[f'{e:.10e}' for e in hd[2][0]]} (EOC {hd[2][1]:.3f}), condensed "
+          f"{hd['condense'][0]:.12e} vs direct {hd['condense'][1]:.12e} at "
+          f"nx={HDG_COND_NX}; all card == CPU; wall of phase 22 "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 23. card size
+    t0 = time.perf_counter()
+    tables = []
+    for i, rec in enumerate(iso[:2]):
+        res = mf_card(T, rec, dev, ("auto", False) if i == 0 else ("auto",))
+        tables.append({"table": f"{res['label']} (PCG-{MF_PCG_ITERS} beside "
+                                f"the matrix-free operators)",
+                       "launches": res["b2_launches"]})
+        print(f"[23 matrix-free] {card()} | {res['label']}: assembled "
+              f"Jacobi-PCG-{MF_PCG_ITERS} through B2 {res['b2_ms']:.2f} ms "
+              f"({res['b2_ms'] / MF_PCG_ITERS:.3f} ms per iteration; "
+              f"{_prof_text(res['b2_prof'])}; {res['b2_launches']} ell_spmv "
+              f"launches)", flush=True)
+        for r in res["rows"]:
+            ap = r.get("apply_prof", (0, 0.0, 0.0))
+            extra = (f", {r['ncombo']} combos on {r['noff']} offsets, reach "
+                     f"{r['reach']}" if r["kind"] == "stencil" else "")
+            print(f"[23 matrix-free] {card()} | {r['label']} "
+                  f"AssembleOperator(lattice={r['lattice']!r}) -> {r['kind']}"
+                  f"{extra}: built in {r['build_ms']:.1f} ms, {r['nbytes']} "
+                  f"bytes; matvec vs B2 {r['vs_b2']:.2e}, symmetry probe "
+                  f"{r['sym']:.2e}; one apply {r.get('apply_ms', 0.0):.3f} ms "
+                  f"({ap[0]} device kernels, busy {ap[1]:.3f} ms, idle share "
+                  f"{ap[2]:.3f}; bound {r.get('bound_ms', (0.0, ''))[0]:.3f} "
+                  f"ms by {r.get('bound_ms', (0.0, ''))[1]}); Jacobi-PCG-"
+                  f"{MF_PCG_ITERS} on op.diagonal() {r['pcg_ms']:.2f} ms "
+                  f"({r['pcg_ms'] / MF_PCG_ITERS:.3f} ms per iteration; "
+                  f"{_prof_text(r['pcg_prof'])}), true residual "
+                  f"{r['res'][0]:.3e} (B2's {r['res'][1]:.3e}), iterate vs "
+                  f"B2's {r['pcg_vs_b2']:.1e}; peak memory "
+                  f"{r['peak_gib']:.2f} GiB",
+                  flush=True)
+    for rec in iso:
+        rec.pop("system", None)
+        rec.pop("deformation", None)
+    rows = subdiv_card(T, dev)
+    print(f"[23 subdiv] {card()} | NEG volume of the sphere r={SPHERE_R} "
+          f"(CF) on tets nx={SUBDIV_BIG_NX}, order 2: " + "; ".join(
+              f"subdivlvl {r['lvl']}: error {r['err']:.4e}, {r['ms']:.1f} ms"
+              + (f", band {r['band']} tets, {r['mixed']} mixed children"
+                 if "band" in r else "")
+              + f", peak {r['peak_gib']:.2f} GiB" for r in rows), flush=True)
+    big = hdg_card(T, dev, hd[2][0][1])
+    for r in big:
+        tables.append({"table": f"tracefem_hdg P2 nx={r['nx']} "
+                                f"({r['path']})", "launches": r["launches"]})
+        print(f"[23 hdg] {card()} | tracefem_hdg P2 nx={r['nx']} "
+              f"({r['ndof']} dofs, {r['nfree']} free): BilinearForm.Assemble "
+              f"{r['asm_a_ms']:.1f} ms, LinearForm.Assemble "
+              f"{r['asm_f_ms']:.1f} ms, to_ell {r['to_ell_s']:.3f} s (host), "
+              f"default Inverse() {r['path']}: {r['iters']} iterations, "
+              f"{r['products']} products, {r['launches']} ell_spmv launches, "
+              f"{r['solve_ms']:.1f} ms; L2 {r['err']:.10e}; peak memory "
+              f"{r['peak_gib']:.2f} GiB; wall {r['wall_s']:.2f} s", flush=True)
+    launches = ell_spmv.launches
+    check(launches > 0 or dev.type != "cuda",
+          "the matrix-free path launched ell_spmv no time")
+    print(f"[23 launches] ell_spmv {launches}, dia_cg {dia_cg.launches}; "
+          f"wall of phase 23 {time.perf_counter() - t0:.2f} s, of the whole "
+          f"run {time.perf_counter() - t_start:.2f} s", flush=True)
+    return launches, tables
 
 
 def main():
@@ -2849,6 +3501,7 @@ def main():
     sk, sk_launches = phases_16_17(T, dev, t_start)
     iso, iso_launches = phases_18_19(T, dev, t_start)
     st_launches = phases_20_21(T, dev, t_start)
+    mf_launches, mf_tables = phases_22_23(T, dev, t_start, iso)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -2891,6 +3544,8 @@ def main():
                                       launches=b["launches"])
                                  for b in iso],
         "launches_spacetime": st_launches,
+        "launches_matrix_free": mf_launches,
+        "matrix_free_tables": mf_tables,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -32,7 +32,12 @@ integrator of the forms; and space-time unfitted FEM: ``ScalarTimeFE``,
 restrictions, space-time cut quadrature (``time_order=`` in ``Integrate``,
 ``CutInfo.Update`` and every integrator), Petrov-Galerkin forms across
 space-time spaces, ``SpaceTimeWeakSet`` and
-``LevelSetMeshAdaptation_Spacetime``.  ``from
+``LevelSetMeshAdaptation_Spacetime``; matrix-free operators
+(``BilinearForm.AssembleOperator``: ``PartialAssemblyOperator`` and the
+channel-lattice ``LatticeStencilOperator``), the subdivision quadrature of
+level-set CoefficientFunctions (``subdivlvl > 0``), the spaces
+``FacetFESpace``, ``HDiv`` (RT0, ``dn(..., hdiv=True)``) and ``SFESpace``,
+and static condensation ``condensed_solve``.  ``from
 ngsxfem_tpu_torch import *`` runs the README's Quick start and the
 workloads in ``ngsxfem_tpu_torch/examples``.  What is not ported raises
 ``NotImplementedError`` naming its item in ROADMAP.md.
@@ -52,6 +57,9 @@ from .fem.space import (BitArray, CompoundBitArray, H1, L2, NumberSpace,
 from .fem.xfespace import (XFESpace, XToNegPos, neg, pos, extend, neg_grad,
                            pos_grad, extend_grad)
 from .fem.space import FESpaceFactory as FESpace
+from .fem.facetspace import FacetFESpace
+from .fem.hdiv import HDiv
+from .fem.sfespace import SFESpace
 from .fem.gridfunction import GridFunction, InterpolateToP1, grad
 from .forms.proxies import dn, dnjump, div
 from .forms.assemble import (BilinearForm, LinearForm,
@@ -80,6 +88,9 @@ from .solvers.krylov import (CGSolver, MinResSolver, cg, cg_ir, minres,
                              jacobi_preconditioner)
 from .solvers.dia_cg import dia_cg_fused, dia_cg_fused_plain
 from .solvers.mg import FunctionalELLMG
+from .solvers.operator import PartialAssemblyOperator
+from .solvers.stencilop import LatticeStencilOperator
+from .solvers.condense import condensed_solve
 from .solvers.latticemg import LatticeDIAMG
 
 FIRST, OPTIMAL, FALLBACK = "FIRST", "OPTIMAL", "FALLBACK"
@@ -116,4 +127,6 @@ __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "SpaceTimeFESpace", "CSpaceTimeFESpace", "ReferenceTimeVariable",
            "tref", "dt", "fix_t", "CreateTimeRestrictedGF",
            "RestrictGFInTime", "SpaceTimeInterpolateToP1",
-           "SpaceTimeWeakSet", "LevelSetMeshAdaptation_Spacetime"]
+           "SpaceTimeWeakSet", "LevelSetMeshAdaptation_Spacetime",
+           "FacetFESpace", "HDiv", "SFESpace", "PartialAssemblyOperator",
+           "LatticeStencilOperator", "condensed_solve"]

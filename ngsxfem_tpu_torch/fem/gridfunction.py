@@ -3,8 +3,9 @@
 Counterpart of ``ngsxfem_tpu/fem/gridfunction.py:32-407`` for ``H1``,
 ``L2``, ``NumberSpace`` and vector spaces, their ``Compress``ed
 restrictions, ``XFESpace``, ``SpaceTimeFESpace`` (``Set`` node by node in
-time, evaluation at the context's time) and compounds of them (without the
-jit cache of ``Set``).  A GridFunction
+time, evaluation at the context's time), ``FacetFESpace``, ``HDiv`` and
+``SFESpace`` (evaluated by their spaces' ``gf_eval_hook``) and compounds of
+them (without the jit cache of ``Set``).  A GridFunction
 IS a CoefficientFunction (as in NGSolve); its evaluation at a batch of
 quadrature points is a gather + contraction over the basis tables from
 ``fem.basis``, of every component for a vector space.  The dof vector is a
@@ -135,21 +136,22 @@ def _a(o):
 
 class GridFunction(CF):
     """GridFunction on a scalar or vector space, a ``Compress``ed one, an
-    ``XFESpace`` or a compound of them.  Its vector lives on ``device``
+    ``XFESpace``, a space-time, facet, HDiv or SFE space, or a compound of
+    them.  Its vector lives on ``device``
     (default: the space's device, the card unless the caller asks for the
     CPU; without a card and without that argument it raises) in ``dtype``
     (default ``config.dtype``)."""
 
     def __init__(self, space, name="gf", device=None, dtype=None,
                  _parent=None, _block=None):
+        from .hdiv import HDiv
+        from .sfespace import SFESpace
         from .xfespace import XFESpace
         from ..spacetime.space import SpaceTimeFESpace
 
         if not isinstance(space, (FESpace, CompoundFESpace, XFESpace,
-                                  SpaceTimeFESpace)):
-            raise NotImplementedError(
-                f"GridFunction on {type(space).__name__} (facet, HDiv and "
-                "SFE spaces: ROADMAP A13b)")
+                                  SpaceTimeFESpace, HDiv, SFESpace)):
+            raise TypeError(f"GridFunction on {type(space).__name__}")
         self.space = space
         self.name = name
         self._parent = _parent

@@ -28,9 +28,11 @@ integral runs the space-time tiers of ``integrate.cut_tiers`` (or, without
 a level set, the spatial rule x the time Gauss rule), and the facet-patch,
 skeleton, element-boundary and BND contexts tensorize their parametric
 rule with the time Gauss points before any geometry is derived from it,
-so that a space-time deformation is applied per (point, time) pair.  Not
-ported, each raising ``NotImplementedError``: ``subdivlvl > 0`` (A8b) and
-``AssembleOperator`` (A10).
+so that a space-time deformation is applied per (point, time) pair.
+Under ``subdivlvl > 0`` a volume integral takes the uniform subdivision rule
+of its level-set CoefficientFunction (``integrate.subdiv_ctx_and_weights``).
+``BilinearForm.AssembleOperator`` applies the same element batches without
+building the matrix (``solvers/operator.py``, ``solvers/stencilop.py``).
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ from ..config import config
 from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx
 from ..domaintype import IF, NEG, POS
-from ..integrate import (_p1_vertex_dofs, cut_tiers, ensure_p1_levelset,
-                         normalize_levelset_domain)
+from ..integrate import (_cut_ctx_and_weights, _p1_vertex_dofs, cut_tiers,
+                         ensure_p1_levelset, normalize_levelset_domain)
 from ..mesh.mesh import (FACET_ET, FACET_VERTS, det_and_inv, geom_dshapes,
                          geom_shapes, map_points, small_matmul)
 from ..ops.cuttables import ET_SPLIT, REF_VERTS
@@ -88,10 +90,6 @@ class Integral:
             if force_intorder < 0:
                 self.force_intorder = int(
                     self.levelset_domain.get("force_intorder", -1))
-            if self.levelset_domain["subdivlvl"] > 0:
-                raise NotImplementedError(
-                    "subdivlvl > 0 (subdivision quadrature) is not ported "
-                    "yet (ROADMAP A8b)")
         if vb not in (VOL, BND):
             raise NotImplementedError(
                 f"VOL_or_BND={vb!r} integrals are not supported; "
@@ -161,6 +159,17 @@ def _ensure_p1_ld(integral: Integral, mesh, device):
     if integral.levelset_domain is None:
         return
     ld = integral.levelset_domain
+    if ld["subdivlvl"] > 0:
+        # the subdivision rule keeps the level set a genuine CF (the
+        # legacy engine, cutint/xintegration.cpp:698+); volume integrals
+        # only, as in the JAX package
+        if (integral.element_boundary or integral.skeleton
+                or integral.facet_patch or integral.vb == BND):
+            raise NotImplementedError(
+                "subdivlvl>0 is only supported for volume cut integrals; "
+                "facet/boundary integrators use the straight-cut rule "
+                "(as the reference does)")
+        return
     orig = ld.get("_orig_levelset", ld["levelset"])
     p1 = ensure_p1_levelset(orig, mesh, device)
     if p1 is not orig:
@@ -256,7 +265,10 @@ def _volume_tiers(integral: Integral, mesh, order, device):
     With a level-set domain these are the two tiers of
     ``integrate.two_tier_tiers``: the standard rule on the uncut elements of
     the requested side and the cut rule on the cut elements only, so the
-    expensive path scales with the interface, not the volume."""
+    expensive path scales with the interface, not the volume.  Under
+    ``subdivlvl > 0`` it is one tier, the uniform subdivision rule on every
+    element (``integrate.subdiv_ctx_and_weights``), as in the JAX
+    package."""
     o = _intorder(integral, order)
     deform = _deformation_of(integral, mesh)
     if integral.levelset_domain is None:
@@ -268,6 +280,13 @@ def _volume_tiers(integral: Integral, mesh, order, device):
         ctx = EvalCtx(mesh, pts, deformation=deform, time=times)
         w = (rw * ctx.detJ.abs()).expand(mesh.ne, rw.shape[1])
         tiers = [(ctx, w, torch.ones_like(w, dtype=torch.bool), None)]
+    elif integral.levelset_domain["subdivlvl"] > 0:
+        ld = integral.levelset_domain
+        ctx, w, mask = _cut_ctx_and_weights(
+            mesh, ld["levelset"], int(ld["domain_type"]), o,
+            integral.time_order, deformation=deform,
+            subdivlvl=ld["subdivlvl"], device=device)
+        tiers = [(ctx, w, mask, None)]
     else:
         ld = integral.levelset_domain
         tiers = cut_tiers(mesh, ld["levelset"], int(ld["domain_type"]), o,
@@ -772,6 +791,7 @@ class BilinearForm:
         self.element_restriction = element_restriction
         self.facet_restriction = facet_restriction
         self.mat = None
+        self.operator_kind = None  # the kind AssembleOperator took
 
     def __iadd__(self, integral: Integral):
         if not isinstance(integral, Integral):
@@ -780,16 +800,92 @@ class BilinearForm:
         return self
 
     def Assemble(self, reallocate=False, heapsize=None):
+        if not self.integrals:
+            raise ValueError("no integrals to assemble")
+        vparts, rparts, cparts = [], [], []
+        for m, rows, cols in map(_triplets, self._elmat_batches()):
+            vparts.append(m)
+            rparts.append(rows)
+            cparts.append(cols)
+        self.mat = SparseMatrix(torch.cat(rparts), torch.cat(cparts),
+                                torch.cat(vparts),
+                                (self.space_v.ndof, self.space_u.ndof),
+                                device=self.space.device)
+        return self
+
+    def AssembleOperator(self, lattice="auto"):
+        """Matrix-free alternative to :meth:`Assemble`: the same element
+        batches, applied without building the global matrix.  Returns a
+        ``LatticeStencilOperator`` when ``lattice`` is ``"auto"`` or True,
+        the trial and test spaces are one space whose dofs form a uniform
+        channel lattice (``lattice_dof_map``) and the dense tables pass
+        ``stencil_guard``; else a ``PartialAssemblyOperator``.
+        ``lattice=True`` raises ``ValueError`` where the stencil cannot be
+        built, ``lattice=False`` always takes the partial assembly.  A form
+        without integrals gives the zero operator.  The kind taken is the
+        operator's ``kind`` and the form's ``operator_kind``."""
+        from ..solvers.operator import PartialAssemblyOperator
+        from ..solvers.stencilop import (LatticeStencilOperator,
+                                         StencilTooLarge, lattice_dof_map)
+
+        if lattice not in ("auto", True, False):
+            raise ValueError(f"lattice must be 'auto', True or False, "
+                             f"got {lattice!r}")
+        batches = list(self._elmat_batches())
+        space = self.space_v
+        device = self.space.device
+        op = None
+        if lattice:
+            why = None
+            dofmap = (lattice_dof_map(space)
+                      if self.space_u is self.space_v else None)
+            if self.space_u is not self.space_v:
+                why = "the trial and test spaces differ"
+            elif dofmap is None:
+                why = ("the space's dofs do not form a uniform channel "
+                       "lattice (unstructured mesh, curved map, or "
+                       "non-Lagrange space)")
+            elif batches:
+                trip = [_triplets(b) for b in batches]
+                rows = torch.cat([t[1] for t in trip])
+                cols = torch.cat([t[2] for t in trip])
+                vals = torch.cat([t[0] for t in trip])
+                del trip
+                try:
+                    op = LatticeStencilOperator(rows, cols, vals, dofmap,
+                                                space.ndof)
+                except StencilTooLarge as err:
+                    why = str(err)
+            if why is not None and lattice is True:
+                raise ValueError(f"lattice=True but {why}")
+        if op is None:
+            parts = []
+            for m, dm_v, dm_u, vv, vu in batches:
+                if vv is not None:
+                    m = torch.where(vv[:, :, None], m, 0.0)
+                if vu is not None:
+                    m = torch.where(vu[:, None, :], m, 0.0)
+                parts.append((m, dm_v, dm_u))
+            op = PartialAssemblyOperator(
+                parts, (space.ndof, self.space_u.ndof), device=device,
+                dtype=config.dtype)
+        self.operator_kind = op.kind
+        return op
+
+    def _elmat_batches(self):
+        """The element-matrix batches of every integral, in assembly order:
+        ``(m (E, ndv, ndu), dm_v (E, ndv), dm_u (E, ndu), valid_v, valid_u)``
+        per quadrature tier and (trial, test) block pair, with the dof maps
+        on the space's device and ``valid_*`` the placeholder masks of
+        ``block_valid`` (None where every slot is a dof).  Shared by
+        :meth:`Assemble` (triplets) and :meth:`AssembleOperator`."""
         space_u, space_v = self.space_u, self.space_v
         mesh = self.space.mesh
         device = self.space.device
         order = max(_space_order(space_u), _space_order(space_v))
-        if not self.integrals:
-            raise ValueError("no integrals to assemble")
         for i in self.integrals:
             _ensure_p1_ld(i, mesh, device)
             _check_proxy_spaces(i.form, space_u, space_v)
-        vparts, rparts, cparts = [], [], []
         for integral in map(self._with_restriction, self.integrals):
             if integral.facet_patch or integral.skeleton:
                 build = (_facet_patch_ctx if integral.facet_patch
@@ -826,35 +922,11 @@ class BilinearForm:
                     key = (t.ufac.block, t.vfac.block)
                     acc[key] = m if key not in acc else acc[key] + m
                 for (bu, bv), m in acc.items():
-                    dm_u = block_dofmap(space_u, bu, es, eo, device=device)
-                    dm_v = block_dofmap(space_v, bv, es, eo, device=device)
-                    rows = dm_v[:, :, None].expand(m.shape)
-                    cols = dm_u[:, None, :].expand(m.shape)
-                    # triplets at placeholder slots are left out: they hold
-                    # zeros (their factors are masked, or their elements lie
-                    # outside the integral's selection) and would otherwise
-                    # all land in the placeholder's row and column
-                    vu = block_valid(space_u, bu, es, eo, device=device)
-                    vv = block_valid(space_v, bv, es, eo, device=device)
-                    if vu is not None or vv is not None:
-                        keep = torch.ones_like(m, dtype=torch.bool)
-                        if vv is not None:
-                            keep = keep & vv[:, :, None]
-                        if vu is not None:
-                            keep = keep & vu[:, None, :]
-                        m, rows, cols = m[keep], rows[keep], cols[keep]
-                    vparts.append(m.reshape(-1))
-                    rparts.append(rows.reshape(-1))
-                    cparts.append(cols.reshape(-1))
-        self.mat = SparseMatrix(torch.cat(rparts), torch.cat(cparts),
-                                torch.cat(vparts),
-                                (space_v.ndof, space_u.ndof), device=device)
-        return self
-
-    def AssembleOperator(self, lattice="auto"):
-        raise NotImplementedError(
-            "AssembleOperator (matrix-free operators) is not ported yet "
-            "(ROADMAP A10)")
+                    yield (m,
+                           block_dofmap(space_v, bv, es, eo, device=device),
+                           block_dofmap(space_u, bu, es, eo, device=device),
+                           block_valid(space_v, bv, es, eo, device=device),
+                           block_valid(space_u, bu, es, eo, device=device))
 
     def _with_restriction(self, integral: Integral):
         """Apply the form-level restrictions (RestrictedBilinearForm,
@@ -951,6 +1023,24 @@ class LinearForm:
             hit[1].add(torch.cat(contribs), out)
         self._vec = out
         return self
+
+
+def _triplets(batch):
+    """(vals, rows, cols) of one ``BilinearForm._elmat_batches`` batch, the
+    triplets at placeholder slots left out: they hold zeros (their factors
+    are masked, or their elements lie outside the integral's selection) and
+    would otherwise all land in the placeholder's row and column."""
+    m, dm_v, dm_u, vv, vu = batch
+    rows = dm_v[:, :, None].expand(m.shape)
+    cols = dm_u[:, None, :].expand(m.shape)
+    if vu is not None or vv is not None:
+        keep = torch.ones_like(m, dtype=torch.bool)
+        if vv is not None:
+            keep = keep & vv[:, :, None]
+        if vu is not None:
+            keep = keep & vu[:, None, :]
+        m, rows, cols = m[keep], rows[keep], cols[keep]
+    return m.reshape(-1), rows.reshape(-1), cols.reshape(-1)
 
 
 def RestrictedBilinearForm(space, name="a", element_restriction=None,

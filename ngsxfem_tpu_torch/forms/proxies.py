@@ -5,11 +5,12 @@ NGSolve's symbolic proxy framework that the reference's cut integrators plug
 into, ``xfem/symboliccutbfi.cpp:151-215``): a proxy evaluates to a *basis
 factor tensor* ``(E, Q, ndof_el, *comps)``; form evaluation propagates
 bilinear jets (forms/evaluate.py).  Ported: value and gradient proxies,
-``.Other()``, ``div``, the exact normal derivatives ``dn``/``dnjump``,
-``Operator`` for the names the reference accepts on these spaces, and the
-space-time operators ``dt``/``fix_t`` (``spacetime/space.py``, evaluated by
-``SpaceTimeFESpace.proxy_factor_hook``); HDiv (``dn(..., hdiv=True)``) and
-the facet-space operators raise ``NotImplementedError`` (ROADMAP A13b).
+``.Other()``, ``div``, the exact normal derivatives ``dn``/``dnjump``
+(with ``hdiv=True`` on ``HDiv`` spaces), ``Operator`` for the names the
+reference accepts (others through a space's ``proxy_operator_hook``, as in
+the JAX package), and the space-time operators ``dt``/``fix_t``
+(``spacetime/space.py``, evaluated by
+``SpaceTimeFESpace.proxy_factor_hook``).
 """
 from __future__ import annotations
 
@@ -81,9 +82,10 @@ class ProxyFunction(CF):
             return div(self)
         if name in ("val", "id"):
             return self
-        raise NotImplementedError(
-            f"Operator({name!r}) on this space (the HDiv and facet space "
-            "operators are not ported yet, ROADMAP A13b)")
+        hook = getattr(self.space, "proxy_operator_hook", None)
+        if hook is not None:
+            return hook(self, name)
+        raise NotImplementedError(f"Operator({name!r}) on this space")
 
     def __repr__(self):
         kind = "test" if self.test else "trial"
@@ -101,15 +103,21 @@ def dn(proxy, order=1, comp=-1, hdiv=False):
     Evaluated exactly for polynomial bases by a 1D restriction along the
     facet normal (forms/evaluate.py ``_dnk_factor``), where the reference
     uses central finite differences (xfem/ghostpenalty.cpp:8-130).  On a
-    vector space it is componentwise, ``(vdim,)``-valued."""
+    vector space it is componentwise, ``(vdim,)``-valued.  With
+    ``hdiv=True`` (or an HDiv-space proxy) it is the vector-valued normal
+    derivative of the Piola-mapped shapes (DiffOpDuDnkHDiv,
+    ghostpenalty.cpp:140-199)."""
     if not isinstance(proxy, ProxyFunction):
         raise TypeError("dn expects a proxy function")
     if proxy.op != "val":
         raise TypeError("dn expects a value proxy")
-    if hdiv:
-        raise NotImplementedError(
-            "dn(hdiv=True) needs HDiv spaces, which are not ported yet "
-            "(ROADMAP A13b)")
+    from ..fem.hdiv import HDiv
+
+    if hdiv or isinstance(proxy.space, HDiv):
+        if not isinstance(proxy.space, HDiv):
+            raise TypeError("dn(hdiv=True) expects an HDiv-space proxy")
+        return proxy._clone(op="dnk", op_args=(int(order),),
+                            dims=(proxy.space.mesh.dim,))
     vd = getattr(proxy.space, "vdim", 1)
     return proxy._clone(op="dnk", op_args=(int(order),),
                         dims=() if vd == 1 else (vd,))

@@ -17,6 +17,7 @@ import torch
 
 from ..domaintype import NEG, POS, IF, as_cdt
 from ..fem.space import BitArray, _arr
+from ..fem.facetspace import GetDofsOfFacets  # noqa: F401 (the API's place)
 from ..cf.coefficient import ElementValuesCF, FacetValuesCF
 from ..ops.straightcut import cut_rule_element, eps_guard
 from ..integrate import (ensure_p1_levelset, lset_st_vertex_values,
@@ -213,26 +214,6 @@ def GetElementsWithNeighborFacets(mesh, facets) -> BitArray:
     for s in range(2):
         es = f2e[sel, s]
         out[es[es >= 0]] = True
-    return BitArray(out)
-
-
-def GetDofsOfFacets(space, facet_mask) -> BitArray:
-    """Dofs associated with marked facets (xfem/cutinfo.cpp:306-329): for
-    H1, the facet-interior Lagrange dofs (the NT_FACET node dofs, empty for
-    order 1 on simplices, as in NGSolve)."""
-    from ..fem.basis import facet_local_nodes
-
-    mask = _arr(facet_mask)
-    out = np.zeros(space.ndof, dtype=bool)
-    lfn = facet_local_nodes(space.mesh.et, space.order, interior_only=True)
-    m = space.mesh
-    fids = np.nonzero(mask)[0]
-    e = m.facet2el_np[fids, 0]
-    lf = m.facet2elloc_np[fids, 0]
-    for loc, ids in enumerate(lfn):
-        sel = lf == loc
-        if len(ids) and sel.any():
-            out[space.el2dof_np[e[sel]][:, ids].ravel()] = True
     return BitArray(out)
 
 

@@ -14,9 +14,18 @@ tier through the evaluation context.  Space-time integrals
 (``time_order >= 0``, a space-time P1 level set or a spatial one taken as
 constant in time) split the same way: ``ops.spacetimecut.spacetime_split``
 finds the elements whose space-time rule is the plain spatial rule x the
-time Gauss rule, and only the others run ``spacetime_cut_rule``.  Out of
-scope here, and raising ``NotImplementedError``: ``subdivlvl > 0`` (ROADMAP
-A8b).
+time Gauss rule, and only the others run ``spacetime_cut_rule``.
+
+``subdivlvl > 0`` keeps the level set a genuine CoefficientFunction (the
+reference's legacy adaptive engine, cutint/xintegration.cpp:698+): it is
+evaluated on the dyadic subdivision lattice of every element
+(``ops/subdivide.py``) and the straight-cut rule runs on the sub-simplices.
+``Integrate`` takes three tiers, as the JAX package's banded path does:
+elements of one sign take their plain rule, descendants of the sign-uniform
+depth-1 children of the band take their mapped plain rules, and only the
+mixed depth-1 children run the cut rule; the band and the mixed children
+are taken exactly with ``torch.nonzero``.  The forms, and space-time
+integrals, take the uniform rule on every element.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ from .cf.coefficient import wrap
 from .cf.context import EvalCtx, eval_pure
 from .fem.basis import lagrange_element
 from .ops.gauss import reference_rule
-from .ops.straightcut import cut_rule_element, eps_guard
+from .ops.straightcut import cut_rule_element, cut_rule_simplices, eps_guard
+from .ops.subdivide import child_tables, subdivision_tables
 
 
 def vertex_local_ids(et: str, order: int):
@@ -169,15 +179,6 @@ def normalize_levelset_domain(levelset_domain: dict):
     return ld
 
 
-def _not_ported(subdivlvl=0):
-    """Raise for the feature of the reference's quadrature that the port
-    does not have yet."""
-    if subdivlvl > 0:
-        raise NotImplementedError(
-            "subdivlvl > 0 (subdivision quadrature) is not ported yet "
-            "(ROADMAP A8b)")
-
-
 def _rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if, nref,
                       elem_ids=None, deformation="inherit", times=None,
                       times_if=None):
@@ -291,14 +292,217 @@ def _two_tier_integrate(mesh, cf, lgf, dt, order, policy, ew, time_order=-1):
     return total_e if ew else total_e.sum()
 
 
+def _lattice_values(mesh, levelset, lattice, device, deformation):
+    """(E, nlat) eps-guarded level-set values at the subdivision lattice
+    (reference coordinates) of every element."""
+    lat = torch.as_tensor(lattice, dtype=config.dtype, device=device)[None]
+    ctx = EvalCtx(mesh, lat, deformation=deformation)
+    vals = torch.broadcast_to(eval_pure(wrap(levelset), ctx),
+                              (mesh.ne, lattice.shape[0]))
+    return eps_guard(vals)
+
+
+def subdiv_ctx_and_weights(mesh, levelset, domain_type, order, lvl, device,
+                           deformation="inherit"):
+    """(ctx, physical weights, validity mask) of the uniform subdivision
+    rule on every element: the level set, a CoefficientFunction, is
+    evaluated at each element's level-``lvl`` lattice and the straight-cut
+    rule runs on all its sub-simplices (the reference's legacy engine,
+    cutint/xintegration.cpp:698+, without its pruning)."""
+    dt = DOMAIN_TYPE(int(domain_type))
+    d, E = mesh.dim, mesh.ne
+    lattice, subs = subdivision_tables(mesh.et, lvl)
+    vals = _lattice_values(mesh, levelset, lattice, device, deformation)
+    nsub = subs.shape[0]
+    coords = torch.as_tensor(lattice[subs], dtype=config.dtype, device=device)
+    coords = coords[None].expand(E, nsub, d + 1, d).reshape(E * nsub, d + 1, d)
+    subs_t = torch.as_tensor(subs, dtype=torch.int64, device=device)
+    svals = vals[:, subs_t].reshape(E * nsub, d + 1)
+    r = cut_rule_simplices(coords, svals, d, order)
+    merge = lambda a: a.reshape((E, nsub * a.shape[1]) + tuple(a.shape[2:]))
+    return _rule_ctx_weights(mesh, dt, *(merge(a) for a in r),
+                             deformation=deformation)
+
+
+def subdiv_tiers(mesh, levelset, domain_type, order, lvl, device,
+                 deformation="inherit"):
+    """The three tiers [(ctx, w_phys, mask, elem_ids)] of a ``subdivlvl >
+    0`` integral, the reference legacy engine's pruned work
+    (cutint/xintegration.cpp:738-852, ``Simplex::CheckIfCut``,
+    xdecompose.hpp:34-87):
+
+    * elements whose lattice values all have the requested sign take the
+      element's plain rule (NEG/POS only);
+    * in the band of elements with both signs, the descendants of depth-1
+      children that are sign-uniform over their own lattice points take
+      their mapped plain rules when they lie on the requested side
+      (NEG/POS only);
+    * only the mixed depth-1 children run their descendants through the
+      straight-cut rule.
+
+    The band and the mixed children are taken exactly (``torch.nonzero``);
+    an element id repeats in the last tier once per mixed child."""
+    dt = DOMAIN_TYPE(int(domain_type))
+    d, E = mesh.dim, mesh.ne
+    dtype = config.dtype
+    lattice, subs, child_pts, nchild, g = child_tables(mesh.et, lvl)
+    vals = _lattice_values(mesh, levelset, lattice, device, deformation)
+    neg_any = (vals < 0).any(1)
+    pos_any = (vals > 0).any(1)
+    mixed = neg_any & pos_any
+    simplex = "trig" if d == 2 else "tet"
+    cp, cw = reference_rule(simplex if mesh.et in ("quad", "hex")
+                            else mesh.et, order)
+    as_t = lambda a, dt_=dtype: torch.as_tensor(a, dtype=dt_, device=device)
+    tiers = []
+    if dt != IF:
+        cpe, cwe = reference_rule(mesh.et, order)
+        ids = torch.nonzero((~mixed) & (neg_any if dt == NEG
+                                        else pos_any))[:, 0]
+        ctx = EvalCtx(mesh, as_t(cpe)[None], elem_ids=ids,
+                      deformation=deformation)
+        w = (as_t(cwe) * ctx.detJ.abs()).expand(len(ids), len(cwe))
+        tiers.append((ctx, w, (as_t(cwe) > 0).expand(len(ids), len(cwe)),
+                      ids))
+
+    band = torch.nonzero(mixed)[:, 0]
+    bvals = vals[band]
+    cvals = bvals[:, as_t(child_pts, torch.int64)]  # (nband, nchild, L)
+    child_mixed = (cvals < 0).any(2) & (cvals > 0).any(2)
+    subs_t = as_t(subs, torch.int64)
+    nsub = subs.shape[0]
+    if dt != IF:
+        # descendants of sign-uniform children: plain rules mapped onto
+        # each descendant simplex (host tables)
+        nq = cp.shape[0]
+        v0 = lattice[subs][:, 0]
+        M = lattice[subs][:, 1:] - v0[:, None]
+        desc_pts = v0[:, None, :] + np.einsum("qk,skd->sqd", cp, M)
+        w_desc = cw[None, :] * np.abs(np.linalg.det(M))[:, None]
+        ctx = EvalCtx(mesh, as_t(desc_pts.reshape(1, nsub * nq, d)),
+                      elem_ids=band, deformation=deformation)
+        dvals = bvals[:, subs_t]  # (nband, nsub, d+1)
+        side = (dvals < 0).all(2) if dt == NEG else (dvals > 0).all(2)
+        child_of_desc = torch.arange(nchild, device=device).repeat_interleave(g)
+        selp = side & ~child_mixed[:, child_of_desc]
+        w = torch.where(selp[:, :, None], as_t(w_desc)[None], 0.0)
+        w = w.reshape(len(band), nsub * nq) * ctx.detJ.abs()
+        mask = (selp[:, :, None] & (as_t(cw) > 0)).reshape(len(band),
+                                                            nsub * nq)
+        tiers.append((ctx, w, mask, band))
+
+    # the mixed depth-1 children: the cut rule on their descendants
+    pick = torch.nonzero(child_mixed.reshape(-1))[:, 0]
+    e3 = band[pick // nchild]
+    c3 = pick % nchild
+    sbc = subs_t.reshape(nchild, g, d + 1)[c3]  # (n3, g, d+1)
+    n3 = len(pick)
+    svals = vals[e3[:, None, None], sbc].reshape(n3 * g, d + 1)
+    coords = as_t(lattice)[sbc].reshape(n3 * g, d + 1, d)
+    r = cut_rule_simplices(coords, svals, d, order)
+    merge = lambda a: a.reshape((n3, g * a.shape[1]) + tuple(a.shape[2:]))
+    tiers.append((*_rule_ctx_weights(mesh, dt, *(merge(a) for a in r),
+                                     elem_ids=e3, deformation=deformation),
+                  e3))
+    return tiers
+
+
+def subdiv_st_ctx_and_weights(mesh, levelset, domain_type, order, lvl,
+                              time_order, device, deformation="inherit"):
+    """(ctx, physical weights, validity mask) of ``subdivlvl > 0`` with
+    ``time_order >= 0`` (the reference legacy engine's space-time path,
+    ``NumericalIntegrationStrategy<ET_SPACE, ET_TIME>``,
+    cutint/xintegration.cpp:698+): the uniform dyadic subdivision in space
+    x ``2^lvl`` uniform time sub-slabs.  The level set is evaluated once on
+    the lattice at the ``2^lvl + 1`` sub-slab edge times, and one batched
+    k_t = 1 space-time rule runs over all (element, sub-slab, sub-simplex)
+    rows."""
+    from .ops.spacetimecut import spacetime_cut_rule_simplices
+
+    dt = DOMAIN_TYPE(int(domain_type))
+    d, E = mesh.dim, mesh.ne
+    lattice, subs = subdivision_tables(mesh.et, lvl)
+    nlat, nsub = lattice.shape[0], subs.shape[0]
+    S = 2 ** lvl  # time sub-slabs
+    dtype = config.dtype
+    edges = torch.linspace(0.0, 1.0, S + 1, dtype=dtype, device=device)
+    lat = torch.as_tensor(lattice, dtype=dtype, device=device)
+    pts = lat[None].expand(S + 1, nlat, d).reshape(1, (S + 1) * nlat, d)
+    times = edges[:, None].expand(S + 1, nlat).reshape(1, (S + 1) * nlat)
+    ctx = EvalCtx(mesh, pts, deformation=deformation, time=times)
+    vals = torch.broadcast_to(eval_pure(wrap(levelset), ctx),
+                              (E, (S + 1) * nlat)).reshape(E, S + 1, nlat)
+    B = E * S * nsub
+    coords = torch.as_tensor(lattice[subs], dtype=dtype, device=device)
+    coords = coords[None, None].expand(E, S, nsub, d + 1, d).reshape(
+        B, d + 1, d)
+    subs_t = torch.as_tensor(subs, dtype=torch.int64, device=device)
+    sa = vals[:, :-1][:, :, subs_t].reshape(B, d + 1)  # sub-slab start
+    sb = vals[:, 1:][:, :, subs_t].reshape(B, d + 1)  # sub-slab end
+    r = spacetime_cut_rule_simplices(coords, sa, sb, d, order, time_order)
+    dt_s = 1.0 / S
+
+    def emerge(a):  # (B, q, ...) -> (E, S*nsub*q, ...)
+        return a.reshape((E, S * nsub * a.shape[1]) + tuple(a.shape[2:]))
+
+    def to_global_time(tl):  # sub-slab local [0,1] -> slab time
+        q = tl.shape[1]
+        ta = edges[:-1][None, :, None, None].expand(E, S, nsub, q)
+        return ta.reshape(E, S * nsub * q) + dt_s * emerge(tl)
+
+    return _rule_ctx_weights(
+        mesh, dt, emerge(r.pts), dt_s * emerge(r.w), emerge(r.side),
+        emerge(r.pts_if), dt_s * emerge(r.w_if), emerge(r.nref),
+        deformation=deformation, times=to_global_time(r.times),
+        times_if=to_global_time(r.times_if))
+
+
+def _subdiv_integrate(mesh, cf, ld, order, ew, time_order, device):
+    """Integral of ``cf`` under a ``subdivlvl > 0`` level-set domain on the
+    device of the level set's GridFunction, else on ``device``: the tiers
+    of ``subdiv_tiers``, or in space-time the uniform rule on every
+    element.  Per-element sums (ne,) when ``ew``, else the 0-d integral."""
+    from .fem.gridfunction import GridFunction
+
+    lset, lvl = ld["levelset"], ld["subdivlvl"]
+    dev = (lset.device if isinstance(lset, GridFunction)
+           else resolve_device(device))
+    dt = int(ld["domain_type"])
+    if time_order < 0:
+        tiers = subdiv_tiers(mesh, lset, dt, order, lvl, dev)
+    else:
+        ctx, w, mask = _cut_ctx_and_weights(mesh, lset, dt, order,
+                                            time_order, subdivlvl=lvl,
+                                            device=dev)
+        tiers = [(ctx, w, mask, None)]
+    from .ops.scatter import ScatterPlan
+
+    total_e = torch.zeros(mesh.ne, dtype=config.dtype, device=dev)
+    for ctx, w, mask, ids in tiers:
+        f = torch.broadcast_to(eval_pure(cf, ctx), w.shape)
+        per = (torch.where(mask, f, 0.0) * w).sum(1)
+        if ids is None:
+            total_e += per
+        else:  # ids repeat in the children's tier: a fixed-order sum
+            ScatterPlan(ids, mesh.ne).add(per, total_e)
+    return total_e if ew else total_e.sum()
+
+
 def _cut_ctx_and_weights(mesh, lset_gf, domain_type, order, time_order=-1,
                          quad_dir_policy="OPTIMAL", deformation="inherit",
-                         subdivlvl=0):
+                         subdivlvl=0, device=None):
     """(ctx, physical weights, validity mask) of the cut rule on every
     element of the mesh (one tier; ``cut_tiers`` splits it): the space-time
-    rule for ``time_order >= 0``."""
-    _not_ported(subdivlvl)
+    rule for ``time_order >= 0``, the uniform subdivision rule of a level
+    set CoefficientFunction for ``subdivlvl > 0`` (on ``device``)."""
     dt = DOMAIN_TYPE(int(domain_type))
+    if subdivlvl > 0:
+        if time_order >= 0:
+            return subdiv_st_ctx_and_weights(mesh, lset_gf, dt, order,
+                                             subdivlvl, time_order, device,
+                                             deformation)
+        return subdiv_ctx_and_weights(mesh, lset_gf, dt, order, subdivlvl,
+                                      device, deformation)
     if time_order >= 0:
         from .ops.spacetimecut import spacetime_cut_rule
 
@@ -368,12 +572,16 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
         else:
             ld = normalize_levelset_domain(levelset_domain)
             time_order = int(ld.get("time_order", time_order))
-            _not_ported(ld["subdivlvl"])
             o = order if ld["force_intorder"] < 0 else ld["force_intorder"]
-            lgf = ensure_p1_levelset(ld["levelset"], mesh, device)
-            out = _two_tier_integrate(mesh, cf, lgf, int(ld["domain_type"]), o,
-                                      ld["quad_dir_policy"], element_wise,
-                                      time_order)
+            if ld["subdivlvl"] > 0:
+                out = _subdiv_integrate(mesh, cf, ld, o, element_wise,
+                                        time_order, device)
+            else:
+                lgf = ensure_p1_levelset(ld["levelset"], mesh, device)
+                out = _two_tier_integrate(mesh, cf, lgf,
+                                          int(ld["domain_type"]), o,
+                                          ld["quad_dir_policy"],
+                                          element_wise, time_order)
     finally:
         if deformation is not None:
             mesh.UnsetDeformation()

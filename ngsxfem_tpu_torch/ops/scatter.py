@@ -43,9 +43,12 @@ class _Level:
 
 class ScatterPlan:
     """The fixed-order plan of ``index`` (1-D integer tensor, entries in
-    [0, n)) on its device; its ``levels`` (host reads happen here, once)."""
+    [0, n)) on its device; its ``levels`` (host reads happen here, once).
+    With ``sequential=True`` there is one level however many contributions
+    a slot has (as many passes as the largest count): the sequential sum
+    of the stream, bit for bit what ``np.add.at`` gives."""
 
-    def __init__(self, index, n):
+    def __init__(self, index, n, sequential=False):
         self.n = n
         self.levels = []
         slots = index.reshape(-1).to(torch.int64)
@@ -57,7 +60,7 @@ class ScatterPlan:
             rank = (torch.arange(m, device=dev)
                     - torch.searchsorted(sorted_slots, sorted_slots))
             it = torch.int32 if max(m, n) < 2**31 else torch.int64
-            if m == 0 or int(rank.max()) < CHUNK:
+            if m == 0 or sequential or int(rank.max()) < CHUNK:
                 by_rank = torch.argsort(rank, stable=True)
                 self.levels.append(_Level(
                     order[by_rank].to(it), sorted_slots[by_rank].to(it),

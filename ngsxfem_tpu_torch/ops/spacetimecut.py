@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 
 from .gauss import gauss_legendre_01
-from .straightcut import cut_rule_element, eps_guard
+from .straightcut import cut_rule_element, cut_rule_simplices, eps_guard
 
 
 class SpaceTimeCutRule(NamedTuple):
@@ -176,6 +176,28 @@ def spacetime_cut_rule(et: str, vals_st, kt: int, order_space: int,
     tpts, twts, vv, _ = _st_slices(coefs, kt, order_time)
     T = tpts.shape[1]
     r = cut_rule_element(et, vv.reshape(E * T, nvel), order_space, policy)
+    return _st_assemble(r, tpts, twts)
+
+
+def spacetime_cut_rule_simplices(coords, vals_a, vals_b, d: int,
+                                 order_space: int, order_time: int):
+    """Space-time (k_t = 1) cut rule on a batch of arbitrary d-simplices:
+    the subdivision engine's kernel (the counterpart of the reference
+    legacy engine's ``NumericalIntegrationStrategy<ET_SPACE, ET_TIME>``,
+    cutint/xintegration.cpp).  ``coords (B, d+1, d)`` are simplex vertices
+    in element-reference space, ``vals_a``/``vals_b (B, d+1)`` the level
+    set at those vertices at the (sub-)slab's local t = 0 / t = 1.  The
+    spatial rule per time point is ``cut_rule_simplices``, so the weights
+    carry the sub-simplex measure."""
+    B, nv = vals_a.shape
+    vals_a = eps_guard(vals_a)
+    vals_b = eps_guard(vals_b)
+    coefs = torch.stack([vals_a, vals_b - vals_a], dim=-1)  # (B, nv, 2)
+    tpts, twts, vv, _ = _st_slices(coefs, 1, order_time)
+    T = tpts.shape[1]
+    coords_rep = coords[:, None].expand((B, T) + tuple(coords.shape[1:]))
+    r = cut_rule_simplices(coords_rep.reshape((B * T,) + tuple(coords.shape[1:])),
+                           vv.reshape(B * T, nv), d, order_space)
     return _st_assemble(r, tpts, twts)
 
 

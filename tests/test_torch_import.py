@@ -55,6 +55,14 @@ import ngsxfem_tpu_torch.utils.utils
 import ngsxfem_tpu_torch.examples.moving_domain
 import ngsxfem_tpu_torch.examples.moving_domain3d
 import ngsxfem_tpu_torch.examples.heateq_cg_spacetime
+import ngsxfem_tpu_torch.ops.subdivide
+import ngsxfem_tpu_torch.solvers.operator
+import ngsxfem_tpu_torch.solvers.stencilop
+import ngsxfem_tpu_torch.solvers.condense
+import ngsxfem_tpu_torch.fem.facetspace
+import ngsxfem_tpu_torch.fem.hdiv
+import ngsxfem_tpu_torch.fem.sfespace
+import ngsxfem_tpu_torch.examples.tracefem_hdg
 import chip_smoke
 from ngsxfem_tpu_torch import *
 

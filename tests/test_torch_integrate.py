@@ -6,8 +6,9 @@ vector, CoefficientFunction level sets (interpolated to P1 by
 ``ensure_p1_levelset``), NEG/POS/IF, orders 0-8, ``element_wise``, and the
 README's Quick start: the port (tensors on the CPU, float64) agrees with
 the JAX package (CPU, x64) to 1e-12 relative.  Also: the autograd gradient
-of a cut volume against ``jax.grad``, and the features the port does not
-have yet raise ``NotImplementedError``.
+of a cut volume against ``jax.grad``, and the features that raised before
+they were ported (``subdivlvl``, ``time_order``, ``deformation``) give the
+JAX package's values.
 """
 import math
 import warnings
@@ -221,14 +222,26 @@ def test_unported_features_raise():
     lset = T.GridFunction(T.H1(mesh, order=1, device="cpu"))
     lset.Set(T.x - 0.3)
     ld = {"levelset": lset, "domain_type": T.NEG}
-    with pytest.raises(NotImplementedError, match="A8b"):
-        T.Integrate(dict(ld, subdivlvl=1), 1.0, mesh)
     # space-time integrals are ported (ROADMAP A13): ``time_order`` in the
     # dict or as an argument, and CutInfo's, give the JAX package's values
     mj = J.MakeStructured2DMesh(quads=False, nx=2, ny=2)
     lj = J.GridFunction(J.H1(mj, order=1))
     lj.Set(J.x - 0.3)
     ldj = {"levelset": lj, "domain_type": J.NEG}
+    # the subdivision rule is ported (ROADMAP A8b): on the P1 level set and
+    # on a CoefficientFunction, in space and in space-time, it gives the JAX
+    # package's values
+    assert _close(T.Integrate(dict(ld, subdivlvl=1), 1.0, mesh),
+                  J.Integrate(dict(ldj, subdivlvl=1), 1.0, mj))
+    spatial = (T.x * T.x + T.y - 0.5, J.x * J.x + J.y - 0.5)
+    moving = (T.x - 0.3 - 0.2 * T.tref, J.x - 0.3 - 0.2 * J.tref)
+    for (lt, lj_), kw in ((spatial, {}), (spatial, {"time_order": 1}),
+                          (moving, {"time_order": 1})):
+        assert _close(
+            T.Integrate({"levelset": lt, "domain_type": T.IF,
+                         "subdivlvl": 2}, 1 + T.x, mesh, device="cpu", **kw),
+            J.Integrate({"levelset": lj_, "domain_type": J.IF,
+                         "subdivlvl": 2}, 1 + J.x, mj, **kw))
     f_t, f_j = 1 + T.x * T.tref, 1 + J.x * J.tref
     assert _close(T.Integrate(dict(ld, time_order=0), f_t, mesh),
                   J.Integrate(dict(ldj, time_order=0), f_j, mj))
