@@ -9,8 +9,9 @@ facet-patch ghost penalty on a structured tet mesh at nx=48 (663,552 tets,
 quadrature, phase 9, beside it), two more in phases 12-15, the
 skeleton, vector and XFEM workloads in phases 16-17, the isoparametric
 (order-2/3 deformed-mesh) workloads in phases 18-19, the space-time
-moving-domain workloads in phases 20-21, and the matrix-free operators, the
-subdivision quadrature and the HDG trace FEM in phases 22-23:
+moving-domain workloads in phases 20-21, the matrix-free operators, the
+subdivision quadrature and the HDG trace FEM in phases 22-23, and the
+general cut multigrid and the meshing and refinement in phases 24-25:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -59,7 +60,18 @@ subdivision quadrature and the HDG trace FEM in phases 22-23:
   through ``ell_matvec``; ``Integrate`` with ``subdivlvl > 0`` on a level-
   set CoefficientFunction; ``examples.tracefem_hdg`` (L2 x FacetFESpace x
   FacetFESpace, an HDiv normal helper, element-boundary cut integrals,
-  ``condensed_solve`` on the host).
+  ``condensed_solve`` on the host);
+- the general cut-multigrid path: ``examples.cutmg`` (per level
+  ``BilinearForm`` -> ``prolongation_matrix`` -> ``CutFemSmoother`` with
+  its interface block -> ``MultiGridCL``, coarse factor on the host) as the
+  preconditioner of CG beside Jacobi-CG, and ``P2TwoGridCL`` (patch-block
+  smoothing, inverses batched on the card) with the P1 system's default
+  ``Inverse()`` as its coarse solver, every sparse product through
+  ``ell_matvec``;
+- the meshing path: ``Mesh.Refine`` (trig/tet bisection, quad/hex
+  uniform), ``RefineAtLevelSet``, ``MakeUnstructuredMesh``, Gmsh I/O and
+  ``examples.unstructured_nxfem`` (its default ``Inverse()`` through
+  ``ell_matvec``), ``integrate_curved`` and ``lsetgeoms``.
 
 Phases, one line each:
 
@@ -232,7 +244,35 @@ Phases, one line each:
    128, 256 (``Assemble`` ms, ``to_ell``, the default ``Inverse()`` path,
    on ``device_cg`` launches == iterations + 1, L2 below nx=16's); B2 and
    B1 launches of phases 22-23 (the record's ``launches_matrix_free`` and
-   ``matrix_free_tables``).
+   ``matrix_free_tables``);
+24. the general cut multigrid, launch counters reset before it, f64:
+   ``examples.cutmg`` in 2D (nx0=80, 3 levels: fine nx=320, 103,041 dofs)
+   and 3D (nx0=12, 3 levels: fine nx=48, 117,649 dofs) with the JAX tests'
+   limits (||x_mg - x_j|| < 1e-6, MG-CG under half Jacobi-CG's
+   iterations): host seconds per setup stage, MG-CG and Jacobi-CG by CUDA
+   events and under ``torch.profiler`` (kernels per iteration, busy, idle
+   share), ell_spmv launches == the ELL products of one MG-CG solve, a
+   second solve bitwise equal, peak memory; B2 == both plain versions
+   bitwise on the finest prolongation and restriction tables with their
+   times, bounds and cuSPARSE; ``P2TwoGridCL`` on the P2 problem at
+   nx=128 (edge patches, nu=2, maxit=30, tol=1e-8, the P1 default
+   ``Inverse()`` as coarse solver): patches, K, the batched block setup by
+   events, ``pinv`` count, iterations, r < 1e-6 ||b||; card == CPU at the
+   JAX tests' sizes (2D nx0=8 two levels, 3D nx0=4 three levels: MG-CG
+   iterations within one, solutions to 1e-8);
+25. meshing and refinement, launch counters reset before it, f64: uniform
+   ``Refine()`` of trig, tet, quad and hex meshes (host seconds, over 10 s
+   reported; measure to 1e-12 on the card, a cut volume card == CPU to
+   1e-12), ``RefineAtLevelSet`` loops in 2D and 3D (card == CPU each level,
+   the error falling), ``examples.unstructured_nxfem``'s solve on a
+   Delaunay mesh refined to ~100k trigs (Delaunay, ``Refine`` and
+   ``to_ell`` on the host clock, the default ``Inverse()`` on
+   ``device_cg`` with ell_spmv launches == its products), the example at
+   its own size card == CPU to 1e-8 and through a Gmsh file, a Gmsh round
+   trip of the big mesh, ``integrate_curved`` and ``lsetgeoms`` at their
+   own sizes card == CPU (integrals 1e-12, distances 1e-8); B2 and B1
+   launches of each phase (the record's ``launches_mg``, ``mg_tables`` and
+   ``launches_meshing``).
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -242,6 +282,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -409,26 +450,36 @@ def per_call_ms(fn, calls):
     return start.elapsed_time(end) / calls
 
 
+PROFILE_TRIES = 3   # profiler windows device_kernels takes at most
+
+
 def device_kernels(fn, calls, warm=True):
     """torch.profiler over `calls` calls of `fn` after a warm-up (left out
     with warm=False, for a caller that has just run `fn`): ({kernel name:
-    (launches, device us)}, host wall ms of the window)."""
+    (launches, device us)}, host wall ms of the window).  Every profiled
+    `fn` launches kernels, so a window that recorded no device event (late
+    in a long process torch.profiler now and then records none) is taken
+    again, up to PROFILE_TRIES windows in all."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0))
-        if us and evt.count:
-            out[evt.key] = (evt.count, us)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0))
+            if us and evt.count:
+                out[evt.key] = (evt.count, us)
+        if out:
+            break
     return out, wall_ms
 
 
@@ -2954,6 +3005,647 @@ def phases_22_23(T, dev, t_start, iso):
     return launches, tables
 
 
+# --- phases 24-25: general cut multigrid, meshing and refinement -----------
+
+CUTMG_BIG = ((2, 80, 3), (3, 12, 3))  # (dim, nx0, levels): fine nx 320 / 48
+CUTMG_PARITY = ((2, 8, 2), (3, 4, 3))  # the JAX tests' sizes, card == CPU
+P2TG_NX = 128           # P2TwoGridCL on the 2D P2 problem, edge patches
+P2TG_TOL = 1e-8
+REFINE_CASES = (("trig", 64), ("tet", 8), ("quad", 64), ("hex", 12))
+LSREF_CASES = (("trig", 32, 3), ("tet", 8, 2))  # (et, nx, levels)
+UNSTR_NPTS = 12_500     # Delaunay: ~25,000 trigs, one Refine(): ~100,000
+UNSTR_PARITY_NPTS = 900  # examples.unstructured_nxfem's own size
+HOST_CAP_S = 10.0       # a host refinement slower than this is reported
+PARITY_TOL = 1e-8       # card vs CPU: MG-CG solutions and L2 errors
+INTEGRATE_TOL = 1e-12   # card vs CPU: Integrate
+COMPOSITE_NX = 96       # the quad-dominated fictitious domain on the card
+
+
+class counted_ell:
+    """While active, counts the ELL products (``ELLMatrix.matvec`` calls,
+    however bound): the sparse products of a cycle, each of which should
+    launch B2 once on the card."""
+
+    def __enter__(self):
+        from ngsxfem_tpu_torch.solvers import sparse
+
+        self.mod, self.calls = sparse, 0
+        self.orig = sparse.ell_matvec
+
+        def ell_matvec(*args, **kw):
+            self.calls += 1
+            return self.orig(*args, **kw)
+
+        sparse.ell_matvec = ell_matvec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ell_matvec = self.orig
+
+
+class timed_calls:
+    """While active, records the seconds of each call of ``cls.name`` (by
+    CUDA events with ``events`` on the card, else by the host clock after a
+    device sync), and the object it was called on."""
+
+    def __init__(self, cls, name, device, events=False):
+        self.cls, self.name, self.device = cls, name, device
+        self.events = events and device.type == "cuda"
+        self.seconds, self.objs = [], []
+
+    def __enter__(self):
+        self.orig = getattr(self.cls, self.name)
+
+        def run(obj, *args, **kw):
+            if self.events:
+                out, ms = event_ms(lambda: self.orig(obj, *args, **kw))
+                self.seconds.append(ms / 1e3)
+            else:
+                sync(self.device)
+                t0 = time.perf_counter()
+                out = self.orig(obj, *args, **kw)
+                sync(self.device)
+                self.seconds.append(time.perf_counter() - t0)
+            self.objs.append(obj)
+            return out
+
+        setattr(self.cls, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def _prof(fn, iters):
+    """(device kernels per iteration, busy ms, idle share, wall ms) of one
+    call of ``fn`` that runs ``iters`` solver iterations (None on the
+    CPU)."""
+    if not torch.cuda.is_available():
+        return None
+    kern, wall = device_kernels(fn, 1, warm=False)
+    busy = sum(us for _, us in kern.values()) / 1e3
+    nk = sum(c for c, _ in kern.values())
+    return (nk / max(iters, 1), busy, 1 - busy / wall, wall)
+
+
+def _prof_line(p):
+    if p is None:
+        return "not profiled"
+    return (f"{p[0]:.1f} device kernels per iteration, busy {p[1]:.2f} ms of "
+            f"{p[3]:.2f} ms wall, idle share {p[2]:.3f}")
+
+
+def _vec_rel(a, b):
+    return float(torch.linalg.vector_norm(a.cpu() - b.cpu())
+                 / torch.linalg.vector_norm(b.cpu()).clamp_min(1e-300))
+
+
+def cutmg_card(T, dev, dim, nx0, levels):
+    """``examples.cutmg.run`` at card size on ``dev``: the JAX tests'
+    limits, per-stage host setup, MG-CG and Jacobi-CG by events and under
+    the profiler, B2 launches against the ELL products of one MG-CG solve,
+    a second solve bitwise equal to the first, peak memory; B2 against its
+    plain versions on the finest prolongation and restriction tables."""
+    from ngsxfem_tpu_torch.examples import cutmg
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    sync(dev)
+    peak_gib(dev)
+    st = {}
+    t0 = time.perf_counter()
+    it_mg, it_j, diff = cutmg.run(nx0=nx0, levels=levels, dim=dim,
+                                  verbose=False, device=dev, stats=st)
+    sync(dev)
+    out = {"label": f"{dim}D nx0={nx0} levels={levels} (fine nx="
+                    f"{nx0 * 2 ** (levels - 1)})", "it_mg": it_mg,
+           "it_j": it_j, "diff": diff, "ndof": st["ndof"],
+           "nfree": st["nfree"], "setup": st["setup_s"],
+           "wall_s": time.perf_counter() - t0}
+    check(diff < 1e-6, f"cutmg {out['label']}: MG-CG vs Jacobi-CG {diff}")
+    check(it_mg < it_j / 2, f"cutmg {out['label']}: MG-CG {it_mg} "
+                            f"iterations vs Jacobi-CG {it_j}")
+    (x2, it2, _), out["mg_ms"] = event_ms(st["mgcg"])
+    check(it2 == it_mg and torch.equal(x2, st["x_mg"]),
+          f"cutmg {out['label']}: a second MG-CG solve differs")
+    (_, itj2, _), out["j_ms"] = event_ms(st["jcg"])
+    check(itj2 == it_j, f"cutmg {out['label']}: Jacobi-CG iterations")
+    l0 = ell_spmv.launches
+    with counted_ell() as c:
+        st["mgcg"]()
+    out["launches"] = ell_spmv.launches - l0
+    out["products"] = c.calls
+    check(out["launches"] == (c.calls if dev.type == "cuda" else 0),
+          f"cutmg {out['label']}: {out['launches']} ell_spmv launches for "
+          f"{c.calls} ELL products")
+    out["mg_prof"] = _prof(st["mgcg"], it_mg)
+    out["j_prof"] = _prof(st["jcg"], it_j)
+    out["peak_gib"] = peak_gib(dev)
+    sm = st["smoothers"][-1]
+    out["if_rows"] = (0 if sm.ifsolve is None
+                      else int(sm.ifsolve[0].numel()))
+    out["tables"] = []
+    if dev.type == "cuda":
+        P = st["prols"][-1]
+        rng = np.random.default_rng(2031)
+        for kind, E in (("prolongation", P.ell()), ("restriction",
+                                                    P._ell_T)):
+            x = torch.as_tensor(rng.standard_normal(E.shape[1]),
+                                dtype=E.vals.dtype, device=dev)
+            label = f"cutmg {dim}D {kind} nx={nx0 * 2 ** (levels - 1)}"
+            err, _ = ell_kernel_vs_plain([(label, E.vals, E.cols, x)])
+            b2 = b2_timed(label, E, x)
+            b2["err"] = err
+            out["tables"].append(b2)
+    return out
+
+
+def cutmg_parity(T, dev):
+    """``examples.cutmg`` at the JAX tests' sizes on the card and on this
+    host's CPU: MG-CG iterations within one, solutions to 1e-8, a second
+    solve on the card bitwise equal to the first."""
+    from ngsxfem_tpu_torch.examples import cutmg
+
+    rows = []
+    for dim, nx0, levels in CUTMG_PARITY:
+        res = []
+        for d in (dev, torch.device("cpu")):
+            st = {}
+            it = cutmg.run(nx0=nx0, levels=levels, dim=dim, verbose=False,
+                           device=d, stats=st)
+            res.append((it, st["x_mg"]))
+            if d == dev:
+                x2, it2, _ = st["mgcg"]()
+                check(it2 == it[0] and torch.equal(x2, st["x_mg"]),
+                      f"cutmg {dim}D nx0={nx0}: a second card solve differs")
+        (a, xa), (b, xb) = res
+        rel = _vec_rel(xa, xb)
+        check(abs(a[0] - b[0]) <= 1 and rel <= PARITY_TOL,
+              f"cutmg {dim}D nx0={nx0}: card {a} vs CPU {b}, rel {rel}")
+        check(a[2] < 1e-6 and a[0] < a[1] / 2, f"cutmg {dim}D nx0={nx0} {a}")
+        rows.append((dim, nx0, levels, a, b, rel))
+    return rows
+
+
+def p2_cut_system(T, nx, order, dev):
+    """tests/test_cutmg_api.py's system (circle r=0.6 on [-1, 1]^2 trigs,
+    Nitsche 20 k^2 / h, ghost penalty on the facet patches): (mesh, V, ci,
+    a.mat, f.vec, active dofs)."""
+    mesh = T.MakeStructured2DMesh(quads=False, nx=nx, ny=nx,
+                                  mapping=lambda a, b: (2 * a - 1, 2 * b - 1))
+    lsetp1 = T.GridFunction(T.H1(mesh, order=1, device=dev))
+    T.InterpolateToP1(T.sqrt(T.x * T.x + T.y * T.y) - 0.6, lsetp1)
+    ci = T.CutInfo(mesh, lsetp1)
+    hasneg = ci.GetElementsOfType(T.HASNEG)
+    hasif = ci.GetElementsOfType(T.IF)
+    V = T.H1(mesh, order=order, dgjumps=True, device=dev)
+    gp = T.GetFacetsWithNeighborTypes(mesh, a=hasneg, b=hasif)
+    h = T.specialcf.mesh_size
+    nl = 1.0 / T.Norm(T.grad(lsetp1)) * T.grad(lsetp1)
+    u, v = V.TnT()
+    a = T.BilinearForm(V)
+    a += T.SymbolicBFI({"levelset": lsetp1, "domain_type": T.NEG},
+                       form=T.grad(u) * T.grad(v), definedonelements=hasneg)
+    a += T.SymbolicBFI({"levelset": lsetp1, "domain_type": T.IF},
+                       form=-(T.grad(u) * nl) * v - (T.grad(v) * nl) * u
+                       + 20.0 * order * order / h * u * v)
+    a += T.SymbolicFacetPatchBFI(
+        form=0.5 / (h * h) * (u - u.Other()) * (v - v.Other()),
+        definedonelements=gp)
+    a.Assemble()
+    f = T.LinearForm(V)
+    f += T.SymbolicLFI({"levelset": lsetp1, "domain_type": T.NEG},
+                       form=T.CoefficientFunction(1.0) * v,
+                       definedonelements=hasneg)
+    f.Assemble()
+    return mesh, V, ci, a.mat, f.vec.data, T.GetDofsOfElements(V, hasneg)
+
+
+def p2twogrid_card(T, dev):
+    """``P2TwoGridCL`` (edge patches, nu=2, maxit=30, tol=1e-8, the
+    interface CG) on the P2 problem at nx=P2TG_NX with the P1 system's
+    default ``Inverse()`` as the coarse solver: the JAX test's r < 1e-6
+    ||b||, the batched block setup by events, iterations, pinv."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers import mg as tmg
+
+    sync(dev)
+    peak_gib(dev)
+    t0 = time.perf_counter()
+    mesh, V2, ci, A2, b2, act2 = p2_cut_system(T, P2TG_NX, 2, dev)
+    _, V1, _, A1, _, act1 = p2_cut_system(T, P2TG_NX, 1, dev)
+    sync(dev)
+    out = {"ndof": V2.ndof, "system_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    blocks = tmg.EdgePatches(V2, mesh)
+    out["patches_s"] = time.perf_counter() - t0
+    free = np.asarray(V2.FreeDofs().np)
+    stats = {}
+    tmg._prepare_blocks(A2, blocks, free)  # warm-up
+    _, out["blocks_ms"] = event_ms(
+        lambda: tmg._prepare_blocks(A2, blocks, free, stats))
+    out.update(stats)
+    coarse = A1.Inverse(act1)
+    out["coarse_path"] = coarse.path
+    t0 = time.perf_counter()
+    tg = T.P2TwoGridCL(a=A2, fes=V2, mesh=mesh, ci=ci, ifsolver="cg",
+                       linmgiter=coarse, coarse_space=V1, patchtype="edge",
+                       nu=2, maxit=30, tol=P2TG_TOL)
+    sync(dev)
+    out["setup_s"] = time.perf_counter() - t0
+    fm = torch.as_tensor(act2.np, device=dev)
+    tg.free = fm
+    l0 = ell_spmv.launches
+    x, out["mult_ms"] = event_ms(lambda: tg.Mult(b2))
+    out["launches"] = ell_spmv.launches - l0
+    out["iters"] = tg.iterations
+    check(torch.equal(tg.Mult(b2), x) and tg.iterations == out["iters"],
+          f"P2TwoGridCL nx={P2TG_NX}: a second Mult differs from the first")
+    r = float(torch.linalg.vector_norm(torch.where(
+        fm, b2 - A2.ell().matvec(x), 0.0)))
+    nb = float(torch.linalg.vector_norm(torch.where(fm, b2, 0.0)))
+    out["rel"] = r / nb
+    check(r < 1e-6 * nb, f"P2TwoGridCL nx={P2TG_NX}: r {r} vs ||b|| {nb}")
+    out["pinv_smoother"] = tg.smoother.block_stats.get("pinv")
+    out["peak_gib"] = peak_gib(dev)
+    return out
+
+
+def _mesh_of(T, et, n):
+    if et in ("trig", "quad"):
+        return T.MakeStructured2DMesh(quads=et == "quad", nx=n, ny=n)
+    return T.MakeStructured3DMesh(hexes=et == "hex", nx=n, ny=n, nz=n)
+
+
+def _ball(T, dim, r=0.3):
+    d2 = (T.x - 0.5) ** 2 + (T.y - 0.5) ** 2
+    if dim == 3:
+        d2 = d2 + (T.z - 0.5) ** 2
+    return T.sqrt(d2) - r
+
+
+def _cut_volume(T, mesh, dev, r=0.3):
+    lset = T.GridFunction(T.H1(mesh, order=1, device=dev))
+    T.InterpolateToP1(_ball(T, mesh.dim, r), lset)
+    return T.Integrate({"levelset": lset, "domain_type": T.NEG}, 1.0, mesh,
+                       order=2)
+
+
+def refine_card(T, dev):
+    """Uniform ``Refine()`` of trig, tet, quad and hex meshes (host
+    seconds; over HOST_CAP_S reported), the measure kept to 1e-12 on the
+    card, a cut volume card == CPU to 1e-12."""
+    rows = []
+    for et, n in REFINE_CASES:
+        mesh = _mesh_of(T, et, n)
+        ne0 = mesh.ne
+        t0 = time.perf_counter()
+        mesh.Refine()
+        secs = time.perf_counter() - t0
+        vol = T.Integrate(cf=1.0, mesh=mesh, order=2, device=dev)
+        check(abs(vol - 1.0) < 1e-12, f"Refine {et} nx={n}: measure {vol}")
+        a, b = _cut_volume(T, mesh, dev), _cut_volume(T, mesh, "cpu")
+        check(abs(a - b) <= INTEGRATE_TOL * abs(b),
+              f"Refine {et} nx={n}: card {a} vs CPU {b}")
+        rows.append({"et": et, "nx": n, "ne0": ne0, "ne": mesh.ne,
+                     "nv": mesh.nv, "s": secs, "vol": vol, "cut": a,
+                     "over_cap": secs > HOST_CAP_S})
+    return rows
+
+
+def refine_at_levelset_card(T, dev):
+    """The adaptive loop RefineAtLevelSet + Refine in 2D and 3D (the ball
+    r=0.3): per level the NEG volume on the card == the CPU's to 1e-12, the
+    marks and elements; the error falls."""
+    rows = []
+    for et, n, levels in LSREF_CASES:
+        mesh = _mesh_of(T, et, n)
+        exact = math.pi * 0.09 if et == "trig" else 4 / 3 * math.pi * 0.027
+        errs, nes, marks, secs = [], [], [], []
+        for _ in range(levels):
+            lset = T.GridFunction(T.H1(mesh, order=1, device=dev))
+            T.InterpolateToP1(_ball(T, mesh.dim), lset)
+            a = T.Integrate({"levelset": lset, "domain_type": T.NEG}, 1.0,
+                            mesh, order=2)
+            b = _cut_volume(T, mesh, "cpu")
+            check(abs(a - b) <= INTEGRATE_TOL * abs(b),
+                  f"RefineAtLevelSet {et}: card {a} vs CPU {b}")
+            errs.append(abs(a - exact))
+            nes.append(mesh.ne)
+            marks.append(T.RefineAtLevelSet(lset).NumSet())
+            t0 = time.perf_counter()
+            mesh.Refine()
+            secs.append(time.perf_counter() - t0)
+        check(errs[-1] < errs[0] / 2, f"RefineAtLevelSet {et}: errors {errs}")
+        rows.append({"et": et, "nx": n, "errs": errs, "nes": nes,
+                     "marks": marks, "s": secs, "ne": mesh.ne})
+    return rows
+
+
+def unstructured_card(T, dev):
+    """``examples.unstructured_nxfem`` on a Delaunay mesh refined once to
+    ~100k trigs: MakeUnstructuredMesh, Refine and to_ell on the host clock,
+    the default ``Inverse()`` solve by CUDA events, its path, products and
+    B2 launches; the example
+    at its own size card == CPU to 1e-8, through a Gmsh file equal; a Gmsh
+    round trip of the big mesh, its measure on the card."""
+    import tempfile
+
+    from ngsxfem_tpu_torch.examples import cutfem, unstructured_nxfem
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers.sparse import InverseMatrix, SparseMatrix
+
+    out = {}
+    t0 = time.perf_counter()
+    mesh = unstructured_nxfem.make_mesh(npts=UNSTR_NPTS, seed=5,
+                                        mesher="delaunay")
+    out["delaunay_s"] = time.perf_counter() - t0
+    out["ne0"] = mesh.ne
+    t0 = time.perf_counter()
+    mesh.Refine()
+    out["refine_s"] = time.perf_counter() - t0
+    out["ne"], out["nv"] = mesh.ne, mesh.nv
+    sync(dev)
+    peak_gib(dev)
+    l0 = ell_spmv.launches
+    t0 = time.perf_counter()
+    with timed_calls(SparseMatrix, "to_ell", dev) as te, \
+            timed_calls(InverseMatrix, "solve", dev, events=True) as ts, \
+            counted_products("cg") as cp:
+        err = cutfem.run(order=1, verbose=False, mesh=mesh, device=dev)
+    sync(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = ell_spmv.launches - l0
+    out["err"] = err
+    out["to_ell_s"] = sum(te.seconds)
+    out["solve_s"] = sum(ts.seconds)
+    out["path"] = ts.objs[0].path
+    out["products"], out["iters"] = cp.products, cp.iters
+    out["peak_gib"] = peak_gib(dev)
+    if dev.type == "cuda":
+        check(out["path"] == "device_cg" and out["launches"] == cp.products,
+              f"unstructured_nxfem: path {out['path']}, {out['launches']} "
+              f"launches for {cp.products} products")
+    check(err < 0.06, f"unstructured_nxfem ~100k trigs: L2 {err}")
+    a, b = (unstructured_nxfem.run(mesher="delaunay",
+                                   npts=UNSTR_PARITY_NPTS, verbose=False,
+                                   device=d) for d in (dev, "cpu"))
+    check(abs(a - b) <= PARITY_TOL * b, f"unstructured_nxfem card {a} CPU {b}")
+    g = unstructured_nxfem.run(mesher="delaunay", npts=UNSTR_PARITY_NPTS,
+                               via_gmsh=True, verbose=False, device=dev)
+    # the same mesh (a Gmsh file keeps every bit), the same bits
+    check(g == a, f"unstructured_nxfem through Gmsh {g} vs {a}")
+    out["small"], out["gmsh_err"] = (a, b), g
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "big.msh")
+        t0 = time.perf_counter()
+        T.WriteGmsh(mesh, path)
+        back = T.ReadGmsh(path)
+        out["gmsh_s"] = time.perf_counter() - t0
+    for attr in ("vertices_np", "elements_np", "bc_of_facet_np"):
+        check(np.array_equal(getattr(back, attr), getattr(mesh, attr)),
+              f"Gmsh round trip: {attr}")
+    vol = T.Integrate(cf=1.0, mesh=back, order=1, device=dev)
+    check(abs(vol - 9.0) < 1e-11, f"Gmsh round trip measure {vol}")
+    return out
+
+
+def quad_fictdom(T, dev, nx):
+    """tests/test_composite.py's fictitious-domain solve on a
+    ``MakeQuadDominated2DMesh`` (nx x nx, trig band 0.5; the disc r=0.35,
+    Nitsche on the interface): the ``CompositeBilinearForm``, the
+    ``CompositeLinearForm``, the active vertices and the default
+    ``Inverse()`` solution."""
+    cm = T.MakeQuadDominated2DMesh(nx=nx, ny=nx, trig_band=0.5)
+    lset = T.CompositeGridFunction(cm, device=dev).Set(
+        T.sqrt((T.x - 0.5) ** 2 + (T.y - 0.5) ** 2) - 0.35)
+    hasneg = T.CompositeCutInfo(cm, lset).per_group(T.HASNEG)
+    space = T.CompositeGridFunction(cm, device=dev)
+
+    def make_a(V, k):
+        u, v = V.TnT()
+        g = lset.gfs[k]
+        nl = 1.0 / T.Norm(T.grad(g)) * T.grad(g)
+        a = T.BilinearForm(V)
+        a += T.SymbolicBFI({"levelset": g, "domain_type": T.NEG},
+                           form=T.grad(u) * T.grad(v),
+                           definedonelements=hasneg[k])
+        a += T.SymbolicBFI({"levelset": g, "domain_type": T.IF},
+                           form=-(T.grad(u) * nl) * v - (T.grad(v) * nl) * u
+                           + 40.0 / T.specialcf.mesh_size * u * v)
+        return a
+
+    def make_f(V, k):
+        f = T.LinearForm(V)
+        f += T.SymbolicLFI({"levelset": lset.gfs[k], "domain_type": T.NEG},
+                           form=V.TnT()[1], definedonelements=hasneg[k])
+        return f
+
+    A = T.CompositeBilinearForm(space, make_a).Assemble()
+    F = T.CompositeLinearForm(space, make_f).Assemble()
+    act = np.zeros(cm.nv, dtype=bool)
+    for k, m in enumerate(cm.submeshes):
+        act[m.elements_np[np.asarray(hasneg[k].np)].ravel()] = True
+    u = A.mat.Inverse(freedofs=T.BitArray(act)) * F.vec
+    return cm, lset, A, F, act, u
+
+
+def composite_card(T, dev):
+    """The composite meshes on the card: ``IntegrateC`` (the measure, the
+    disc) card == CPU to 1e-12; the quad-dominated fictitious-domain solve
+    card == CPU to 1e-8 at nx=12 and at nx=COMPOSITE_NX on the card with
+    its sanity limits, where a second ``CompositeBilinearForm``,
+    ``CompositeLinearForm``, COO product and solve give the same bits."""
+    out = {}
+    for nx in (12, COMPOSITE_NX):
+        t0 = time.perf_counter()
+        cm, lset, A, F, act, u = quad_fictdom(T, dev, nx)
+        sync(dev)
+        out[nx] = {"s": time.perf_counter() - t0, "nv": cm.nv,
+                   "groups": [m.ne for m in cm.submeshes],
+                   "active": int(act.sum())}
+        _, lset_c, _, F_c, _, u_c = quad_fictdom(T, "cpu", nx)
+        rel = float((u.cpu() - u_c).abs().max() / u_c.abs().max())
+        check(rel <= PARITY_TOL, f"composite fictdom nx={nx}: card vs CPU "
+              f"{rel}")
+        df = float((F.vec.data.cpu() - F_c.vec.data).abs().max())
+        check(df <= INTEGRATE_TOL, f"composite load nx={nx}: card vs CPU {df}")
+        ints = []
+        for ls, d in ((lset, dev), (lset_c, "cpu")):
+            ints.append([T.IntegrateC(None, 1.0, cm, order=2, device=d)] + [
+                T.IntegrateC({"levelset": ls, "domain_type": dt}, 1.0, cm,
+                             order=2) for dt in (T.NEG, T.IF)])
+        worst = max(abs(a - b) for a, b in zip(*ints))
+        check(worst <= INTEGRATE_TOL and abs(ints[0][0] - 1.0) < 1e-13,
+              f"IntegrateC nx={nx}: card {ints[0]} CPU {ints[1]}")
+        out[nx].update(rel=rel, load=df, ints=ints[0], worst=worst)
+    r = np.linalg.norm(cm.vertices_np - 0.5, axis=1)
+    uc = u.cpu().numpy()
+    out["center"] = float(uc[np.argmin(r)])
+    out["ring"] = float(np.abs(uc[act & (np.abs(r - 0.35) < 0.05)]).max())
+    check(abs(out["center"] - 0.35 ** 2 / 4) < 5e-3 and out["ring"] < 2e-2,
+          f"composite fictdom nx={COMPOSITE_NX}: centre {out['center']}, "
+          f"ring {out['ring']}")
+    vals, vec = A.mat.vals.clone(), F.vec.data.clone()
+    y = A.mat * u
+    check(torch.equal(A.Assemble().mat.vals, vals)
+          and torch.equal(F.Assemble().vec.data, vec)
+          and torch.equal(A.mat * u, y)
+          and torch.equal(A.mat.Inverse(freedofs=T.BitArray(act)) * F.vec, u),
+          f"composite nx={COMPOSITE_NX}: a second assembly, product or "
+          f"solve differs from the first")
+    return out
+
+
+def geometry_examples(T, dev):
+    """``integrate_curved`` (both demos) and ``lsetgeoms`` at their own
+    sizes on the card and on the CPU: errors card == CPU to 1e-12
+    (integrals), distances to 1e-8 (Newton-projected deformations)."""
+    from ngsxfem_tpu_torch.examples import integrate_curved, lsetgeoms
+
+    res = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res.append((integrate_curved.run_curved(verbose=False, device=d),
+                        integrate_curved.run_quads(verbose=False, device=d),
+                        lsetgeoms.run(verbose=False, device=d),
+                        time.perf_counter() - t0))
+    ((unc, cur), quads, geoms, wall), ((unc_c, cur_c), quads_c, geoms_c,
+                                       wall_c) = res
+    worst = 0.0
+    for a, b in ((unc, unc_c), (cur, cur_c), (quads, quads_c)):
+        for k in a:
+            worst = max(worst, float(np.abs(np.subtract(a[k], b[k])).max()))
+    check(worst <= INTEGRATE_TOL, f"integrate_curved card vs CPU {worst}")
+    gworst = max(float(np.abs(np.subtract(geoms[g][0], geoms_c[g][0])).max()
+                       / max(geoms_c[g][0])) for g in geoms)
+    check(gworst <= PARITY_TOL, f"lsetgeoms card vs CPU {gworst}")
+    for g, (dist, eoc) in geoms.items():
+        check(dist[-1] < dist[0], f"lsetgeoms {g}: distances {dist}")
+    return {"uncurved": unc, "curved": cur, "quads": quads, "geoms": geoms,
+            "wall": wall, "wall_cpu": wall_c, "worst": worst,
+            "gworst": gworst}
+
+
+def phases_24_25(T, dev, t_start):
+    """Phases 24 (the general cut multigrid at card size, P2TwoGridCL, card
+    against CPU at the JAX tests' sizes) and 25 (meshing and refinement),
+    each with the launch counters reset just before it.  Returns (ell_spmv
+    launches of phase 24, of phase 25, B2's records on phase 24's transfer
+    tables)."""
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+
+    sync(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    tables = []
+    for dim, nx0, levels in CUTMG_BIG:
+        r = cutmg_card(T, dev, dim, nx0, levels)
+        s = r["setup"]
+        print(f"[24 cutmg] {card()} | {r['label']}: {r['ndof']} dofs "
+              f"({r['nfree']} free), {r['if_rows']} interface rows on the "
+              f"fine level; host setup s: meshes {s['meshes']:.2f}, levels "
+              f"{', '.join(f'{x:.2f}' for x in s['levels'])}, prolongations "
+              f"{s['prolongations']:.2f}, to_ell {s['to_ell']:.2f}, "
+              f"smoothers (interface blocks) {s['smoothers']:.2f}, "
+              f"MultiGridCL (coarse factor, views) {s['multigrid']:.2f}; "
+              f"MG-CG {r['it_mg']} iterations {r['mg_ms']:.2f} ms "
+              f"({_prof_line(r['mg_prof'])}); Jacobi-CG {r['it_j']} "
+              f"iterations {r['j_ms']:.2f} ms ({_prof_line(r['j_prof'])}); "
+              f"|x_mg - x_j| {r['diff']:.3e}; one MG-CG solve: "
+              f"{r['products']} ELL products = {r['launches']} ell_spmv "
+              f"launches; second solve bitwise equal; peak memory "
+              f"{r['peak_gib']:.2f} GiB; wall {r['wall_s']:.2f} s",
+              flush=True)
+        for b2 in r["tables"]:
+            tables.append(dict(b2_record(b2), launches=r["launches"]))
+            print(f"[24 B2] {b2['label']} ({b2['n']} x {b2['K']} "
+                  f"{b2['dtype']}): kernel == plain bitwise (max|dy| "
+                  f"{b2['err']:.3e}), {b2_text(b2)}", flush=True)
+    tg = p2twogrid_card(T, dev)
+    print(f"[24 P2TwoGridCL] {card()} | P2 nx={P2TG_NX} ({tg['ndof']} dofs): "
+          f"{tg['nb']} edge patches, K={tg['K']}, pinv for {tg['pinv']} "
+          f"blocks (smoother: {tg['pinv_smoother']}); EdgePatches "
+          f"{tg['patches_s']:.2f} s (host), batched block setup "
+          f"{tg['blocks_ms']:.1f} ms; P2TwoGridCL setup {tg['setup_s']:.2f} "
+          f"s; P1 coarse Inverse() {tg['coarse_path']}; Mult {tg['iters']} "
+          f"iterations, {tg['mult_ms']:.1f} ms, {tg['launches']} ell_spmv "
+          f"launches, r/||b|| {tg['rel']:.3e}; system build "
+          f"{tg['system_s']:.2f} s; peak memory {tg['peak_gib']:.2f} GiB",
+          flush=True)
+    par = cutmg_parity(T, dev)
+    print("[24 parity] cutmg card (CPU): " + "; ".join(
+        f"{dim}D nx0={nx0} levels={lv}: MG-CG {a[0]} ({b[0]}) iterations, "
+        f"Jacobi-CG {a[1]} ({b[1]}), solutions rel {rel:.2e}"
+        for dim, nx0, lv, a, b, rel in par)
+          + "; card solves repeat bit for bit", flush=True)
+    mg_launches = ell_spmv.launches
+    check(mg_launches > 0 or dev.type != "cuda",
+          "the cut-multigrid path launched ell_spmv no time")
+    print(f"[24 launches] ell_spmv {mg_launches}, dia_cg {dia_cg.launches}; "
+          f"wall of phase 24 {time.perf_counter() - t0:.2f} s", flush=True)
+
+    sync(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    for r in refine_card(T, dev):
+        print(f"[25 refine] {r['et']} nx={r['nx']}: {r['ne0']} -> {r['ne']} "
+              f"elements ({r['nv']} vertices) in {r['s']:.2f} s (host"
+              + (f", over the {HOST_CAP_S:.0f} s cap" if r["over_cap"]
+                 else "") + f"); measure {r['vol']:.15f}; cut volume card "
+              f"== CPU {r['cut']:.15f}", flush=True)
+    for r in refine_at_levelset_card(T, dev):
+        print(f"[25 RefineAtLevelSet] {r['et']} nx={r['nx']}: elements "
+              f"{r['nes']} -> {r['ne']}, marked {r['marks']}, NEG volume "
+              f"errors {', '.join(f'{e:.3e}' for e in r['errs'])} (card == "
+              f"CPU), Refine s {', '.join(f'{s:.2f}' for s in r['s'])}",
+              flush=True)
+    u = unstructured_card(T, dev)
+    print(f"[25 unstructured] {card()} | MakeUnstructuredMesh (Delaunay, "
+          f"{UNSTR_NPTS} points) {u['ne0']} trigs in {u['delaunay_s']:.2f} s, "
+          f"Refine() -> {u['ne']} trigs ({u['nv']} vertices) in "
+          f"{u['refine_s']:.2f} s (host); examples.cutfem on it: L2 "
+          f"{u['err']:.6e}, to_ell {u['to_ell_s']:.2f} s (host), default "
+          f"Inverse() {u['path']}: {u['iters']} iterations, {u['products']} "
+          f"products, {u['launches']} ell_spmv launches, solve "
+          f"{u['solve_s'] * 1e3:.1f} ms (events); wall {u['wall_s']:.2f} s; peak "
+          f"memory {u['peak_gib']:.2f} GiB; npts={UNSTR_PARITY_NPTS} L2 card "
+          f"{u['small'][0]:.12e} CPU {u['small'][1]:.12e}, through a Gmsh "
+          f"file {u['gmsh_err']:.12e}; Gmsh round trip of the big mesh {u['gmsh_s']:.2f} s, "
+          f"arrays equal, measure 9 on the card", flush=True)
+    c = composite_card(T, dev)
+    print(f"[25 composite] quad-dominated fictitious domain: " + "; ".join(
+        f"nx={nx}: {c[nx]['nv']} vertices, groups {c[nx]['groups']} "
+        f"elements, {c[nx]['active']} active, built and solved in "
+        f"{c[nx]['s']:.2f} s, solution card == CPU rel {c[nx]['rel']:.1e}, "
+        f"load {c[nx]['load']:.1e}, IntegrateC measure/NEG/IF "
+        f"{', '.join(f'{v:.15f}' for v in c[nx]['ints'])} (card == CPU "
+        f"{c[nx]['worst']:.1e})" for nx in (12, COMPOSITE_NX))
+          + f"; centre {c['center']:.6f} (r^2/4 {0.35 ** 2 / 4:.6f}), ring "
+          f"max {c['ring']:.2e}; second bilinear and linear assembly, COO "
+          f"product and solve bitwise equal", flush=True)
+    g = geometry_examples(T, dev)
+    print(f"[25 geometry] integrate_curved (order 5, nx0=8, 4 levels): "
+          f"uncurved IF errors {[f'{e:.3e}' for e in g['uncurved'][T.IF]]}, "
+          f"curved {[f'{e:.3e}' for e in g['curved'][T.IF]]}; quads NEG "
+          f"{[f'{e:.3e}' for e in g['quads'][T.NEG]]}; lsetgeoms "
+          + ", ".join(f"{k} {[f'{d:.3e}' for d in v[0]]}"
+                      for k, v in g["geoms"].items())
+          + f"; card == CPU (integrals {g['worst']:.1e}, distances rel "
+          f"{g['gworst']:.1e}); wall card {g['wall']:.2f} s, CPU "
+          f"{g['wall_cpu']:.2f} s", flush=True)
+    mesh_launches = ell_spmv.launches
+    check(mesh_launches > 0 or dev.type != "cuda",
+          "the meshing path launched ell_spmv no time")
+    print(f"[25 launches] ell_spmv {mesh_launches}, dia_cg {dia_cg.launches}; "
+          f"wall of phase 25 {time.perf_counter() - t0:.2f} s, of the whole "
+          f"run {time.perf_counter() - t_start:.2f} s", flush=True)
+    return mg_launches, mesh_launches, tables
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -3502,6 +4194,7 @@ def main():
     iso, iso_launches = phases_18_19(T, dev, t_start)
     st_launches = phases_20_21(T, dev, t_start)
     mf_launches, mf_tables = phases_22_23(T, dev, t_start, iso)
+    mg_launches, mesh_launches, mg_tables = phases_24_25(T, dev, t_start)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -3546,6 +4239,9 @@ def main():
         "launches_spacetime": st_launches,
         "launches_matrix_free": mf_launches,
         "matrix_free_tables": mf_tables,
+        "launches_mg": mg_launches,
+        "mg_tables": mg_tables,
+        "launches_meshing": mesh_launches,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

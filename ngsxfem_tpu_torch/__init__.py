@@ -37,7 +37,12 @@ space-time spaces, ``SpaceTimeWeakSet`` and
 channel-lattice ``LatticeStencilOperator``), the subdivision quadrature of
 level-set CoefficientFunctions (``subdivlvl > 0``), the spaces
 ``FacetFESpace``, ``HDiv`` (RT0, ``dn(..., hdiv=True)``) and ``SFESpace``,
-and static condensation ``condensed_solve``.  ``from
+and static condensation ``condensed_solve``; the general cut multigrid
+(``MultiGridCL``, ``CutFemSmoother`` with patch-block smoothing, the
+prolongation classes, ``P2TwoGridCL``, ``LinearMGIterator``) and meshing
+(``Mesh.Refine``, ``MeshFromArrays``, Gmsh I/O, ``MakeUnstructuredMesh``,
+``SplineGeometry``, the quad-dominated ``CompositeMesh`` with
+``IntegrateC``).  ``from
 ngsxfem_tpu_torch import *`` runs the README's Quick start and the
 workloads in ``ngsxfem_tpu_torch/examples``.  What is not ported raises
 ``NotImplementedError`` naming its item in ROADMAP.md.
@@ -48,8 +53,15 @@ from .config import config
 from .domaintype import (DOMAIN_TYPE, COMBINED_DOMAIN_TYPE, NEG, POS, IF,
                          CDOM_NO, CDOM_NEG, CDOM_POS, UNCUT, HASNEG, HASPOS,
                          ANY)
+from .mesh.mesh import Mesh
 from .mesh.structured import (Make1DMesh, MakeStructured2DMesh,
                               MakeStructured3DMesh)
+from .mesh.io import MeshFromArrays, ReadGmsh, WriteGmsh, MakeUnstructuredMesh
+from .mesh.splinegeom import SplineGeometry, MakeCircle, MakeRectangle
+from .mesh.composite import (CompositeMesh, MakeQuadDominated2DMesh,
+                             CompositeGridFunction, CompositeCutInfo,
+                             CompositeBilinearForm, CompositeLinearForm,
+                             IntegrateC)
 from .fem.space import (BitArray, CompoundBitArray, H1, L2, NumberSpace,
                         VectorH1, VectorL2, VectorFESpace, CompoundFESpace,
                         CompressedFESpace, Compress, GetDofsOfElements,
@@ -76,7 +88,7 @@ from .lsetcurv import (LevelSetMeshAdaptation, ProjectShift, CalcMaxDistance,
 from .spacetime import (ScalarTimeFE, SpaceTimeFESpace, ReferenceTimeVariable,
                         tref, dt, fix_t, CreateTimeRestrictedGF,
                         RestrictGFInTime, SpaceTimeInterpolateToP1)
-from .utils.utils import SpaceTimeWeakSet
+from .utils.utils import SpaceTimeWeakSet, LevelsetExamples, BoundingBoxes
 from .geom.cutinfo import (CutInfo, GetFacetsWithNeighborTypes,
                            GetElementsWithNeighborFacets, GetDofsOfFacets,
                            IndicatorCF, CutRatioGF, BitArrayCF)
@@ -87,7 +99,10 @@ from .solvers.ell_spmv import ell_matvec, ell_matvec_plain
 from .solvers.krylov import (CGSolver, MinResSolver, cg, cg_ir, minres,
                              jacobi_preconditioner)
 from .solvers.dia_cg import dia_cg_fused, dia_cg_fused_plain
-from .solvers.mg import FunctionalELLMG
+from .solvers.mg import (FunctionalELLMG, MultiGridCL, CutFemSmoother,
+                         LinearMGIterator, CompoundProlongation,
+                         P1Prolongation, P2Prolongation, P2CutProlongation,
+                         P2TwoGridCL, VertPatches, ElemPatches, EdgePatches)
 from .solvers.operator import PartialAssemblyOperator
 from .solvers.stencilop import LatticeStencilOperator
 from .solvers.condense import condensed_solve
@@ -129,4 +144,13 @@ __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "RestrictGFInTime", "SpaceTimeInterpolateToP1",
            "SpaceTimeWeakSet", "LevelSetMeshAdaptation_Spacetime",
            "FacetFESpace", "HDiv", "SFESpace", "PartialAssemblyOperator",
-           "LatticeStencilOperator", "condensed_solve"]
+           "LatticeStencilOperator", "condensed_solve", "Mesh",
+           "MeshFromArrays", "ReadGmsh", "WriteGmsh", "MakeUnstructuredMesh",
+           "SplineGeometry", "MakeCircle", "MakeRectangle", "CompositeMesh",
+           "MakeQuadDominated2DMesh", "CompositeGridFunction",
+           "CompositeCutInfo", "CompositeBilinearForm",
+           "CompositeLinearForm", "IntegrateC", "LevelsetExamples",
+           "BoundingBoxes", "MultiGridCL", "CutFemSmoother",
+           "LinearMGIterator", "CompoundProlongation", "P1Prolongation",
+           "P2Prolongation", "P2CutProlongation", "P2TwoGridCL",
+           "VertPatches", "ElemPatches", "EdgePatches"]

@@ -15,9 +15,8 @@ Operators (python/__init__.py:22-105 of the reference):
   *_grad         the corresponding gradients
 
 The dof bookkeeping is host numpy; the element masks go to the device of
-the evaluation.  The ``trace=True`` LOCAL_DOF marks are kept; the static
-condensation that uses them (``solvers/condense.py``) is not ported yet
-(ROADMAP A12b).
+the evaluation.  The ``trace=True`` LOCAL_DOF marks are kept for the static
+condensation (``solvers/condense.py``).
 """
 from __future__ import annotations
 

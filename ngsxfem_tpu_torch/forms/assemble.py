@@ -171,7 +171,7 @@ def _ensure_p1_ld(integral: Integral, mesh, device):
                 "(as the reference does)")
         return
     orig = ld.get("_orig_levelset", ld["levelset"])
-    p1 = ensure_p1_levelset(orig, mesh, device)
+    p1 = ensure_p1_levelset(orig, mesh, device, cache_on=integral)
     if p1 is not orig:
         ld["_orig_levelset"] = orig
     ld["levelset"] = p1
@@ -417,7 +417,7 @@ def _facet_locref_tables(mesh):
     """(2, nfacets, nvf, d) element-local reference coordinates of every
     facet's vertices, per side (boundary facets repeat side 0).  Host numpy,
     cached on the mesh."""
-    cached = getattr(mesh, "_facet_locref_cache", None)
+    cached = mesh._host_tables.get("facet_locref")
     if cached is not None:
         return cached
     refv = REF_VERTS[mesh.et]
@@ -431,7 +431,7 @@ def _facet_locref_tables(mesh):
         for k in range(nvf):
             idx = np.argmax(els == fverts[:, k][:, None], axis=1)
             loc_ref[s, :, k, :] = refv[idx]
-    mesh._facet_locref_cache = loc_ref
+    mesh._host_tables["facet_locref"] = loc_ref
     return loc_ref
 
 

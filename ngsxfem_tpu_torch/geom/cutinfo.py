@@ -69,7 +69,8 @@ class CutInfo:
         if isinstance(getattr(levelset, "space", None), SpaceTimeFESpace):
             self._lset_gf = levelset
             return self._update_spacetime(levelset, time_order)
-        levelset = ensure_p1_levelset(levelset, mesh, self.device)
+        levelset = ensure_p1_levelset(levelset, mesh, self.device,
+                                      cache_on=self)
         self._lset_gf = levelset
         has_neg, has_pos, ratio, vg = _classify(mesh.et,
                                                 lset_vertex_values(levelset))

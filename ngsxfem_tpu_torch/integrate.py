@@ -137,27 +137,53 @@ def _is_spacetime_gf(gf):
                                                        SpaceTimeFESpace)
 
 
-def ensure_p1_levelset(levelset, mesh, device=None):
+def ensure_p1_levelset(levelset, mesh, device=None, cache_on=None):
     """Route non-P1 level sets to the straight-cut path by interpolation.
 
     The reference shortcut (``CF2GFForStraightCutRule``,
     cutint/xintegration.cpp:91-103) requires a P1 GridFunction and otherwise
     falls back to its legacy adaptive engine, which is not reproduced: a
     CoefficientFunction level set is interpolated to P1 on ``device`` (with
-    a warning), the same geometry approximation as InterpolateToP1 + straight
-    cut.  A P1 GridFunction, and a space-time GridFunction, is returned as it
-    is."""
+    a warning when the P1 space is built), the same geometry approximation
+    as InterpolateToP1 + straight cut.  A P1 GridFunction, and a space-time
+    GridFunction, is returned as it is.
+
+    With a holder ``cache_on`` (the CF itself, an integrator, a CutInfo)
+    the P1 GridFunction is kept on it and reused while the mesh, its
+    ``_version`` (bumped by ``Refine`` and by (un)setting a deformation),
+    the device and the dtype are the same; it is re-interpolated on every
+    call, as the JAX package does, so an updated level set is never served
+    stale."""
     if _is_p1(levelset) or _is_spacetime_gf(levelset):
         return levelset
     from .fem.gridfunction import GridFunction, InterpolateToP1
     from .fem.space import H1
 
-    warnings.warn(
-        "level set is not a P1 GridFunction; interpolating to P1 for the "
-        "straight-cut rule (the reference would route to its legacy "
-        "adaptive engine here, cutint/xintegration.cpp:91-103, which is "
-        "not reproduced)", stacklevel=3)
-    gf = GridFunction(H1(mesh, order=1), device=resolve_device(device))
+    dev = resolve_device(device)
+    key = (mesh._version, str(dev), config.dtype)
+    cache = (getattr(cache_on, "_p1_lset_cache", None)
+             if cache_on is not None else None)
+    hit = cache.get(id(mesh)) if cache else None
+    if hit is not None and hit[0] == key and hit[1] is levelset:
+        gf = hit[2]
+    else:
+        warnings.warn(
+            "level set is not a P1 GridFunction; interpolating to P1 for the "
+            "straight-cut rule (the reference would route to its legacy "
+            "adaptive engine here, cutint/xintegration.cpp:91-103, which is "
+            "not reproduced)", stacklevel=3)
+        gf = GridFunction(H1(mesh, order=1), device=dev)
+        if cache_on is not None:
+            if cache is None:
+                cache = {}
+                try:
+                    cache_on._p1_lset_cache = cache
+                except AttributeError:
+                    cache = None  # a slotted holder: no caching
+            if cache is not None:
+                # one entry per mesh (the GridFunction keeps the mesh alive,
+                # so its id is not reused while the entry exists)
+                cache[id(mesh)] = (key, levelset, gf)
     InterpolateToP1(levelset, gf)
     return gf
 
@@ -577,7 +603,9 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
                 out = _subdiv_integrate(mesh, cf, ld, o, element_wise,
                                         time_order, device)
             else:
-                lgf = ensure_p1_levelset(ld["levelset"], mesh, device)
+                lgf = ensure_p1_levelset(
+                    ld["levelset"], mesh, device,
+                    cache_on=ld["levelset"])
                 out = _two_tier_integrate(mesh, cf, lgf,
                                           int(ld["domain_type"]), o,
                                           ld["quad_dir_policy"],

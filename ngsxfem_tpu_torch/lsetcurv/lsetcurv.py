@@ -17,6 +17,7 @@ import numbers
 import warnings
 from math import sqrt as msqrt
 
+import numpy as np
 import torch
 
 from ..fem.basis import dshapes, shapes
@@ -206,9 +207,9 @@ class LevelSetMeshAdaptation:
         return deform
 
     def _interface_values(self, levelset, deform, order):
-        """(|levelset| (R, Q), interface weights (R, Q)) at the IF rule of
-        the deformed P1 zero set, on the cut elements only (the uncut
-        elements carry zero interface weight)."""
+        """(|levelset| (R, Q), interface weights (R, Q), element ids (R,))
+        at the IF rule of the deformed P1 zero set, on the cut elements only
+        (the uncut elements carry zero interface weight)."""
         from ..cf.coefficient import wrap
         from ..cf.context import eval_pure
         from ..domaintype import IF
@@ -216,10 +217,10 @@ class LevelSetMeshAdaptation:
         lv = wrap(levelset if levelset is not None else self.levelset)
         self.mesh.SetDeformation(self.deform if deform is None else deform)
         try:
-            (ctx, w_phys, mask, _), = two_tier_tiers(
+            (ctx, w_phys, mask, ids), = two_tier_tiers(
                 self.mesh, self.lset_p1, int(IF), order, "OPTIMAL")
             vals = torch.broadcast_to(eval_pure(lv, ctx), w_phys.shape).abs()
-            return torch.where(w_phys > 0, vals, 0.0), w_phys
+            return torch.where(w_phys > 0, vals, 0.0), w_phys, ids
         finally:
             self.mesh.UnsetDeformation()
 
@@ -230,7 +231,7 @@ class LevelSetMeshAdaptation:
         distance to first order when ||grad phi|| ~ 1 near the
         interface)."""
         o = order if order is not None else 2 * self.order
-        vals, _ = self._interface_values(levelset, deform, o)
+        vals, _, _ = self._interface_values(levelset, deform, o)
         return float(vals.max()) if vals.numel() else 0.0
 
     def ProjectOnUpdate(self, gfs):
@@ -243,7 +244,7 @@ class LevelSetMeshAdaptation:
         StatisticContainer ``stats``, appends the series
         ("max"/"L1"/"L2")."""
         o = order if order is not None else 2 * self.order
-        vals, w = self._interface_values(levelset, None, o)
+        vals, w, _ = self._interface_values(levelset, None, o)
         tot = w.sum()
         mx = float(vals.max())
         l1 = float((vals * w).sum() / tot)
@@ -256,18 +257,36 @@ class LevelSetMeshAdaptation:
 
     def MarkForRefinement(self, levelset=None, refine_threshold=0.1,
                           absolute=False):
-        """Mark elements for the next mesh.Refine(): not ported yet."""
-        raise NotImplementedError(
-            "MarkForRefinement needs Mesh.SetRefinementFlags/Refine, which "
-            "are not ported yet (ROADMAP A14)")
+        """Mark the elements whose interface geometry error (max |phi| over
+        the element's part of the deformed P1 zero set) exceeds the
+        threshold, relative to the largest unless ``absolute``, for the next
+        mesh.Refine() (reference lsetcurv.py MarkForRefinement /
+        CalcDistances refinement flags, lsetcurving/calcgeomerrors.cpp)."""
+        from ..fem.space import BitArray
+
+        vals, _, ids = self._interface_values(levelset, None, 2 * self.order)
+        per_el = np.zeros(self.mesh.ne)
+        if vals.numel():
+            per_el[ids.cpu().numpy()] = vals.max(1).values.cpu().numpy()
+        thresh = (refine_threshold if absolute
+                  else refine_threshold * max(per_el.max(), 1e-300))
+        marks = per_el > thresh
+        self.mesh.SetRefinementFlags(marks)
+        return BitArray(marks)
 
 
 def RefineAtLevelSet(gf, lower=0.0, upper=0.0):
-    """Mark the elements near the level set for mesh.Refine(): not ported
-    yet."""
-    raise NotImplementedError(
-        "RefineAtLevelSet needs Mesh.SetRefinementFlags/Refine, which are "
-        "not ported yet (ROADMAP A14)")
+    """Mark the elements cut by (or within [lower, upper] of) the level set
+    for the next mesh.Refine() (reference lsetcurving/lsetrefine.cpp:13-42:
+    an element is marked iff min(phi_vertices) <= upper and max >=
+    lower)."""
+    from ..fem.space import BitArray
+
+    vals = lset_vertex_values(gf)
+    marks = ((vals.min(1).values <= upper)
+             & (vals.max(1).values >= lower)).cpu().numpy()
+    gf.space.mesh.SetRefinementFlags(marks)
+    return BitArray(marks)
 
 
 def _adapter_from_gfs(lset_ho, lset_p1, deform, threshold=1.0):
@@ -327,14 +346,16 @@ def CalcDistances(lset, lset_p1, deform, stats=None, heapsize=None,
                   refine_threshold=-1.0, absolute=False):
     """Free-function distance statistics (reference
     lsetcurving/python_lsetcurving.cpp:99-110): (max, L1, L2) of |lset|
-    over the deformed lset_p1 zero set, appended to ``stats`` when given.
-    ``refine_threshold >= 0`` (refinement flags) raises: ROADMAP A14."""
-    if refine_threshold >= 0:
-        raise NotImplementedError(
-            "CalcDistances(refine_threshold>=0) sets refinement flags, which "
-            "need Mesh.SetRefinementFlags/Refine (ROADMAP A14)")
+    over the deformed lset_p1 zero set, appended to ``stats`` when given;
+    with ``refine_threshold >= 0`` it also sets the mesh's refinement flags
+    (``MarkForRefinement``)."""
     self = _adapter_from_gfs(
         lset if hasattr(lset, "space") else lset_p1, lset_p1, deform)
     if not hasattr(lset, "space") and deform is not None:
         self.order = deform.space.order  # quadrature order for a CF levelset
-    return self.CalcDistances(levelset=lset, stats=stats)
+    out = self.CalcDistances(levelset=lset, stats=stats)
+    if refine_threshold >= 0:
+        self.MarkForRefinement(levelset=lset,
+                               refine_threshold=refine_threshold,
+                               absolute=absolute)
+    return out

@@ -55,10 +55,23 @@ class Mesh:
 
     ``bc_of_facet_np`` holds a boundary-condition id per facet (1-based like
     NGSolve, 0 on interior facets; every boundary facet gets 1 unless
-    ``bc_of_facet`` says otherwise) and ``bc_names`` their names."""
+    ``bc_of_facet`` says otherwise) and ``bc_names`` their names;
+    ``mat_of_el_np`` a material id per element (1-based, all 1 unless
+    ``mat_of_el`` says otherwise) and ``mat_names`` their names.
+    ``Mesh(other_mesh)`` returns ``other_mesh`` itself, so the reference
+    idiom ``Mesh(geo.GenerateMesh(maxh=...))`` works with
+    ``SplineGeometry``."""
 
-    def __init__(self, et: str, vertices: np.ndarray, elements: np.ndarray,
-                 bc_of_facet=None, bc_names=None):
+    def __new__(cls, et=None, *args, **kwargs):
+        if isinstance(et, Mesh) and not args and not kwargs:
+            return et
+        return super().__new__(cls)
+
+    def __init__(self, et: str, vertices: np.ndarray = None,
+                 elements: np.ndarray = None, bc_of_facet=None,
+                 bc_names=None, mat_of_el=None, mat_names=None):
+        if isinstance(et, Mesh):
+            return  # passthrough: already constructed
         self.et = et
         self.dim = ET_DIM[et]
         self.nvel = ET_NVERT[et]
@@ -71,17 +84,24 @@ class Mesh:
             bc_of_facet = np.where(self.facet2el_np[:, 1] < 0, 1, 0)
         self.bc_of_facet_np = np.asarray(bc_of_facet, dtype=np.int32)
         self.bc_names = bc_names or {}
-        # one material (id 1, as NGSolve numbers them) for every element
-        self.mat_of_el_np = np.ones(self.ne, dtype=np.int32)
+        if mat_of_el is None:
+            mat_of_el = np.ones(self.ne, dtype=np.int32)
+        self.mat_of_el_np = np.asarray(mat_of_el, dtype=np.int32)
+        if self.mat_of_el_np.shape != (self.ne,):
+            raise ValueError("mat_of_el must be (ne,)")
+        self.mat_names = dict(mat_names) if mat_names else {}
         self._views = {}
+        self._host_tables = {}  # host tables made lazily from the arrays
         # deformation slot (set by SetDeformation): a GridFunction of a
         # vector space, or None.  Every evaluation context inherits it.
         self.deformation = None
-        self._version = 0  # bumped when the deformation is (un)set
+        self._version = 0  # bumped on Refine and on (un)setting a deformation
 
     def material_ids(self):
-        """Ascending material ids of the elements."""
-        return sorted(int(i) for i in np.unique(self.mat_of_el_np))
+        """Ascending material ids: every id carried by an element and every
+        id declared in ``mat_names``."""
+        ids = set(int(i) for i in np.unique(self.mat_of_el_np))
+        return sorted(ids | set(int(i) for i in self.mat_names))
 
     def Materials(self, *pattern):
         """Element regions by material name: not ported yet."""
@@ -148,6 +168,33 @@ class Mesh:
         self.facet2el_np = f2e
         self.facet2elloc_np = f2eloc
         self.boundary_facets_np = np.nonzero(f2e[:, 1] < 0)[0].astype(np.int32)
+
+    # -- refinement ----------------------------------------------------------
+    def Refine(self, marks=None):
+        """Refine the marked elements in place (every element when no marks
+        are given and none are stored by ``SetRefinementFlags``): trig
+        meshes by longest-edge red/green/blue subdivision, tet meshes by
+        Rivara bisection, both with a conformity closure; quad/hex meshes
+        uniformly only (``mesh/refine.py``).  The mesh's device views and
+        cached geometry are dropped, its deformation unset and its
+        ``_version`` bumped: spaces and GridFunctions built before must be
+        rebuilt."""
+        from .refine import refine_mesh
+
+        if marks is None:
+            marks = getattr(self, "_refine_marks", None)
+        return refine_mesh(self, marks)
+
+    def SetRefinementFlags(self, marks):
+        """Store per-element refinement flags for the next ``Refine()``."""
+        self._refine_marks = np.asarray(
+            marks.np if hasattr(marks, "np") else marks, dtype=bool)
+
+    def _drop_caches(self):
+        """Forget every table made lazily from the mesh's arrays: the device
+        views and the host tables."""
+        self._views = {}
+        self._host_tables = {}
 
     # -- deformation -------------------------------------------------------
     def SetDeformation(self, deformation):

@@ -1,7 +1,8 @@
 """Sparse matrices: COO triplets, padded ELL rows and offset diagonals.
 
 Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-306``.
-``SparseMatrix`` (COO, ``index_add_`` product, ``todense``, ``to_scipy``,
+``SparseMatrix`` (COO, its product summed by ``index_add_`` on the CPU and
+by a fixed-order ``ScatterPlan`` on the card, ``todense``, ``to_scipy``,
 ``Inverse``, ``CreateTranspose``) and the DIA operator are plain PyTorch:
 the reference has no Pallas kernel behind them either.
 ``ELLMatrix.matvec`` is ``ell_spmv.ell_matvec`` on the matrix's cached
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import config, resolve_device
+from ..ops.scatter import ScatterPlan
 from . import ell_spmv
 from .ell_spmv import ell_matvec, prepare_ell
 
@@ -47,12 +49,22 @@ class SparseMatrix:
         self.vals = torch.as_tensor(vals, device=device)
         self.shape = tuple(int(s) for s in shape)
 
-    def matvec(self, x):
-        """A @ x for a tensor or a dof-vector shim (``gf.vec``)."""
-        x = _as_array(x)
+    def _row_sums(self, terms):
+        """The triplet stream ``terms`` summed into the rows: ``index_add_``
+        (sequential) on the CPU, a ``ScatterPlan`` of the rows, built once,
+        on the card, where ``index_add_`` is atomic; so a product repeats
+        bit for bit."""
         y = torch.zeros(self.shape[0], dtype=self.vals.dtype,
                         device=self.vals.device)
-        return y.index_add_(0, self.rows, self.vals * x[self.cols])
+        if not _on_card(self):
+            return y.index_add_(0, self.rows, terms)
+        if not hasattr(self, "_rows_plan"):
+            self._rows_plan = ScatterPlan(self.rows, self.shape[0])
+        return self._rows_plan.add(terms, y)
+
+    def matvec(self, x):
+        """A @ x for a tensor or a dof-vector shim (``gf.vec``)."""
+        return self._row_sums(self.vals * _as_array(x)[self.cols])
 
     __mul__ = matvec
     __matmul__ = matvec
@@ -73,10 +85,8 @@ class SparseMatrix:
         ).tocsc()
 
     def diagonal(self):
-        d = torch.zeros(self.shape[0], dtype=self.vals.dtype,
-                        device=self.vals.device)
-        on = self.rows == self.cols
-        return d.index_add_(0, self.rows, torch.where(on, self.vals, 0.0))
+        return self._row_sums(torch.where(self.rows == self.cols, self.vals,
+                                          0.0))
 
     def to_ell(self):
         """Padded ELL copy (host conversion, as the reference's): duplicate

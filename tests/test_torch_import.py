@@ -63,6 +63,14 @@ import ngsxfem_tpu_torch.fem.facetspace
 import ngsxfem_tpu_torch.fem.hdiv
 import ngsxfem_tpu_torch.fem.sfespace
 import ngsxfem_tpu_torch.examples.tracefem_hdg
+import ngsxfem_tpu_torch.mesh.io
+import ngsxfem_tpu_torch.mesh.refine
+import ngsxfem_tpu_torch.mesh.splinegeom
+import ngsxfem_tpu_torch.mesh.composite
+import ngsxfem_tpu_torch.examples.cutmg
+import ngsxfem_tpu_torch.examples.unstructured_nxfem
+import ngsxfem_tpu_torch.examples.integrate_curved
+import ngsxfem_tpu_torch.examples.lsetgeoms
 import chip_smoke
 from ngsxfem_tpu_torch import *
 
@@ -111,6 +119,19 @@ mg1 = LatticeDIAMG([[-1, 0, 1]], [5], dim=1)
 pp = mg1.prepare_safe(mg1.params([[[0, -1, -1, -1, -1], [2] * 5,
                                    [-1, -1, -1, -1, 0]]], device="cpu"))
 assert float(pp["ainv0_res"]) < 1e-12
+# the general cut multigrid, refinement, the spline mesher and Gmsh I/O
+it_mg, it_j, diff = ngsxfem_tpu_torch.examples.cutmg.run(
+    nx0=4, levels=2, verbose=False, device="cpu")
+assert it_mg < it_j and diff < 1e-6, (it_mg, it_j, diff)
+rm = MakeStructured2DMesh(quads=False, nx=4, ny=4)
+RefineAtLevelSet(GridFunction(H1(rm, order=1, device="cpu")))
+rm.Refine()
+assert rm.ne == 128
+err = ngsxfem_tpu_torch.examples.unstructured_nxfem.run(
+    mesher="delaunay", npts=100, via_gmsh=True, verbose=False, device="cpu")
+assert 0 < err < 0.5, err
+cm = MakeQuadDominated2DMesh(nx=4, ny=4)
+assert abs(IntegrateC(None, 1.0, cm, order=1, device="cpu") - 1.0) < 1e-12
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ngsxfem_tpu"))
 print(bad)
@@ -121,8 +142,10 @@ sys.exit(1 if bad else 0)
 def test_port_imports_no_jax():
     """Importing the port, its modules, its examples and chip_smoke, and
     running the Quick start, five examples, the isoparametric adaptation,
-    the space-time examples and adaptation and a coarse multigrid inverse
-    on the CPU, loads no jax and no ngsxfem_tpu module."""
+    the space-time examples and adaptation, a coarse multigrid inverse, the
+    cut multigrid example, a refinement, the unstructured example through
+    Gmsh and a composite integral on the CPU, loads no jax and no
+    ngsxfem_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

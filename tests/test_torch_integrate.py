@@ -100,23 +100,86 @@ def test_element_wise_and_plain(et):
 
 @pytest.mark.parametrize("et", ["segm", "quad", "tet"])
 def test_cf_levelset_through_ensure_p1(et):
-    """A CoefficientFunction level set is interpolated to P1 (with the
-    reference's warning), on the device the caller names."""
+    """A CoefficientFunction level set is interpolated to P1 on the device
+    the caller names, with the reference's warning when its P1 space is
+    built: the first Integrate warns, the next ones reuse the P1
+    GridFunction cached on the CF (as the JAX package does)."""
     mj, mt = _meshes(J, et), _meshes(T, et)
     lj = J.sqrt(J.x * J.x + J.y * J.y + J.z * J.z) - 0.45
     lt = T.sqrt(T.x * T.x + T.y * T.y + T.z * T.z) - 0.45
-    for dt in ("NEG", "POS", "IF"):
+    for k, dt in enumerate(("NEG", "POS", "IF")):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             a = J.Integrate({"levelset": lj, "domain_type": getattr(J, dt)},
                             _integrand(J, et), mj, order=4)
-        with pytest.warns(UserWarning, match="not a P1 GridFunction"):
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
             b = T.Integrate({"levelset": lt, "domain_type": getattr(T, dt)},
                             _integrand(T, et), mt, order=4, device="cpu")
+        built = [w for w in rec if "not a P1 GridFunction" in str(w.message)]
+        assert len(built) == (1 if k == 0 else 0), (dt, len(built))
         assert _close(a, b), (dt, a, b)
     with pytest.warns(UserWarning):
         gf = ensure_p1_levelset(lt, mt, device="cpu")
     assert gf.space.order == 1 and gf.device.type == "cpu"
+
+
+def test_p1_levelset_cache_reuse_and_bitwise():
+    """``ensure_p1_levelset(cache_on=)``: a second call reuses the P1 space
+    and GridFunction without a warning, re-interpolates, and gives bits
+    equal to a cold call; a changed CF on the same holder is rebuilt."""
+    mt = _meshes(T, "tet")
+    lt = T.sqrt(T.x * T.x + T.y * T.y + T.z * T.z) - 0.45
+    holder = type("Holder", (), {})()
+    with pytest.warns(UserWarning, match="not a P1 GridFunction"):
+        g1 = ensure_p1_levelset(lt, mt, "cpu", cache_on=holder)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        g2 = ensure_p1_levelset(lt, mt, "cpu", cache_on=holder)
+    assert g2 is g1 and g2.space is g1.space
+    with pytest.warns(UserWarning):
+        cold = ensure_p1_levelset(lt, mt, "cpu")
+    assert cold is not g1 and torch.equal(cold.vec.data, g2.vec.data)
+    ld = {"levelset": lt, "domain_type": T.NEG}
+    with pytest.warns(UserWarning):
+        first = T.Integrate(ld, 1.0, mt, order=3, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        again = T.Integrate(ld, 1.0, mt, order=3, device="cpu")
+    with pytest.warns(UserWarning):
+        fresh = T.Integrate({"levelset": lt - 0.0, "domain_type": T.NEG}, 1.0,
+                            mt, order=3, device="cpu")
+    assert first == again == fresh
+    other = T.sqrt(T.x * T.x + T.y * T.y + T.z * T.z) - 0.3
+    with pytest.warns(UserWarning):
+        g3 = ensure_p1_levelset(other, mt, "cpu", cache_on=holder)
+    assert g3 is not g1
+
+
+@pytest.mark.parametrize("et", ["trig", "tet"])
+def test_p1_levelset_cache_after_refine(et):
+    """After ``mesh.Refine()`` the cached P1 level set of the old mesh is
+    not served: the next Integrate of the same CF gives the refined mesh's
+    value, equal to a fresh CF's there.  (The JAX package keys its cache on
+    the mesh alone and raises a shape error here.)"""
+    mt = _meshes(T, et)
+    lt = T.sqrt(T.x * T.x + T.y * T.y + T.z * T.z) - 0.45
+    with pytest.warns(UserWarning):
+        coarse = T.Integrate({"levelset": lt, "domain_type": T.NEG}, 1.0, mt,
+                             order=2, device="cpu")
+    v0 = mt._version
+    mt.Refine()
+    assert mt._version > v0 and mt._views == {}
+    with pytest.warns(UserWarning):
+        fine = T.Integrate({"levelset": lt, "domain_type": T.NEG}, 1.0, mt,
+                           order=2, device="cpu")
+    fresh_cf = T.sqrt(T.x * T.x + T.y * T.y + T.z * T.z) - 0.45
+    with pytest.warns(UserWarning):
+        ref = T.Integrate({"levelset": fresh_cf, "domain_type": T.NEG}, 1.0,
+                          mt, order=2, device="cpu")
+    assert fine == ref and fine != coarse
+    gf = ensure_p1_levelset(lt, mt, "cpu", cache_on=lt)
+    assert gf.space.ndof == mt.nv
 
 
 def test_single_tier_matches_two_tier():

@@ -112,12 +112,61 @@ def test_prolongation_matrix_matches_reference():
 
 
 def test_mesh_hierarchy_and_quad_prolongation():
+    """The hierarchy helper, and the quad/hex prolongation (batched Newton
+    inversion of the multilinear map) equal to the JAX package's to 1e-12
+    on mapped meshes, orders 1 and 2."""
+    from ngsxfem_tpu.mesh.structured import MakeStructured3DMesh as JaxMesh3D
+
     meshes = mg.mesh_hierarchy(
         lambda n: MakeStructured2DMesh(quads=False, nx=n, ny=n), 2, 3)
     assert [m.ne for m in meshes] == [8, 32, 128]
-    q = [H1(MakeStructured2DMesh(quads=True, nx=n, ny=n)) for n in (2, 4)]
-    with pytest.raises(NotImplementedError):
-        mg.prolongation_coo_np(q[0], q[1])
+    m2 = lambda a, b: (a + 0.1 * a * b, b)
+    m3 = lambda a, b, c: (a + 0.1 * a * b, b, c)
+    pairs = [(lambda n: JaxMesh2D(quads=True, nx=n, ny=n, mapping=m2),
+              lambda n: MakeStructured2DMesh(quads=True, nx=n, ny=n,
+                                             mapping=m2), (3, 6)),
+             (lambda n: JaxMesh3D(hexes=True, nx=n, ny=n, nz=n, mapping=m3),
+              lambda n: MakeStructured3DMesh(hexes=True, nx=n, ny=n, nz=n,
+                                             mapping=m3), (2, 4))]
+    for jm, tm, (nc, nf) in pairs:
+        for order in (1, 2):
+            pj = jax_mg.prolongation_coo_np(JaxH1(jm(nc), order=order),
+                                            JaxH1(jm(nf), order=order))
+            pt = mg.prolongation_coo_np(H1(tm(nc), order=order),
+                                        H1(tm(nf), order=order))
+            assert pt[3] == pj[3]
+            assert np.array_equal(pt[0], pj[0]) and np.array_equal(pt[1],
+                                                                   pj[1])
+            assert np.abs(pt[2] - pj[2]).max() <= 1e-12
+
+
+@pytest.mark.parametrize("kind", ["compress", "xfe"])
+def test_prolongation_masked_spaces_match_reference(kind):
+    """Masked spaces (``Compress``, ``XFESpace``): inactive el2dof slots
+    point at dof 0 and must be dropped, for the fine nodes and the coarse
+    weights, as the JAX package drops them.  2D trigs, nx 4 -> 8, the
+    circle r=0.6: dense matrices equal to 1e-14."""
+    import ngsxfem_tpu as J
+    import ngsxfem_tpu_torch as T
+
+    def space(N, nx, **kw):
+        m = N.MakeStructured2DMesh(quads=False, nx=nx, ny=nx,
+                                   mapping=lambda a, b: (2 * a - 1, 2 * b - 1))
+        V = N.H1(m, order=1, **kw)
+        g = N.GridFunction(N.H1(m, order=1, **kw))
+        N.InterpolateToP1(N.sqrt(N.x * N.x + N.y * N.y) - 0.6, g)
+        ci = N.CutInfo(m, g)
+        if kind == "compress":
+            return N.Compress(V, N.GetDofsOfElements(
+                V, ci.GetElementsOfType(N.HASNEG)))
+        return N.XFESpace(V, ci)
+
+    Pj = jax_mg.prolongation_matrix(space(J, 4), space(J, 8))
+    Pt = mg.prolongation_matrix(space(T, 4, device="cpu"),
+                                space(T, 8, device="cpu"), device="cpu")
+    dj = np.asarray(Pj.to_scipy().todense())
+    assert Pt.shape == Pj.shape
+    assert np.abs(Pt.todense().numpy() - dj).max() <= 1e-14
 
 
 @pytest.mark.parametrize("dim", [3, 2])

@@ -291,6 +291,34 @@ def test_scatter_plan_equals_sequential_index_add(dtype):
     assert torch.equal(plan.add(vals2).view(it), ref.view(it))
 
 
+def test_coo_product_through_a_scatter_plan_on_the_card(monkeypatch):
+    """On the card ``SparseMatrix``'s product and diagonal sum through one
+    ``ScatterPlan`` of the rows, built once (the branch run here on CPU
+    tensors with the card predicate patched): equal to the plan's sums
+    bit for bit, to the sequential ``index_add_`` to rounding, and to the
+    JAX package's product."""
+    a, f, _, free, _ = fictdom3d.system(nx=4, device="cpu")
+    a.Assemble()
+    A = a.mat
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(A.shape[1]))
+    y_seq, d_seq = A * x, A.diagonal()
+    monkeypatch.setattr(sparse, "_on_card", lambda mat: True)
+    y = A * x
+    plan = A._rows_plan
+    assert len(plan.levels) > 1  # rows with more than CHUNK triplets
+    assert torch.equal(y, plan.add(A.vals * x[A.cols]))
+    assert torch.equal(A * x, y) and A._rows_plan is plan
+    assert torch.equal(A.diagonal(), plan.add(
+        torch.where(A.rows == A.cols, A.vals, 0.0)))
+    assert torch.allclose(y, y_seq, rtol=0, atol=1e-13 * float(y.abs().max()))
+    assert torch.allclose(A.diagonal(), d_seq, rtol=1e-14, atol=0)
+    J = jax_sparse.SparseMatrix(jnp.asarray(A.rows.numpy()),
+                                jnp.asarray(A.cols.numpy()),
+                                jnp.asarray(A.vals.numpy()), A.shape)
+    yj = np.asarray(J.matvec(jnp.asarray(x.numpy())))
+    assert np.abs(y.numpy() - yj).max() <= 1e-13 * np.abs(yj).max()
+
+
 @pytest.mark.cuda
 def test_sell_kernel_matches_plain_on_cuda():
     """The kernel on its layout against both plain versions, on the card:

@@ -63,24 +63,33 @@ def rowmajor_matvec(lib, vals, cols, x):
     return y
 
 
+PROFILE_TRIES = 3   # profiles device_us takes at most
+
+
 def device_us(fn, kernel, calls=50, warm=200):
     """Device us per launch of the kernels whose name holds ``kernel``,
     by torch.profiler over ``calls`` calls of ``fn`` after ``warm`` calls
-    (which bring the card from its idle clock to its load clock)."""
+    (which bring the card from its idle clock to its load clock).  A
+    profile that captured none of them (torch.profiler late in a long
+    process now and then records no device event) is taken again, up to
+    PROFILE_TRIES profiles in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0))
-        if kernel in evt.key and evt.count:
-            return us / evt.count
-    raise RuntimeError(f"no device kernel named *{kernel}* in the profile")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0))
+            if kernel in evt.key and evt.count:
+                return us / evt.count
+    raise RuntimeError(f"no device kernel named *{kernel}* in "
+                       f"{PROFILE_TRIES} profiles")
 
 
 OLD_KERNEL = "ell_spmv_kernel"      # the row-major kernel's device name
