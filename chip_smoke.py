@@ -11,7 +11,9 @@ skeleton, vector and XFEM workloads in phases 16-17, the isoparametric
 (order-2/3 deformed-mesh) workloads in phases 18-19, the space-time
 moving-domain workloads in phases 20-21, the matrix-free operators, the
 subdivision quadrature and the HDG trace FEM in phases 22-23, and the
-general cut multigrid and the meshing and refinement in phases 24-25:
+general cut multigrid and the meshing and refinement in phases 24-25, the
+gradient of a cut-FEM functional with respect to the level set in phase 26
+and the periodic spaces, materials and utilities in phase 27:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -272,7 +274,43 @@ Phases, one line each:
    trip of the big mesh, ``integrate_curved`` and ``lsetgeoms`` at their
    own sizes card == CPU (integrals 1e-12, distances 1e-8); B2 and B1
    launches of each phase (the record's ``launches_mg``, ``mg_tables`` and
-   ``launches_meshing``).
+   ``launches_meshing``);
+26. differentiable cut FEM, launch counters reset before it, f64: kernel
+   B2 under autograd (``ELLMatrix.matvec`` -> ``EllMatvec``) on the
+   flagship ELL table at nx=48 and on the non-symmetric P1 prolongation
+   nx=24 -> 48, a seeded x and output gradient: one forward and one
+   transposed launch per product, the backward's ``A^T g`` bitwise equal to
+   ``sell_matvec_plain`` on the transposed table's layout, ``grad_vals``
+   bitwise equal to ``g[r] * x[cols]``, <g, A x> = <A^T g, x>, B2's times,
+   bounds and cuSPARSE on each transposed table (the record's
+   ``autograd_tables``); tests/test_ad_fastpath.py's compliance J(r) =
+   b^T x at nx=48 through PCG-120 both ways (the lattice assembly +
+   ``dia_matvec`` + unrolled ``krylov.cg``; ``assemble_vals_soa1`` + B2
+   products under autograd + the same PCG, ELL products = B2 launches =
+   2 x 120 + 1), r0 midway between two vertex distances: dJ/dr against a
+   central difference on the card (1e-5; the step 1e-6 x 8 / nx) and the
+   two paths against each other (1e-6), J to 1e-9, forward and backward
+   ms by events, peak memory (autograd keeps the whole assembly's
+   intermediates: under 40 GB, so no recomputation), the general path's
+   device kernels and idle share; the rounding witness at PCG-80 (the JAX
+   test's budget, printed, not checked) and at PCG-120 (dJ/dr within 1e-6
+   of itself): both paths, the general path with its ELL rows' slots in a
+   seeded order and at r0 + 1 ulp;
+   ``examples.levelset_shape_opt``: ``run`` at nx=1024 (area to 1e-10, r
+   within 2e-3 (32 / nx)^2), ``compliance_sensitivity`` through
+   ``krylov.cg_implicit`` (B2 in both solves, launches = products) against a
+   central difference at nx=64 (1e-7) and at nx=128 with its time, card ==
+   CPU at nx=32 and nx=10 (1e-10);
+27. periodic spaces, materials and utilities, launch counters reset before
+   it, f64: ``Periodic(H1)`` for -u'' + u = cos(2 pi x) at nx=256 and 512
+   (~262k dofs) through the default ``Inverse()`` (``device_cg``, B2
+   launches = products) under a ``Timer``, the error falling more than
+   3.2x per halving of h; at tests/test_misc.py's nx=16 card == CPU (the
+   solution 1e-8), ``LevelSetMeshAdaptation(periodic=True)`` (deformation and
+   max distance 1e-8), region-wise and ``definedon`` integrals of a cut
+   domain (1e-12), ``VTKOutput`` of the card GridFunctions (the file's
+   numbers 1e-8); B2 launches of each phase (the record's
+   ``launches_autograd`` and ``launches_periodic``).
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -481,6 +519,32 @@ def device_kernels(fn, calls, warm=True):
         if out:
             break
     return out, wall_ms
+
+
+def device_busy(fn):
+    """(device kernels, device busy ms, host wall ms) of one call of `fn`
+    under torch.profiler, counted from the raw kineto events: the per-name
+    tables that ``device_kernels`` builds took 52 s of host time for the
+    ~230,000 kernels of a gradient at nx=48 (phase 26, beside an NVIDIA
+    H100 80GB HBM3 at 700.00 W).  A window that recorded no
+    device event is taken again, up to PROFILE_TRIES windows in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        n, ns = 0, 0
+        for evt in prof.profiler.kineto_results.events():
+            if str(evt.device_type()).endswith("CUDA"):
+                n += 1
+                ns += evt.duration_ns()
+        if n:
+            break
+    return n, ns / 1e6, wall_ms
 
 
 def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
@@ -3646,6 +3710,594 @@ def phases_24_25(T, dev, t_start):
     return mg_launches, mesh_launches, tables
 
 
+# --- phases 26-27: differentiable cut FEM; periodic spaces, materials and
+# utilities ------------------------------------------------------------------
+
+AD_NX = 48               # the flagship compliance J(r) = b^T x, f64
+# the fixed PCG budget of both paths, its own constant.  The budget scan
+# (tools/torch_ad_budget.py, NVIDIA H100 80GB HBM3, 700.00 W) read lattice
+# vs general, rel in J / in dJ/dr:
+#   PCG-20  1.2e-13 / 1.4e-11     PCG-50   2.4e-8 / 1.9e-6
+#   PCG-80  5.5e-9  / 1.5e-6      PCG-120  1.7e-13 / 1.0e-10
+# tests/test_ad_fastpath.py's 80 steps nearly converge at NX=8; at nx=48
+# steps ~50-80 lie on the PCG's plateau, where rounding (the two paths sum
+# their tables in different orders) grows past the paths' 1e-6 limit
+AD_CG_ITERS = 120
+# the JAX test's budget, on the plateau at nx=48: printed, not checked,
+# beside the witness that its gap is rounding (one path against itself
+# with its sums reordered, and with r moved by one ulp)
+AD_PLATEAU_ITERS = 80
+AD_FD_EPS = 1e-6         # central difference step at NX=8 (the JAX test's)
+AD_FD_TOL = 1e-5         # autograd vs central difference (the JAX test's)
+AD_PATH_TOL = 1e-6       # lattice vs general path (the JAX test's)
+AD_PARITY_TOL = 1e-10    # levelset_shape_opt card vs CPU
+SHAPE_NX = 1024          # levelset_shape_opt.run on the card: 2,097,152 trigs
+SHAPE_PARITY_NX = 32     # the JAX tests' size of make_area_fn / run
+COMP_PARITY_NX = 10      # the JAX tests' size of compliance_sensitivity
+# compliance_sensitivity against a central difference (1e-7): the example
+# has no ghost penalty, so past nx=64 its cut system's conditioning puts the
+# solves' 1e-12 residual into the difference (2e-4 apart at nx=128 on the
+# CPU); the gradient alone runs at COMP_BIG_NX
+COMP_FD_NX = 64
+COMP_BIG_NX = 128
+COMP_FD_TOL = 1e-7
+PER_NX = (256, 512)      # Periodic(H1), -u'' + u = cos(2 pi x): ~262k dofs
+PER_PARITY_NX = 16       # tests/test_misc.py's size
+PER_DECAY = 3.2          # error falling per halving of h (test_misc's bound)
+
+
+def _gap_midpoint(vd, r):
+    """The midpoint between the two vertex distances bracketing r (the JAX
+    test's choice: one sign pattern for the gradient and the difference,
+    no tie of a clamp or of eps_guard)."""
+    vds = np.unique(vd)
+    i = int(np.searchsorted(vds, r))
+    return float(0.5 * (vds[i - 1] + vds[i])), float(vds[i] - vds[i - 1])
+
+
+def b2_backward(label, A, device):
+    """Kernel B2 under autograd (``ELLMatrix.matvec`` -> ``EllMatvec``) on
+    the table of ``A`` with a seeded x and a seeded output gradient: one
+    forward and one transposed launch per product; the backward's
+    ``A^T g`` bitwise equal to ``sell_matvec_plain`` on the transposed
+    table's layout, ``grad_vals`` bitwise equal to ``g[r] * x[cols]``, the
+    transposed table the transpose (<g, A x> = <A^T g, x> to 1e-12);
+    ``b2_timed`` on the transposed table; one forward and backward by
+    events.  Launches made for the timings are put back."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix
+
+    rng = np.random.default_rng(2032)
+    dt = A.vals.dtype
+    vals = A.vals.detach().clone().requires_grad_()
+    E = ELLMatrix(A.cols, vals, A.shape)
+    x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=dt,
+                        device=device).requires_grad_()
+    g = torch.as_tensor(rng.standard_normal(A.shape[0]), dtype=dt,
+                        device=device)
+    l0 = ell_spmv.launches
+    y = E.matvec(x)
+    y.backward(g)
+    launches = ell_spmv.launches - l0
+    check(launches == (2 if device.type == "cuda" else 0),
+          f"{label}: {launches} ell_spmv launches for one forward and one "
+          f"transposed product")
+    check(type(y.grad_fn).__name__ == "EllMatvecBackward",
+          f"{label}: the product under autograd is not EllMatvec")
+    Et = E.transposed()
+    with torch.no_grad():
+        if device.type == "cuda":
+            want = ell_spmv.sell_matvec_plain(Et.layout(), g)
+        else:
+            want = ell_spmv.ell_matvec_plain(Et.vals, Et.cols, g)
+        check(torch.equal(x.grad, want),
+              f"{label}: A^T g != the plain sum of the transposed table")
+        check(torch.equal(vals.grad, g[:, None] * x.detach()[A.cols.long()]),
+              f"{label}: grad_vals != g[r] * x[cols]")
+        lhs = float(torch.dot(g, y.detach()))
+        rhs = float(torch.dot(x.grad, x.detach()))
+        check(abs(lhs - rhs) <= 1e-12 * (float(g.abs() @ (
+            ell_spmv.ell_matvec_plain(vals.detach().abs(), A.cols,
+                                      x.detach().abs())))),
+              f"{label}: <g, A x> {lhs} != <A^T g, x> {rhs}")
+    out = {"label": label, "n": A.shape[0], "ncols": A.shape[1],
+           "K": int(A.cols.shape[1]), "KT": int(Et.cols.shape[1]),
+           "launches": launches}
+    if device.type == "cuda":
+        counts = ell_spmv.launches, ell_spmv.layouts_built
+
+        def fb():
+            xx = x.detach().requires_grad_()
+            E.matvec(xx).backward(g)
+            return xx.grad
+
+        fb()
+        _, out["fb_ms"] = event_ms(fb)
+        out["b2"] = b2_timed(f"{label} transposed", Et, g)
+        out["b2"]["err"] = float((x.grad - want).abs().max())
+        ell_spmv.launches, ell_spmv.layouts_built = counts
+    return out
+
+
+def ad_r0(model):
+    """r0 of the compliance at 0.4 (``_gap_midpoint``) and its vertex gap."""
+    return _gap_midpoint(
+        np.sqrt(((model.mesh.vertices_np - 0.5) ** 2).sum(1)), 0.4)
+
+
+def compliance_fns(model, dst, st, iters, dev, k_order=None):
+    """tests/test_ad_fastpath.py's compliance J(r) = b^T x in f64 through
+    an ``iters``-step Jacobi-PCG, as two functions of r: the lattice
+    assembly + ``dia_matvec`` + unrolled ``krylov.cg``, and
+    ``assemble_vals_soa1`` + ``ELLMatrix`` products (B2 forward and
+    transposed under autograd) + the same PCG.  ``k_order`` permutes the
+    slots of every ELL row: the same matrix, its sums taken in another
+    order."""
+    from ngsxfem_tpu_torch.solvers.krylov import cg
+    from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix, dia_matvec
+
+    tvd = torch.as_tensor(
+        np.sqrt(((model.mesh.vertices_np - 0.5) ** 2).sum(1)), device=dev)
+    offs = dst["offsets"]
+    k0 = int(np.searchsorted(offs, 0))
+    act = model.active_dofs
+    b_dia = torch.as_tensor(np.where(act[dst["perm_inv"]], 1.0, 0.0),
+                            device=dev)
+    b_dof = torch.as_tensor(np.where(act, 1.0, 0.0), device=dev)
+    cols = torch.as_tensor(st["ell_cols"], device=dev)
+    if k_order is not None:
+        cols = cols[:, k_order].contiguous()
+
+    def lattice(r):
+        V, _ = model.assemble_vals_lattice(model.vertices, tvd - r, dst)
+        dinv = torch.where(V[k0].abs() > 1e-30, 1.0 / V[k0], 1.0)
+        x, _, _ = cg(lambda z: dia_matvec(offs, V, z), b_dia,
+                     M=lambda w: dinv * w, maxiter=iters, tol=0.0)
+        return torch.dot(b_dia, x)
+
+    def general(r):
+        vals, _ = model.assemble_vals_soa1(model.vertices, tvd - r, st)
+        if k_order is not None:
+            vals = vals[:, k_order].contiguous()
+        A = ELLMatrix(cols, vals, (model.ndof, model.ndof))
+        d = A.diagonal()
+        dinv = torch.where(d.abs() > 1e-30, 1.0 / d, 1.0)
+        x, _, _ = cg(A.matvec, b_dof, M=lambda w: dinv * w, maxiter=iters,
+                     tol=0.0)
+        return torch.dot(b_dof, x)
+
+    return lattice, general
+
+
+def _value_and_grad(fn, r0, dev):
+    r = torch.tensor(r0, dtype=torch.float64, device=dev, requires_grad=True)
+    J = fn(r)
+    (g,) = torch.autograd.grad(J, r)
+    return float(J.detach()), float(g)
+
+
+def ad_compliance(T, dev, model, dst, st):
+    """The compliance of ``compliance_fns`` at nx=AD_NX through the
+    AD_CG_ITERS-step PCG both ways.  dJ/dr by autograd against a central
+    difference on the card (AD_FD_TOL) and the two paths against each
+    other (AD_PATH_TOL); forward and backward ms by events, peak memory, B2
+    launches against the products; the general path's device kernels and
+    idle share.  Then the rounding witness, at AD_PLATEAU_ITERS (printed,
+    not checked) and at AD_CG_ITERS (the general path within AD_PATH_TOL
+    of itself): both paths, and the general path with its ELL rows' slots
+    in a seeded order and with r moved by one ulp."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    r0, gap = ad_r0(model)
+    lattice, general = compliance_fns(model, dst, st, AD_CG_ITERS, dev)
+    out = {"r0": r0, "gap": gap}
+    for name, fn in (("lattice", lattice), ("general", general)):
+        sync(dev)
+        peak_gib(dev)
+        l0 = ell_spmv.launches
+        r = torch.tensor(r0, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+        with counted_ell() as c:
+            J, fwd_ms = event_ms(lambda: fn(r))
+            (g,), bwd_ms = event_ms(lambda: torch.autograd.grad(J, r))
+        out[name] = {"J": float(J.detach()), "grad": float(g),
+                     "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                     "peak_gib": peak_gib(dev), "products": c.calls,
+                     "launches": ell_spmv.launches - l0}
+        check(math.isfinite(float(g)) and float(g) != 0.0,
+              f"AD {name}: gradient {float(g)}")
+        check(out[name]["launches"] == (c.calls if dev.type == "cuda"
+                                        else 0),
+              f"AD {name}: {out[name]['launches']} ell_spmv launches for "
+              f"{c.calls} ELL products")
+    # one forward product per CG step and the initial residual's, one
+    # transposed product per step (x0 = 0 needs none)
+    check(out["general"]["products"] == 2 * AD_CG_ITERS + 1,
+          f"AD general: {out['general']['products']} ELL products, not one "
+          f"forward and one transposed per CG product")
+    # the central difference errs by its eps^2 J'''(r) / 6 term, and J'''
+    # grows with the resolution of the cut (at nx=48 the JAX test's step
+    # 1e-6 leaves 6e-6 of it, a quarter at half the step,
+    # tools/torch_ad_budget.py): the step is the JAX test's scaled by h
+    eps = out["fd_eps"] = AD_FD_EPS * 8 / model.nx
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fd = out["fd"] = (float(lattice(r0 + eps))
+                          - float(lattice(r0 - eps))) / (2 * eps)
+    out["fd_s"] = time.perf_counter() - t0
+    gl, gg = out["lattice"]["grad"], out["general"]["grad"]
+    out["rel_fd"] = abs(gl - fd) / abs(fd)
+    out["rel_paths"] = abs(gl - gg) / abs(gg)
+    check(out["rel_fd"] <= AD_FD_TOL, f"AD lattice {gl} vs FD {fd}")
+    check(out["rel_paths"] <= AD_PATH_TOL, f"AD lattice {gl} vs general {gg}")
+    check(abs(out["lattice"]["J"] - out["general"]["J"])
+          <= 1e-9 * abs(out["general"]["J"]),
+          f"AD J lattice {out['lattice']['J']} vs general "
+          f"{out['general']['J']}")
+    if dev.type == "cuda":
+        def fb():
+            r = torch.tensor(r0, dtype=torch.float64, device=dev,
+                             requires_grad=True)
+            return torch.autograd.grad(general(r), r)
+
+        counts = ell_spmv.launches
+        t0 = time.perf_counter()
+        nk, busy, wall = device_busy(fb)
+        out["general_prof"] = (nk, busy, 1 - busy / wall, wall,
+                               time.perf_counter() - t0)
+        ell_spmv.launches = counts
+    t0 = time.perf_counter()
+    k_order = np.random.default_rng(2033).permutation(st["ell_cols"].shape[1])
+    r_ulp = float(np.nextafter(r0, 1.0))
+    wit = out["witness"] = {}
+    for it in (AD_PLATEAU_ITERS, AD_CG_ITERS):
+        lat, gen = compliance_fns(model, dst, st, it, dev)
+        _, gen_perm = compliance_fns(model, dst, st, it, dev, k_order)
+        row = wit[it] = {}
+        if it == AD_CG_ITERS:
+            row["lattice"] = (out["lattice"]["J"], gl)
+            row["general"] = (out["general"]["J"], gg)
+        else:
+            row["lattice"] = _value_and_grad(lat, r0, dev)
+            row["general"] = _value_and_grad(gen, r0, dev)
+        row["slots"] = _value_and_grad(gen_perm, r0, dev)
+        row["ulp"] = _value_and_grad(gen, r_ulp, dev)
+        base = row["general"]
+        row["rel"] = {k: tuple(abs(a - b) / abs(b)
+                               for a, b in zip(row[k], base))
+                      for k in ("lattice", "slots", "ulp")}
+    for k in ("slots", "ulp"):
+        check(wit[AD_CG_ITERS]["rel"][k][1] <= AD_PATH_TOL,
+              f"AD general PCG-{AD_CG_ITERS} vs itself ({k}): dJ/dr rel "
+              f"{wit[AD_CG_ITERS]['rel'][k][1]:.3e}")
+    out["witness_s"] = time.perf_counter() - t0
+    return out
+
+
+def shape_opt_card(dev):
+    """examples.levelset_shape_opt: ``run`` at SHAPE_NX on the card (final
+    area to 1e-10, r within the JAX test's 2e-3 scaled by h^2), the
+    compliance gradient through ``krylov.cg_implicit`` (B2 in both solves)
+    against a central difference at COMP_FD_NX (COMP_FD_TOL) and at
+    COMP_BIG_NX with its time and launches; card against CPU at the JAX
+    tests' sizes (AD_PARITY_TOL)."""
+    from ngsxfem_tpu_torch.examples import levelset_shape_opt as ex
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    out = {}
+    sync(dev)
+    peak_gib(dev)
+    t0 = time.perf_counter()
+    out["r"], out["area"] = ex.run(nx=SHAPE_NX, verbose=False, device=dev)
+    sync(dev)
+    out["run_s"] = time.perf_counter() - t0
+    out["run_peak"] = peak_gib(dev)
+    r_exact = math.sqrt(0.25 / math.pi)
+    out["r_err"] = abs(out["r"] - r_exact)
+    check(abs(out["area"] - 0.25) < 1e-10,
+          f"levelset_shape_opt nx={SHAPE_NX}: area {out['area']}")
+    check(out["r_err"] < 2e-3 * (32 / SHAPE_NX) ** 2,
+          f"levelset_shape_opt nx={SHAPE_NX}: r off by {out['r_err']}")
+
+    def grad_of(comp, r0, d):
+        r = torch.tensor(r0, dtype=torch.float64, device=d,
+                         requires_grad=True)
+        c = comp(r)
+        (g,) = torch.autograd.grad(c, r)
+        return float(c.detach()), float(g)
+
+    for nx in (COMP_FD_NX, COMP_BIG_NX):
+        m = np.linspace(0.0, 1.0, nx + 1)
+        X, Y = np.meshgrid(m, m)
+        r0, _ = _gap_midpoint(np.sqrt((X - 0.5) ** 2 + (Y - 0.5) ** 2), 0.33)
+        comp = ex.compliance_sensitivity(nx=nx, device=dev)
+        l0 = ell_spmv.launches
+        with counted_ell() as c:
+            (cval, g), ms = event_ms(lambda: grad_of(comp, r0, dev))
+        row = {"nx": nx, "r0": r0, "J": cval, "grad": g, "ms": ms,
+               "products": c.calls, "launches": ell_spmv.launches - l0}
+        check(row["launches"] == (c.calls if dev.type == "cuda" else 0),
+              f"compliance_sensitivity nx={nx}: {row['launches']} launches "
+              f"for {c.calls} ELL products")
+        if nx == COMP_FD_NX:
+            with torch.no_grad():
+                eps = AD_FD_EPS
+                row["fd"] = (float(comp(r0 + eps))
+                             - float(comp(r0 - eps))) / (2 * eps)
+            row["rel_fd"] = abs(g - row["fd"]) / abs(row["fd"])
+            check(row["rel_fd"] <= COMP_FD_TOL,
+                  f"compliance_sensitivity nx={nx}: {g} vs FD {row['fd']}")
+        out[f"comp{nx}"] = row
+
+    par = {}
+    for d in (dev, torch.device("cpu")):
+        area = ex.make_area_fn(nx=SHAPE_PARITY_NX, device=d)
+        r = torch.tensor(0.31, dtype=torch.float64, device=d,
+                         requires_grad=True)
+        a = area(r)
+        (ga,) = torch.autograd.grad(a, r)
+        comp = ex.compliance_sensitivity(nx=COMP_PARITY_NX, device=d)
+        par[d.type] = (float(a.detach()), float(ga),
+                       ex.run(nx=SHAPE_PARITY_NX, verbose=False,
+                              device=d)[0],
+                       *grad_of(comp, 0.33, d))
+    worst = max(abs(a - b) / max(abs(b), 1e-300)
+                for a, b in zip(par[dev.type], par["cpu"]))
+    check(worst <= AD_PARITY_TOL,
+          f"levelset_shape_opt card {par[dev.type]} vs CPU {par['cpu']}")
+    out["parity"], out["parity_worst"] = par[dev.type], worst
+    return out
+
+
+def phase_26(T, dev, model64, dst64, st64):
+    """Phase 26, launch counters reset before it: B2 under autograd on the
+    flagship ELL table (f64, symmetric) and on a non-symmetric table (the
+    3D nx=24 -> 48 P1 prolongation), the flagship compliance gradient at
+    nx=AD_NX both ways, and ``levelset_shape_opt`` at card size.  Returns
+    (ell_spmv launches of the phase, B2's records on the transposed
+    tables)."""
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+    from ngsxfem_tpu_torch.solvers.mg import prolongation_matrix
+    from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix
+
+    sync(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    vals48, _ = model64.assemble_vals_soa1(model64.vertices, model64.lset,
+                                           st64)
+    flag = ELLMatrix(torch.as_tensor(st64["ell_cols"], device=dev), vals48,
+                     (model64.ndof, model64.ndof))
+    nxf = model64.nx
+    fine = T.H1(T.MakeStructured3DMesh(hexes=False, nx=nxf, ny=nxf, nz=nxf),
+                order=1, device=dev)
+    coarse = T.H1(T.MakeStructured3DMesh(hexes=False, nx=nxf // 2,
+                                         ny=nxf // 2, nz=nxf // 2),
+                  order=1, device=dev)
+    prol = prolongation_matrix(coarse, fine, torch.float64,
+                               device=dev).ell()
+    tables = []
+    for label, A in ((f"flagship ELL nx={nxf} f64", flag),
+                     (f"P1 prolongation nx={nxf // 2}->{nxf} f64", prol)):
+        b = b2_backward(label, A, dev)
+        tables.append(b)
+        if "b2" in b:
+            print(f"[26 B2 autograd] {b['label']} ({b['n']} x {b['K']}, "
+                  f"transposed {b['ncols']} x {b['KT']}): one forward and "
+                  f"one transposed launch per product, A^T g == "
+                  f"sell_matvec_plain of the transposed layout bit for bit, "
+                  f"grad_vals == g[r] x[cols] bit for bit; forward + "
+                  f"backward {b['fb_ms']:.3f} ms (events); the transposed "
+                  f"table: {b2_text(b['b2'])}", flush=True)
+    del flag, vals48, prol
+    print(f"[26 B2 autograd] wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    ad = ad_compliance(T, dev, model64, dst64, st64)
+    ad["wall_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for name in ("lattice", "general"):
+        p = ad[name]
+        print(f"[26 AD {name}] {card()} | compliance nx={AD_NX} f64, "
+              f"PCG-{AD_CG_ITERS}, r0={ad['r0']:.12f} (vertex gap "
+              f"{ad['gap']:.3e}): J {p['J']:.12e}, dJ/dr {p['grad']:.12e}; "
+              f"forward {p['fwd_ms']:.1f} ms, backward {p['bwd_ms']:.1f} ms "
+              f"(events); peak memory {p['peak_gib']:.2f} GiB; ELL products "
+              f"{p['products']} = ell_spmv launches {p['launches']}",
+              flush=True)
+    print(f"[26 AD check] dJ/dr lattice vs central difference (eps "
+          f"{ad['fd_eps']:.4g}, {ad['fd_s']:.2f} s) {ad['fd']:.12e}: rel "
+          f"{ad['rel_fd']:.3e} <= {AD_FD_TOL:g}; lattice vs general rel "
+          f"{ad['rel_paths']:.3e} <= "
+          f"{AD_PATH_TOL:g}; general forward + backward under the "
+          f"profiler: "
+          + ("{} device kernels, busy {:.2f} ms of {:.2f} ms wall, idle "
+             "share {:.3f} (the profile {:.2f} s)".format(
+                 *ad["general_prof"][:2], ad["general_prof"][3],
+                 ad["general_prof"][2], ad["general_prof"][4])
+             if "general_prof" in ad else "not profiled")
+          + f"; wall of the compliance {ad['wall_s']:.2f} s", flush=True)
+    for it, row in ad["witness"].items():
+        rel = row["rel"]
+        print(f"[26 AD rounding] PCG-{it}"
+              + (" (checked)" if it == AD_CG_ITERS else
+                 " (the JAX test's budget, printed, not checked)")
+              + f": general J {row['general'][0]:.15e}, dJ/dr "
+              f"{row['general'][1]:.12e}; rel in J / in dJ/dr against it: "
+              f"lattice {rel['lattice'][0]:.3e} / {rel['lattice'][1]:.3e}, "
+              f"general with its ELL slots reordered {rel['slots'][0]:.3e} "
+              f"/ {rel['slots'][1]:.3e}, general at r0 + 1 ulp "
+              f"{rel['ulp'][0]:.3e} / {rel['ulp'][1]:.3e}", flush=True)
+    print(f"[26 AD rounding] wall {ad['witness_s']:.2f} s", flush=True)
+    so = shape_opt_card(dev)
+    c64, c128 = so[f"comp{COMP_FD_NX}"], so[f"comp{COMP_BIG_NX}"]
+    print(f"[26 levelset_shape_opt] {card()} | run nx={SHAPE_NX} "
+          f"({2 * SHAPE_NX ** 2} trigs): r {so['r']:.12f} (exact - r "
+          f"{so['r_err']:.3e}), area {so['area']:.15f}, {so['run_s']:.2f} s, "
+          f"peak memory {so['run_peak']:.2f} GiB; compliance_sensitivity "
+          f"(cg_implicit, B2 in both solves) nx={COMP_FD_NX}: dC/dr "
+          f"{c64['grad']:.12e} vs FD {c64['fd']:.12e} rel "
+          f"{c64['rel_fd']:.3e}, {c64['ms']:.1f} ms, {c64['products']} "
+          f"products = {c64['launches']} launches; nx={COMP_BIG_NX}: dC/dr "
+          f"{c128['grad']:.12e}, {c128['ms']:.1f} ms, {c128['products']} "
+          f"products = {c128['launches']} launches; card == CPU at nx="
+          f"{SHAPE_PARITY_NX}/{COMP_PARITY_NX} (rel "
+          f"{so['parity_worst']:.1e}); "
+          f"wall {time.perf_counter() - t1:.2f} s", flush=True)
+    launches = ell_spmv.launches
+    check(launches > 0 or dev.type != "cuda",
+          "the autograd path launched ell_spmv no time")
+    check(dia_cg.launches == 0, "the autograd path launched dia_cg")
+    print(f"[26 launches] ell_spmv {launches}, dia_cg {dia_cg.launches}; "
+          f"wall of phase 26 {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches, [dict(b2_record(b["b2"]), launches=b["launches"])
+                      for b in tables if "b2" in b]
+
+
+def periodic_solve(T, nx, dev):
+    """tests/test_misc.py's periodic problem at nx: the solution, its L2
+    error, the Inverse() object and the ELL products of its solve."""
+    mesh = T.MakeStructured2DMesh(quads=False, nx=nx, ny=nx, periodic="x")
+    P = T.Periodic(T.H1(mesh, order=1, device=dev))
+    u, v = P.TnT()
+    a = T.BilinearForm(P)
+    a += T.SymbolicBFI(form=T.grad(u) * T.grad(v) + u * v)
+    f = T.LinearForm(P)
+    f += T.SymbolicLFI(form=T.cos(2 * np.pi * T.x) * v)
+    a.Assemble()
+    f.Assemble()
+    gfu = T.GridFunction(P)
+    inv = a.mat.Inverse()
+    with counted_ell() as c:
+        gfu.vec.data = inv * f.vec.data
+    exact = T.cos(2 * np.pi * T.x) / (1 + 4 * np.pi ** 2)
+    err = T.Integrate(cf=(gfu - exact) ** 2, mesh=mesh, order=6,
+                      device=dev) ** 0.5
+    return gfu, float(err), inv, c.calls, mesh
+
+
+def phase_27(T, dev):
+    """Phase 27, launch counters reset before it: ``Periodic(H1)`` solves at
+    PER_NX through the default ``Inverse()`` (Jacobi-CG through B2 on the
+    card, launches == products) with the error falling more than PER_DECAY
+    per halving of h, under a ``Timer``; ``LevelSetMeshAdaptation(
+    periodic=True)``, region-wise and ``definedon`` integrals, ``VTKOutput``
+    of a card GridFunction; card == CPU at the tests' sizes (integrals 1e-12,
+    solves and distances 1e-8).  Returns the ell_spmv launches."""
+    import tempfile
+
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+    from ngsxfem_tpu_torch.utils import timing
+
+    sync(dev)
+    dia_cg.launches = 0
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    timing.ResetTimers()
+    rows = []
+    for nx in PER_NX:
+        l0 = ell_spmv.launches
+        with T.Timer(f"periodic nx={nx}"):
+            gfu, err, inv, products, _ = periodic_solve(T, nx, dev)
+        rows.append({"nx": nx, "ndof": gfu.space.ndof, "err": err,
+                     "path": inv.path, "products": products,
+                     "launches": ell_spmv.launches - l0,
+                     "s": timing.GetTimers()[f"periodic nx={nx}"][0]})
+        check(inv.path == ("device_cg" if dev.type == "cuda" else "host_lu")
+              and rows[-1]["launches"] == (products if dev.type == "cuda"
+                                           else 0),
+              f"periodic nx={nx}: path {inv.path}, {rows[-1]['launches']} "
+              f"launches for {products} products")
+    check(rows[1]["err"] < rows[0]["err"] / PER_DECAY,
+          f"periodic errors {[r['err'] for r in rows]}")
+    par = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in (dev, torch.device("cpu")):
+            gfu, err, _, _, mesh = periodic_solve(T, PER_PARITY_NX, d)
+            lsa = T.LevelSetMeshAdaptation(mesh, order=2, periodic=True,
+                                           device=d)
+            phi = T.y - 0.5 - 0.1 * T.sin(2 * math.pi * T.x)
+            deform = lsa.CalcDeformation(phi)
+            dist = lsa.CalcMaxDistance(phi)
+            cent = mesh.vertices_np[mesh.elements_np].mean(1)
+            mesh.mat_of_el_np = np.where(cent[:, 0] < 0.5, 1, 2).astype(
+                np.int32)
+            mesh.mat_names = {1: "left", 2: "right"}
+            lset = T.GridFunction(T.H1(mesh, order=1, device=d))
+            T.InterpolateToP1(phi, lset)
+            ld = {"levelset": lset, "domain_type": T.NEG}
+            ints = list(T.Integrate(ld, cf=1.0 + T.x, mesh=mesh, order=2,
+                                    region_wise=True))
+            ints.append(T.Integrate(ld, cf=T.x, mesh=mesh, order=2,
+                                    definedon=mesh.Materials("right")))
+            vtk = T.VTKOutput(mesh, coefs=[gfu, deform], names=["u", "d"],
+                              filename=os.path.join(tmp, d.type),
+                              subdivision=1)
+            with open(vtk.Do()) as fh:
+                nums = np.array([float(t) for t in fh.read().split()
+                                 if t[0].isdigit() or t[0] == "-"])
+            par[d.type] = (gfu.vec.data.cpu(), err, deform.vec.data.cpu(),
+                           dist, np.array(ints), nums)
+    a, b = par[dev.type], par["cpu"]
+    rel_u = _vec_rel(a[0], b[0])
+    rel_d = float((a[2] - b[2]).abs().max())
+    worst_int = float(np.abs(a[4] - b[4]).max())
+    worst_vtk = float(np.abs(a[5] - b[5]).max())
+    check(rel_u <= PARITY_TOL and abs(a[1] - b[1]) <= PARITY_TOL * b[1],
+          f"periodic nx={PER_PARITY_NX}: card vs CPU rel {rel_u}")
+    check(rel_d <= PARITY_TOL and abs(a[3] - b[3]) <= PARITY_TOL * b[3]
+          and a[3] < 5e-3,
+          f"lsetcurv periodic: deformation {rel_d}, distance {a[3]} {b[3]}")
+    check(worst_int <= INTEGRATE_TOL,
+          f"region-wise integrals card {a[4]} vs CPU {b[4]}")
+    check(a[5].shape == b[5].shape and worst_vtk <= 1e-8,
+          f"VTKOutput numbers card vs CPU {worst_vtk}")
+    for r in rows:
+        print(f"[27 periodic] {card()} | Periodic(H1) nx={r['nx']} "
+              f"({r['ndof']} dofs): L2 error {r['err']:.6e}, default "
+              f"Inverse() {r['path']}, {r['products']} products = "
+              f"{r['launches']} ell_spmv launches; Timer (assembly, solve, "
+              f"error) {r['s']:.2f} s", flush=True)
+    print(f"[27 parity] error ratio {rows[0]['err'] / rows[1]['err']:.3f} > "
+          f"{PER_DECAY}; card (CPU) at nx={PER_PARITY_NX}: L2 {a[1]:.12e} "
+          f"({b[1]:.12e}), solution rel {rel_u:.1e}; LevelSetMeshAdaptation("
+          f"periodic=True) max distance {a[3]:.6e} ({b[3]:.6e}), deformation "
+          f"max|diff| {rel_d:.1e}; region-wise and definedon integrals "
+          f"{', '.join(f'{v:.12f}' for v in a[4])} (max|diff| "
+          f"{worst_int:.1e}); VTKOutput {a[5].size} numbers, max|diff| "
+          f"{worst_vtk:.1e}", flush=True)
+    launches = ell_spmv.launches
+    check(launches > 0 or dev.type != "cuda",
+          "the periodic path launched ell_spmv no time")
+    print(f"[27 launches] ell_spmv {launches}, dia_cg {dia_cg.launches}; "
+          f"wall of phase 27 {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
+def phases_26_27(T, dev, t_start, model64=None, dst64=None, st64=None):
+    """Phases 26 (differentiable cut FEM) and 27 (periodic spaces,
+    materials, utilities), each with the launch counters reset just before
+    it; the f64 flagship model of phase 13 and its structures are reused
+    when given.  Returns (ell_spmv launches of phase 26, of phase 27, B2's
+    records on phase 26's transposed tables)."""
+    from ngsxfem_tpu_torch.models.poisson import UnfittedPoisson
+
+    t0 = time.perf_counter()
+    if model64 is None:
+        model64 = UnfittedPoisson(nx=AD_NX, dim=3, order=1,
+                                  dtype=torch.float64, device=dev)
+    dst64 = dst64 if dst64 is not None else model64.dia_structure()
+    st64 = st64 if st64 is not None else model64.ell_structure()
+    print(f"[26 setup] nx={model64.nx} f64 model and structures in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ad_launches, ad_tables = phase_26(T, dev, model64, dst64, st64)
+    per_launches = phase_27(T, dev)
+    print(f"[27 whole] wall of phases 26-27 {time.perf_counter() - t0:.2f} "
+          f"s, of the whole run {time.perf_counter() - t_start:.2f} s",
+          flush=True)
+    return ad_launches, per_launches, ad_tables
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -4195,6 +4847,8 @@ def main():
     st_launches = phases_20_21(T, dev, t_start)
     mf_launches, mf_tables = phases_22_23(T, dev, t_start, iso)
     mg_launches, mesh_launches, mg_tables = phases_24_25(T, dev, t_start)
+    ad_launches, per_launches, ad_tables = phases_26_27(
+        T, dev, t_start, f64["model"], f64["struct"], st48)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -4242,6 +4896,9 @@ def main():
         "launches_mg": mg_launches,
         "mg_tables": mg_tables,
         "launches_meshing": mesh_launches,
+        "launches_autograd": ad_launches,
+        "autograd_tables": ad_tables,
+        "launches_periodic": per_launches,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

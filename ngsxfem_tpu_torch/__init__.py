@@ -42,18 +42,26 @@ and static condensation ``condensed_solve``; the general cut multigrid
 prolongation classes, ``P2TwoGridCL``, ``LinearMGIterator``) and meshing
 (``Mesh.Refine``, ``MeshFromArrays``, Gmsh I/O, ``MakeUnstructuredMesh``,
 ``SplineGeometry``, the quad-dominated ``CompositeMesh`` with
-``IntegrateC``).  ``from
-ngsxfem_tpu_torch import *`` runs the README's Quick start and the
-workloads in ``ngsxfem_tpu_torch/examples``.  What is not ported raises
-``NotImplementedError`` naming its item in ROADMAP.md.
-``dia_cg_fused`` and ``ell_matvec`` run hand-written CUDA kernels for
-Hopper on CUDA tensors.
+``IntegrateC``); periodic spaces (``Periodic``, ``MakeStructured*DMesh(
+periodic=...)``, ``LevelSetMeshAdaptation(periodic=True)``) and material
+regions (``Mesh.Materials``, ``definedon=``); differentiation through the
+level set (``torch.autograd`` through the cut quadrature, the assemblies,
+``ELLMatrix`` products and ``krylov.cg``, and the implicitly differentiated
+``krylov.cg_implicit``); and the utilities (``Timer``/``PrintTimers``,
+``torch_trace``, ``VTKOutput``/``Draw``, ``ngsglobals``,
+``StatisticContainer``/``PrintConvergenceTable``, ``kappa``, ``IsCut``,
+``set_default_dtype``).  ``from ngsxfem_tpu_torch import *`` runs the
+README's Quick start and the workloads in ``ngsxfem_tpu_torch/examples``.
+What is not ported raises ``NotImplementedError`` naming its item in
+ROADMAP.md.  ``dia_cg_fused`` and ``ell_matvec`` run hand-written CUDA
+kernels for Hopper on CUDA tensors.
 """
-from .config import config
+from .config import config, set_default_dtype
 from .domaintype import (DOMAIN_TYPE, COMBINED_DOMAIN_TYPE, NEG, POS, IF,
                          CDOM_NO, CDOM_NEG, CDOM_POS, UNCUT, HASNEG, HASPOS,
-                         ANY)
-from .mesh.mesh import Mesh
+                         ANY, all_domain_types, all_combined_domain_types,
+                         TO_CDT, INVERT)
+from .mesh.mesh import Mesh, Region
 from .mesh.structured import (Make1DMesh, MakeStructured2DMesh,
                               MakeStructured3DMesh)
 from .mesh.io import MeshFromArrays, ReadGmsh, WriteGmsh, MakeUnstructuredMesh
@@ -65,7 +73,7 @@ from .mesh.composite import (CompositeMesh, MakeQuadDominated2DMesh,
 from .fem.space import (BitArray, CompoundBitArray, H1, L2, NumberSpace,
                         VectorH1, VectorL2, VectorFESpace, CompoundFESpace,
                         CompressedFESpace, Compress, GetDofsOfElements,
-                        Periodic)
+                        Periodic, PeriodicFESpace, FESpaceFactory)
 from .fem.xfespace import (XFESpace, XToNegPos, neg, pos, extend, neg_grad,
                            pos_grad, extend_grad)
 from .fem.space import FESpaceFactory as FESpace
@@ -77,7 +85,7 @@ from .forms.proxies import dn, dnjump, div
 from .forms.assemble import (BilinearForm, LinearForm,
                              RestrictedBilinearForm, SymbolicBFI, SymbolicLFI,
                              SymbolicFacetPatchBFI, VOL, BND)
-from .cf.coefficient import (CoefficientFunction, InnerProduct, Parameter,
+from .cf.coefficient import (CF, CoefficientFunction, InnerProduct, Parameter,
                              IfPos, Norm, x,
                              y, z, sin, cos, tan, exp, log, sqrt, atan, sinh,
                              cosh, fabs, floor, ceil, specialcf)
@@ -88,7 +96,13 @@ from .lsetcurv import (LevelSetMeshAdaptation, ProjectShift, CalcMaxDistance,
 from .spacetime import (ScalarTimeFE, SpaceTimeFESpace, ReferenceTimeVariable,
                         tref, dt, fix_t, CreateTimeRestrictedGF,
                         RestrictGFInTime, SpaceTimeInterpolateToP1)
-from .utils.utils import SpaceTimeWeakSet, LevelsetExamples, BoundingBoxes
+from .spacetime.space import dt_vec
+from .utils.utils import (SpaceTimeWeakSet, LevelsetExamples, BoundingBoxes,
+                          StatisticContainer, PrintConvergenceTable, kappa,
+                          IsCut)
+from .utils.vtkout import Draw, VTKOutput
+from .utils.globals import ngsglobals
+from .utils.timing import Timer, PrintTimers, torch_trace
 from .geom.cutinfo import (CutInfo, GetFacetsWithNeighborTypes,
                            GetElementsWithNeighborFacets, GetDofsOfFacets,
                            IndicatorCF, CutRatioGF, BitArrayCF)
@@ -96,8 +110,8 @@ from .models.poisson import UnfittedPoisson
 from .solvers.sparse import (DIAMatrix, ELLMatrix, InverseMatrix,
                              SparseMatrix, dia_matvec)
 from .solvers.ell_spmv import ell_matvec, ell_matvec_plain
-from .solvers.krylov import (CGSolver, MinResSolver, cg, cg_ir, minres,
-                             jacobi_preconditioner)
+from .solvers.krylov import (CGSolver, MinResSolver, cg, cg_ir, cg_implicit,
+                             minres, jacobi_preconditioner)
 from .solvers.dia_cg import dia_cg_fused, dia_cg_fused_plain
 from .solvers.mg import (FunctionalELLMG, MultiGridCL, CutFemSmoother,
                          LinearMGIterator, CompoundProlongation,
@@ -107,11 +121,26 @@ from .solvers.operator import PartialAssemblyOperator
 from .solvers.stencilop import LatticeStencilOperator
 from .solvers.condense import condensed_solve
 from .solvers.latticemg import LatticeDIAMG
+from .ops.straightcut import cut_rule_element as CreateCutIntegrationRule
 
 FIRST, OPTIMAL, FALLBACK = "FIRST", "OPTIMAL", "FALLBACK"
 CXFESpace = XFESpace  # the reference's C++ class name
 CSpaceTimeFESpace = SpaceTimeFESpace
+# binding-level aliases of the reference (python_xfem.cpp SymbolicCutBFI/
+# LFI, spacetime/python_spacetime.cpp:271 TimeVariableCoefficientFunction)
 SymbolicCutBFI, SymbolicCutLFI = SymbolicBFI, SymbolicLFI
+TimeVariableCoefficientFunction = type(tref)
+
+
+def IntegrateX(lset=None, mesh=None, cf=None, order=5, domain_type=None,
+               subdivlvl=0, time_order=-1, quad_dir_policy=None, **kw):
+    """Low-level Integrate entry (reference python_cutint.cpp:20-122)."""
+    ld = {"levelset": lset, "domain_type": domain_type, "subdivlvl": subdivlvl}
+    if quad_dir_policy is not None:
+        ld["quad_dir_policy"] = quad_dir_policy
+    return Integrate(levelset_domain=ld, cf=cf, mesh=mesh, order=order,
+                     time_order=time_order, **kw)
+
 
 __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "IF", "CDOM_NO", "CDOM_NEG", "CDOM_POS", "UNCUT", "HASNEG",
@@ -153,4 +182,11 @@ __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "BoundingBoxes", "MultiGridCL", "CutFemSmoother",
            "LinearMGIterator", "CompoundProlongation", "P1Prolongation",
            "P2Prolongation", "P2CutProlongation", "P2TwoGridCL",
-           "VertPatches", "ElemPatches", "EdgePatches"]
+           "VertPatches", "ElemPatches", "EdgePatches", "set_default_dtype",
+           "all_domain_types", "all_combined_domain_types", "TO_CDT",
+           "INVERT", "Region", "PeriodicFESpace", "FESpaceFactory", "CF",
+           "dt_vec", "StatisticContainer", "PrintConvergenceTable", "kappa",
+           "IsCut", "Draw", "VTKOutput", "ngsglobals", "Timer",
+           "PrintTimers", "torch_trace", "cg_implicit",
+           "CreateCutIntegrationRule", "TimeVariableCoefficientFunction",
+           "IntegrateX"]

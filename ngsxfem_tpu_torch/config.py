@@ -51,3 +51,12 @@ def resolve_device(device=None):
         raise RuntimeError("no CUDA device: the port runs on the card by "
                            "default; pass device='cpu' to run on the CPU")
     return torch.device("cuda", 0)
+
+
+def set_default_dtype(dtype):
+    """Set ``config.dtype``, the floating dtype of geometry, quadrature and
+    dof vectors made without one (a torch floating dtype)."""
+    if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
+        raise TypeError(f"set_default_dtype takes a torch floating dtype, "
+                        f"got {dtype!r}")
+    config.dtype = dtype

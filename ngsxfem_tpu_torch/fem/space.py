@@ -1,17 +1,17 @@
 """Finite element spaces: dof maps, and boolean mark arrays.
 
-Counterpart of ``ngsxfem_tpu/fem/space.py:24-421``: ``BitArray`` and
+Counterpart of ``ngsxfem_tpu/fem/space.py``: ``BitArray`` and
 ``CompoundBitArray`` (host boolean marks with NGSolve-like set algebra), the
 ``FESpace`` base (boundary and Dirichlet dof marks, ``FreeDofs``, trial/test
 proxies), ``H1``, ``L2`` and ``NumberSpace`` on it, ``VectorFESpace``
 (``VectorH1``/``VectorL2``), ``CompoundFESpace`` (the exported
-``FESpace([...])``), ``CompressedFESpace``/``Compress`` and
-``GetDofsOfElements``.  A space's host dof map is ``el2dof_np (ne, ndl)``
-and ``ndof``, with a device view ``el2dof``.  Global dof numbering uses an
+``FESpace([...])``), ``CompressedFESpace``/``Compress``,
+``GetDofsOfElements`` and the periodic identification ``Periodic``.  A
+space's host dof map is ``el2dof_np (ne, ndl)`` and ``ndof``, with a device
+view ``el2dof``.  Global dof numbering uses an
 *exact integer barycentric fingerprint* per Lagrange node (vertex ids +
 integer weights), deduplicated in first-appearance order by the native
 topology library, exactly as the reference package numbers its dofs.
-``Periodic`` is not ported yet (ROADMAP A9d).
 """
 from __future__ import annotations
 
@@ -85,7 +85,13 @@ class BitArray:
 
 
 def _arr(o):
-    return o.a if isinstance(o, BitArray) else np.asarray(o, dtype=bool)
+    """The bool mark array of a ``BitArray``, a ``Region`` (its element
+    mask) or anything ``np.asarray`` takes."""
+    if isinstance(o, BitArray):
+        return o.a
+    if hasattr(o, "Mask"):
+        return o.Mask()
+    return np.asarray(o, dtype=bool)
 
 
 def CompoundBitArray(arrays):
@@ -441,7 +447,78 @@ def GetDofsOfElements(space, elem_mask) -> BitArray:
     return BitArray(np.tile(out, vdim))
 
 
+class PeriodicFESpace(FESpace):
+    """Periodic identification of a space (NGSolve ``Periodic(fes)``).
+
+    Unifies dofs across the mesh's periodic boundary pairs (built by
+    ``MakeStructured*DMesh(periodic=...)``): a dof on a max-side periodic
+    boundary maps to its translate on the min side.  Matching is geometric:
+    each dof's representative node position is wrapped modulo the mesh
+    bounding box along the periodic axes, which is exact on the structured
+    unit-box meshes.  Only max-side dofs with exactly one min-side
+    translate merge; a discontinuous space (every dof in one element) keeps
+    all its dofs, since its periodicity is a facet identification.
+    ``base2comp`` (base dof -> unified dof) and ``comp2base`` (its
+    representative base dof) relate the two numberings."""
+
+    def __init__(self, base: FESpace):
+        self.base = base
+        self.mesh = base.mesh
+        self.order = base.order
+        self.dgjumps = base.dgjumps
+        self._device = base._device
+        self._views = {}
+        axes = getattr(base.mesh, "periodic_axes", "")
+        if not axes:
+            raise ValueError(
+                "Periodic(space): the mesh has no periodic identification; "
+                "build it with MakeStructured*DMesh(periodic=...)")
+        verts = base.mesh.vertices_np
+        elv = verts[base.mesh.elements_np[base.dof_rep_elem]]  # (nd, nvel, d)
+        N = geom_shapes(base.mesh.et, base.dof_rep_ref)       # (nd, nvel)
+        pos = np.einsum("nv,nvd->nd", N, elv)
+        lo, hi = verts.min(0), verts.max(0)
+        ext = hi - lo
+        key = pos.copy()
+        moved = np.zeros(len(pos), dtype=bool)
+        for ax, ch in enumerate("xyz"[: verts.shape[1]]):
+            if ch in axes:
+                w = (pos[:, ax] - lo[ax]) / ext[ax]
+                on_max = np.abs(w - 1.0) < 1e-12
+                moved |= on_max
+                key[:, ax] = lo[ax] + np.where(on_max, 0.0, w) * ext[ax]
+        ikey = np.round(key * 2.0**38).astype(np.int64)
+        vkey = np.ascontiguousarray(ikey).view(
+            [("", ikey.dtype)] * ikey.shape[1]).ravel()
+        rep = np.arange(len(pos))
+        unm = np.nonzero(~moved)[0]
+        if np.bincount(base.el2dof_np.ravel(),
+                       minlength=base.ndof).max() <= 1:
+            moved[:] = False
+        if moved.any() and len(unm):
+            uk, idx0, counts = np.unique(vkey[unm], return_index=True,
+                                         return_counts=True)
+            mi = np.nonzero(moved)[0]
+            where = np.clip(np.searchsorted(uk, vkey[mi]), 0, len(uk) - 1)
+            hit = (uk[where] == vkey[mi]) & (counts[where] == 1)
+            rep[mi[hit]] = unm[idx0[where[hit]]]
+        comp2base, inv = np.unique(rep, return_inverse=True)
+        self.base2comp = inv.reshape(-1).astype(np.int32)
+        self.comp2base = comp2base.astype(np.int32)
+        self.ndof = len(comp2base)
+        self.el2dof_np = self.base2comp[base.el2dof_np]
+        # a unified dof is a Dirichlet / boundary dof if any of its base
+        # dofs is one
+        self.dirichlet_dofs = np.zeros(self.ndof, dtype=bool)
+        np.logical_or.at(self.dirichlet_dofs, self.base2comp,
+                         base.dirichlet_dofs)
+        self.bc_of_dof = np.zeros(self.ndof, dtype=np.int32)
+        np.maximum.at(self.bc_of_dof, self.base2comp, base.bc_of_dof)
+        self.dof_rep_elem = base.dof_rep_elem[self.comp2base]
+        self.dof_rep_local = base.dof_rep_local[self.comp2base]
+        self.dof_rep_ref = base.dof_rep_ref[self.comp2base]
+
+
 def Periodic(space):
-    """Periodic identification of a space: not ported yet."""
-    raise NotImplementedError(
-        "Periodic spaces are not ported yet (ROADMAP A9d)")
+    """The periodic identification of ``space`` (``PeriodicFESpace``)."""
+    return PeriodicFESpace(space)

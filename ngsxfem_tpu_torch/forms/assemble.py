@@ -68,8 +68,17 @@ class Integral:
     def __init__(self, form, levelset_domain=None, definedonelements=None,
                  element_boundary=False, skeleton=False, facet_patch=False,
                  force_intorder=-1, deformation=None, time_order=-1,
-                 vb=VOL):
+                 vb=VOL, definedon=None):
         self.form = wrap(form)
+        if definedon is not None:
+            # a Region (mesh.Materials) restricts a volume integral to its
+            # elements, on top of definedonelements
+            if vb != VOL or element_boundary or skeleton or facet_patch:
+                raise NotImplementedError(
+                    "definedon= restricts plain volume integrals only")
+            m = _arr(definedon)
+            definedonelements = (m if definedonelements is None
+                                 else m & _arr(definedonelements))
         self.levelset_domain = (
             normalize_levelset_domain(levelset_domain) if levelset_domain else None
         )
@@ -109,8 +118,9 @@ class Integral:
 
 def SymbolicBFI(levelset_domain=None, form=None, VOL_or_BND=VOL, element_boundary=False,
                 skeleton=False, definedonelements=None, deformation=None,
-                force_intorder=-1, time_order=-1, **kw):
-    """Cut/standard bilinear integrator descriptor (python/__init__.py:108)."""
+                force_intorder=-1, time_order=-1, definedon=None, **kw):
+    """Cut/standard bilinear integrator descriptor (python/__init__.py:108);
+    ``definedon`` a ``Region`` of the volume integral's elements."""
     if form is None:  # allow SymbolicBFI(form) positional
         form, levelset_domain = levelset_domain, None
         if isinstance(form, dict):
@@ -119,11 +129,12 @@ def SymbolicBFI(levelset_domain=None, form=None, VOL_or_BND=VOL, element_boundar
                     definedonelements=definedonelements,
                     element_boundary=element_boundary, skeleton=skeleton,
                     force_intorder=force_intorder, deformation=deformation,
-                    time_order=time_order, vb=VOL_or_BND)
+                    time_order=time_order, vb=VOL_or_BND, definedon=definedon)
 
 
 def SymbolicLFI(levelset_domain=None, form=None, VOL_or_BND=VOL, definedonelements=None,
-                deformation=None, force_intorder=-1, time_order=-1, **kw):
+                deformation=None, force_intorder=-1, time_order=-1,
+                definedon=None, **kw):
     if form is None:  # allow SymbolicLFI(form) positional
         form, levelset_domain = levelset_domain, None
         if isinstance(form, dict):
@@ -131,7 +142,7 @@ def SymbolicLFI(levelset_domain=None, form=None, VOL_or_BND=VOL, definedonelemen
     return Integral(form, levelset_domain=levelset_domain,
                     definedonelements=definedonelements,
                     force_intorder=force_intorder, deformation=deformation,
-                    time_order=time_order, vb=VOL_or_BND)
+                    time_order=time_order, vb=VOL_or_BND, definedon=definedon)
 
 
 def SymbolicFacetPatchBFI(form=None, skeleton=False, definedonelements=None,

@@ -202,9 +202,20 @@ def GetFacetsWithNeighborTypes(mesh, a, b=None, bnd_val_a=True, bnd_val_b=True,
     b1 = b[e1]
     a2 = np.where(interior, a[np.maximum(e2, 0)], bnd_val_a)
     b2 = np.where(interior, b[np.maximum(e2, 0)], bnd_val_b)
+    # a periodic boundary facet takes its partner's element as the right
+    # neighbour; only the lower-numbered facet of the pair is marked
+    # (reference xfem/cutinfo.cpp:224-235, the GetPeriodicFacet branch)
+    pf = mesh.periodic_facet_np
+    has_per = (~interior) & (pf >= 0)
+    if has_per.any():
+        pe = f2e[np.maximum(pf, 0), 0]
+        a2 = np.where(has_per, a[pe], a2)
+        b2 = np.where(has_per, b[pe], b2)
     if use_and:
-        return BitArray((a1 & b2) | (b1 & a2))
-    return BitArray((a1 | b2) & (b1 | a2))
+        out = (a1 & b2) | (b1 & a2)
+    else:
+        out = (a1 | b2) & (b1 | a2)
+    return BitArray(out & ~(has_per & (pf < np.arange(len(pf)))))
 
 
 def GetElementsWithNeighborFacets(mesh, facets) -> BitArray:
@@ -215,6 +226,9 @@ def GetElementsWithNeighborFacets(mesh, facets) -> BitArray:
     for s in range(2):
         es = f2e[sel, s]
         out[es[es >= 0]] = True
+    # a marked periodic facet: its partner's element is a neighbour too
+    partners = mesh.periodic_facet_np[sel]
+    out[f2e[partners[partners >= 0], 0]] = True
     return BitArray(out)
 
 

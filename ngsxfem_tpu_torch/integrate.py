@@ -546,7 +546,8 @@ def _cut_ctx_and_weights(mesh, lset_gf, domain_type, order, time_order=-1,
 
 def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
               region_wise=False, element_wise=False, heapsize=None,
-              deformation=None, time_order=-1, device=None, **kwargs):
+              deformation=None, time_order=-1, device=None, definedon=None,
+              **kwargs):
     """Integrate `cf` over the mesh or an implicitly-defined subdomain.
 
     Mirrors the reference Python API (``python/__init__.py:312-378``):
@@ -557,9 +558,11 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
     GridFunction; with a CoefficientFunction level set, or no level set, on
     ``device`` (the card unless the caller asks for the CPU).  Returns a
     float, with ``element_wise`` a (ne,) tensor, with ``region_wise`` one
-    numpy value per material.  ``deformation`` (a vector GridFunction) is
-    set on the mesh for the call and unset afterwards, as in the JAX
-    package; without it the mesh's own ``SetDeformation`` state applies.
+    numpy value per material.  ``definedon`` (a ``Region`` of
+    ``mesh.Materials``, or an element mark array) restricts the integral
+    to its elements.  ``deformation`` (a vector GridFunction) is set on the
+    mesh for the call and unset afterwards, as in the JAX package; without
+    it the mesh's own ``SetDeformation`` state applies.
     """
     if levelset_domain is not None and not isinstance(levelset_domain, dict):
         if cf is not None and mesh is None:
@@ -575,7 +578,8 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
         if element_wise:
             raise ValueError(
                 "region_wise and element_wise are mutually exclusive")
-        element_wise = True
+    summed = not (element_wise or region_wise)
+    element_wise = element_wise or region_wise or definedon is not None
     cf = wrap(cf)
     if cf.has_proxy:
         raise TypeError("cannot Integrate an expression containing trial/test functions")
@@ -613,12 +617,19 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
     finally:
         if deformation is not None:
             mesh.UnsetDeformation()
+    if definedon is not None:
+        from .fem.space import _arr
+
+        out = torch.where(torch.as_tensor(_arr(definedon), device=out.device),
+                          out, 0.0)
+    if summed:
+        return float(out.sum())
     if region_wise:
         ew = out.detach().cpu().numpy()
         ids = mesh.mat_of_el_np
         return np.array([float(ew[ids == i].sum())
                          for i in mesh.material_ids()])
-    return out if element_wise else float(out)
+    return out
 
 
 def Integrate_X_special_args(levelset_domain, cf, mesh, order=5, **kw):

@@ -22,7 +22,7 @@ import torch
 
 from ..fem.basis import dshapes, shapes
 from ..fem.gridfunction import GridFunction, InterpolateToP1
-from ..fem.space import H1, VectorH1
+from ..fem.space import H1, Periodic, VectorFESpace, VectorH1
 from ..integrate import lset_vertex_values, two_tier_tiers, vertex_local_ids
 from ..mesh.mesh import det_and_inv, geom_shapes, map_points
 from ..ops.straightcut import eps_guard
@@ -116,16 +116,20 @@ class LevelSetMeshAdaptation:
     def __init__(self, mesh, order=2, lset_lower_bound=0, lset_upper_bound=0,
                  threshold=1.0, discontinuous_qn=True, heapsize=None,
                  periodic=False, device=None):
-        if periodic:
-            raise NotImplementedError(
-                "periodic=True needs Periodic spaces, which are not ported "
-                "yet (ROADMAP A9d)")
         self.mesh = mesh
         self.order = order
         self.threshold = threshold
+        self.periodic = bool(periodic)
         self.ho_space = H1(mesh, order=order, device=device)
         self.p1_space = H1(mesh, order=1, device=device)
-        self.deform_space = VectorH1(mesh, order=order, device=device)
+        if self.periodic:
+            # one Newton shift for both copies of a dof on the periodic
+            # seam (the reference wraps v_def in Periodic,
+            # spacetime/lset_spacetime.py:51-52)
+            self.deform_space = VectorFESpace(
+                Periodic(H1(mesh, order=order, device=device)))
+        else:
+            self.deform_space = VectorH1(mesh, order=order, device=device)
         self.lset_ho = GridFunction(self.ho_space, "lset_ho")
         self.lset_p1 = GridFunction(self.p1_space, "lset_p1")
         self.deform = GridFunction(self.deform_space, "deform")

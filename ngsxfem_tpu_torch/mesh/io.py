@@ -7,8 +7,8 @@ SplineGeometry, CSG in ``tracefem3d.py``).  The port's ``Mesh`` holds one
 element type; the ingestion paths here produce it from (a) raw arrays, (b)
 Gmsh v2.2 ASCII files, (c) scipy Delaunay triangulations of arbitrary point
 sets: the "bring your own mesh" workflow without a Netgen dependency.
-Material ids travel in ``mat_of_el_np`` (``Mesh.Materials`` is not ported,
-ROADMAP A9d).
+Material ids travel in ``mat_of_el_np`` (``Mesh.Materials``,
+``Integrate(region_wise=True)``).
 """
 from __future__ import annotations
 

@@ -50,6 +50,28 @@ EDGE_VERTS = {
 SIMPLICES = ("segm", "trig", "tet")
 
 
+class Region:
+    """A named element subset of a mesh (NGSolve ``Region`` analog, VOL
+    only): the result of ``mesh.Materials(pattern)``.  Carries the element
+    mask (host numpy) and the matched material names; it serves as
+    ``definedon=`` of ``Integrate`` and of the integrators, and as an
+    element mark array wherever one is taken."""
+
+    def __init__(self, mesh, mask, names):
+        self.mesh = mesh
+        self.mask = np.asarray(mask, dtype=bool)
+        self.names = tuple(names)
+
+    def VB(self):
+        return "VOL"
+
+    def Mask(self):
+        return self.mask
+
+    def __repr__(self):
+        return f"Region(VOL, {'|'.join(self.names)})"
+
+
 class Mesh:
     """A single-element-type unstructured mesh held as flat host arrays.
 
@@ -57,10 +79,13 @@ class Mesh:
     NGSolve, 0 on interior facets; every boundary facet gets 1 unless
     ``bc_of_facet`` says otherwise) and ``bc_names`` their names;
     ``mat_of_el_np`` a material id per element (1-based, all 1 unless
-    ``mat_of_el`` says otherwise) and ``mat_names`` their names.
-    ``Mesh(other_mesh)`` returns ``other_mesh`` itself, so the reference
-    idiom ``Mesh(geo.GenerateMesh(maxh=...))`` works with
-    ``SplineGeometry``."""
+    ``mat_of_el`` says otherwise) and ``mat_names`` their names;
+    ``periodic_facet_np`` the partner of each boundary facet on the
+    opposite periodic side (-1 where there is none; set by
+    ``MakeStructured*DMesh(periodic=...)``, which names the axes in
+    ``periodic_axes``).  ``Mesh(other_mesh)`` returns ``other_mesh``
+    itself, so the reference idiom ``Mesh(geo.GenerateMesh(maxh=...))``
+    works with ``SplineGeometry``."""
 
     def __new__(cls, et=None, *args, **kwargs):
         if isinstance(et, Mesh) and not args and not kwargs:
@@ -90,6 +115,11 @@ class Mesh:
         if self.mat_of_el_np.shape != (self.ne,):
             raise ValueError("mat_of_el must be (ne,)")
         self.mat_names = dict(mat_names) if mat_names else {}
+        # consumed by the facet set algebra (GetFacetsWithNeighborTypes /
+        # GetElementsWithNeighborFacets, the reference's GetPeriodicFacet
+        # in xfem/cutinfo.cpp:226-235) and by Periodic spaces
+        self.periodic_facet_np = np.full(self.nfacets, -1, dtype=np.int64)
+        self.periodic_axes = ""
         self._views = {}
         self._host_tables = {}  # host tables made lazily from the arrays
         # deformation slot (set by SetDeformation): a GridFunction of a
@@ -103,12 +133,24 @@ class Mesh:
         ids = set(int(i) for i in np.unique(self.mat_of_el_np))
         return sorted(ids | set(int(i) for i in self.mat_names))
 
-    def Materials(self, *pattern):
-        """Element regions by material name: not ported yet."""
-        raise NotImplementedError(
-            "Mesh.Materials/Region are not ported yet (ROADMAP A9d)")
+    def GetMaterials(self):
+        """Material names in ascending id order (unnamed ids get
+        ``"mat<i>"``), NGSolve ``mesh.GetMaterials()`` analog; includes
+        declared-but-empty materials."""
+        return tuple(self.mat_names.get(i, f"mat{i}")
+                     for i in self.material_ids())
 
-    GetMaterials = Materials
+    def Materials(self, pattern):
+        """Element :class:`Region` of the materials whose name fully
+        matches the regex ``pattern`` (NGSolve semantics; ``"a|b"``
+        unions)."""
+        import re
+
+        names = {i: self.mat_names.get(i, f"mat{i}")
+                 for i in self.material_ids()}
+        sel = [i for i, nm in names.items() if re.fullmatch(pattern, nm)]
+        mask = np.isin(self.mat_of_el_np, np.asarray(sel, dtype=np.int32))
+        return Region(self, mask, [names[i] for i in sel])
 
     def GetBoundaries(self):
         """Boundary-condition names in ascending id order (``"bc<i>"`` for

@@ -346,6 +346,10 @@ def refine_mesh(mesh, marks=None):
         raise NotImplementedError(
             f"refinement for element type {mesh.et!r}"
         )
+    if (mesh.periodic_facet_np >= 0).any():
+        raise NotImplementedError(
+            "refinement of periodic meshes is not supported (the periodic "
+            "facet identification would need to be rebuilt)")
     if marks is None:
         marks = np.ones(mesh.ne, dtype=bool)
     else:
@@ -415,6 +419,8 @@ def refine_mesh(mesh, marks=None):
             face_list, vfaces = info
             mesh.bc_of_facet_np = _tet_bc_assign(mesh, face_list, vfaces)
     mesh.mat_of_el_np = mesh.mat_of_el_np[parent]   # children keep theirs
+    # facet count changed: reset the (empty) periodic identification
+    mesh.periodic_facet_np = np.full(mesh.nfacets, -1, dtype=np.int64)
     mesh._drop_caches()
     mesh.deformation = None
     mesh._version += 1

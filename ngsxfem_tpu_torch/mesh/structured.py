@@ -2,9 +2,10 @@
 
 Counterpart of ``ngsxfem_tpu/mesh/structured.py`` (``ngsolve.meshes``'
 ``Make1DMesh`` / ``MakeStructured2DMesh`` / ``MakeStructured3DMesh``, with
-the ``mapping`` of the unit box) without the ``periodic`` option.  Vertices
-are numbered lexicographically (x slowest), which is what the lattice
-assembly of ``models/poisson.py`` relies on.
+the ``mapping`` of the unit box and the ``periodic`` identification of
+opposite boundary facets).  Vertices are numbered lexicographically (x
+slowest), which is what the lattice assembly of ``models/poisson.py``
+relies on.
 
 Boundary numbering (1-based, NGSolve-like), evaluated on the unit box
 *before* ``mapping`` is applied:
@@ -72,15 +73,33 @@ def Make1DMesh(n: int, mapping=None):
                     {1: "left", 2: "right"})
 
 
-def _no_periodic(periodic):
-    if periodic:
-        raise NotImplementedError(
-            "periodic meshes are not ported yet (ROADMAP A9d)")
+def _periodic_identify(m, unit_vertices, periodic):
+    """Match opposite unit-box boundary facets for the axes named in
+    ``periodic`` (e.g. "x", "xy"); fills ``m.periodic_facet_np`` and
+    ``m.periodic_axes``."""
+    if not periodic:
+        return m
+    d = unit_vertices.shape[1]
+    bf = m.boundary_facets_np
+    centers = unit_vertices[m.facets_np[bf]].mean(axis=1)  # (B, d)
+    for ax, ch in enumerate("xyz"[:d]):
+        if ch not in periodic:
+            continue
+        lo = np.abs(centers[:, ax]) < 1e-12
+        hi = np.abs(centers[:, ax] - 1.0) < 1e-12
+        key = np.round(np.delete(centers, ax, axis=1)
+                       * 2.0**40).astype(np.int64)
+        lom = {tuple(k): int(f) for k, f in zip(key[lo], bf[lo])}
+        for k, f in zip(key[hi], bf[hi]):
+            p = lom[tuple(k)]
+            m.periodic_facet_np[p] = f
+            m.periodic_facet_np[f] = p
+    m.periodic_axes = periodic
+    return m
 
 
 def MakeStructured2DMesh(quads=True, nx=10, ny=10, mapping=None,
                          periodic=""):
-    _no_periodic(periodic)
     xs = np.linspace(0.0, 1.0, nx + 1)
     ys = np.linspace(0.0, 1.0, ny + 1)
     X, Y = np.meshgrid(xs, ys, indexing="ij")
@@ -99,13 +118,13 @@ def MakeStructured2DMesh(quads=True, nx=10, ny=10, mapping=None,
         t2 = np.stack([v00, v11, v01], axis=1)
         elems = np.concatenate([t1[:, None], t2[:, None]],
                                axis=1).reshape(-1, 3).astype(np.int32)
-    return _with_bc(Mesh("quad" if quads else "trig",
-                         _mapped(verts, mapping), elems), verts, _BC_NAMES_2D)
+    return _periodic_identify(
+        _with_bc(Mesh("quad" if quads else "trig", _mapped(verts, mapping),
+                      elems), verts, _BC_NAMES_2D), verts, periodic)
 
 
 def MakeStructured3DMesh(hexes=True, nx=10, ny=10, nz=10, mapping=None,
                          periodic=""):
-    _no_periodic(periodic)
     xs = np.linspace(0.0, 1.0, nx + 1)
     ys = np.linspace(0.0, 1.0, ny + 1)
     zs = np.linspace(0.0, 1.0, nz + 1)
@@ -130,5 +149,6 @@ def MakeStructured3DMesh(hexes=True, nx=10, ny=10, nz=10, mapping=None,
         kuhn = np.array([(0, 1, 2, 6), (0, 1, 5, 6), (0, 3, 2, 6),
                          (0, 3, 7, 6), (0, 4, 5, 6), (0, 4, 7, 6)])
         elems = c[:, kuhn].reshape(-1, 4).astype(np.int32)
-    return _with_bc(Mesh("hex" if hexes else "tet", _mapped(verts, mapping),
-                         elems), verts, _BC_NAMES_3D)
+    return _periodic_identify(
+        _with_bc(Mesh("hex" if hexes else "tet", _mapped(verts, mapping),
+                      elems), verts, _BC_NAMES_3D), verts, periodic)

@@ -310,8 +310,16 @@ def dia_cg_fused(offsets, vals, b, dinv, iters):
     reference's ``plane`` argument, a TPU layout parameter, is gone: the
     kernel indexes flat.  CUDA tensors must be float32 (the kernel's type)
     and go to the kernel; CPU tensors run ``dia_cg_fused_plain`` in their
-    own floating dtype.
+    own floating dtype.  It has no backward, as the reference's has none:
+    with grad mode on, an input that requires a gradient raises
+    ``RuntimeError`` (``krylov.cg`` on ``dia_matvec`` is the differentiable
+    fixed-budget PCG).
     """
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (vals, b, dinv)):
+        raise RuntimeError(
+            "dia_cg_fused has no backward (nor has the reference's Pallas "
+            "kernel): differentiate krylov.cg on dia_matvec instead")
     terms = _terms(offsets)
     n_off = len(terms)
     if vals.dim() != 2 or vals.shape[0] != n_off:

@@ -16,6 +16,14 @@ table, and no solver builds a layout there (``uses_layout``).
 ``sell_matvec_plain`` is the kernel's reference: its sum, in plain PyTorch.
 There is no fallback between kernel and plain: a CUDA tensor reaches the
 kernel or the call raises.
+
+Under autograd (grad mode on and ``vals`` or ``x`` requiring a gradient)
+the product is ``EllMatvec``, the counterpart of ``jax.vjp`` of the
+reference's plain ``ELLMatrix.matvec``: its forward is the same product,
+its backward ``grad_x = A^T g`` through the same ``ell_matvec`` on the
+transposed table (``transpose_ell``; on the card the kernel on that
+table's layout) and ``grad_vals[r, k] = g[r] * x[cols[r, k]]``, a gather
+and a product.
 """
 from __future__ import annotations
 
@@ -232,7 +240,62 @@ def kernel_info(device):
     return {"float32": tuple(buf[0:3]), "float64": tuple(buf[3:6])}
 
 
-def ell_matvec(vals, cols, x, layout=None):
+def transpose_ell(vals, cols, ncols):
+    """The ELL table (vals_T, cols_T) (ncols, K_T) of the transpose of the
+    (n, K) table (vals, cols) with ``ncols`` columns, built with torch ops
+    on the table's device (one host read: K_T).  Padding slots (col 0,
+    value +-0) are left out; every other slot (r, k) becomes an entry of
+    row ``cols[r, k]`` at column r, each row's entries in ascending r (then
+    k), padded with col 0, value 0."""
+    n, K = vals.shape
+    dev = vals.device
+    real = ((cols != 0) | (vals != 0)).reshape(-1)
+    src = torch.arange(n * K, device=dev)[real]
+    rows_t = cols.reshape(-1)[src].to(torch.int64)
+    order = torch.argsort(rows_t, stable=True)
+    rows_t, src = rows_t[order], src[order]
+    counts = torch.bincount(rows_t, minlength=ncols)
+    kt = max(int(counts.max()), 1) if rows_t.numel() else 1
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(rows_t.numel(), device=dev) - start[rows_t]
+    vals_t = torch.zeros((ncols, kt), dtype=vals.dtype, device=dev)
+    cols_t = torch.zeros((ncols, kt), dtype=torch.int32, device=dev)
+    vals_t[rows_t, pos] = vals.reshape(-1)[src]
+    cols_t[rows_t, pos] = torch.div(src, K, rounding_mode="floor").to(
+        torch.int32)
+    return vals_t, cols_t
+
+
+class EllMatvec(torch.autograd.Function):
+    """``y = A x`` for the ELL table A = (vals, cols) under autograd.
+
+    ``adjoint(g)`` computes ``A^T g`` (``ELLMatrix`` hands in its cached
+    transposed table; a raw ``ell_matvec`` builds the transposed table in
+    the backward).  Forward and transposed products are ``ell_matvec`` calls:
+    each one a launch of the kernel on the card, ``ell_matvec_plain`` on
+    the CPU.  ``grad_vals`` is ``g[r] * x[cols[r, k]]`` for every slot,
+    padding included, as ``jax.vjp`` of the reference's ``jnp.sum(vals *
+    x[cols], 1)`` gives it.  No second derivative."""
+
+    @staticmethod
+    def forward(ctx, vals, x, cols, layout, adjoint):
+        ctx.save_for_backward(x, cols)
+        ctx.adjoint = adjoint
+        return _ell_matvec(vals, cols, x, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, cols = ctx.saved_tensors
+        g = g.contiguous()
+        gvals = gx = None
+        if ctx.needs_input_grad[1]:
+            gx = ctx.adjoint(g)
+        if ctx.needs_input_grad[0]:
+            gvals = g[:, None] * x[cols.long()]
+        return gvals, gx, None, None, None
+
+
+def ell_matvec(vals, cols, x, layout=None, adjoint=None):
     """y (n,) = ELL (vals, cols) (n, K) times x (ncols,).
 
     vals float32 or float64, x of the same dtype, cols int32 with every entry
@@ -241,10 +304,28 @@ def ell_matvec(vals, cols, x, layout=None):
     table; without it a CUDA call builds a throwaway one (counted in
     ``layouts_built``).  CUDA tensors go to the kernel, CPU tensors to
     ``ell_matvec_plain`` (a layout given there is checked, not used);
-    anything else raises.
+    anything else raises.  With grad mode on and ``vals`` or ``x``
+    requiring a gradient the product is ``EllMatvec``, whose backward
+    applies ``adjoint`` (default: the product of ``transpose_ell`` of the
+    table, built in the backward).
     """
-    global launches
     _check(vals, cols, x)
+    if torch.is_grad_enabled() and (vals.requires_grad or x.requires_grad):
+        if adjoint is None:
+            ncols = x.shape[0]
+
+            def adjoint(g):
+                vt, ct = transpose_ell(vals.detach(), cols, ncols)
+                return ell_matvec(vt, ct, g)
+
+        return EllMatvec.apply(vals, x, cols, layout, adjoint)
+    return _ell_matvec(vals, cols, x, layout)
+
+
+def _ell_matvec(vals, cols, x, layout):
+    """``ell_matvec`` on checked inputs, no autograd: the kernel on CUDA
+    tensors, ``ell_matvec_plain`` on CPU tensors."""
+    global launches
     if layout is not None and (layout.n != vals.shape[0]
                                or layout.dtype != vals.dtype
                                or layout.device != vals.device

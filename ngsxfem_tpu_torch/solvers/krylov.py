@@ -62,6 +62,68 @@ def cg(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
     return x, k, torch.sqrt(_vdot(r, r))
 
 
+class _ImplicitCG(torch.autograd.Function):
+    """The solve ``x = A(params)^-1 b`` of ``cg_implicit``, differentiated
+    by the implicit function theorem."""
+
+    @staticmethod
+    def forward(ctx, b, solve, matvec, *params):
+        x = solve(b)
+        ctx.save_for_backward(x, *params)
+        ctx.solve, ctx.matvec = solve, matvec
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *saved = ctx.saved_tensors
+        lam = ctx.solve(g.contiguous())
+        params = [p for p, need in zip(saved, ctx.needs_input_grad[3:])
+                  if need]
+        grads = iter(())
+        if params:
+            with torch.enable_grad():
+                y = ctx.matvec(x.detach())
+                grads = iter(torch.autograd.grad(y, params, grad_outputs=-lam,
+                                                 allow_unused=True))
+        out = [next(grads) if need else None
+               for need in ctx.needs_input_grad[3:]]
+        return (lam if ctx.needs_input_grad[0] else None, None, None, *out)
+
+
+def cg_implicit(matvec, b, params=(), M=None, tol=1e-12, maxiter=10000):
+    """x = A^-1 b by preconditioned CG to ``tol`` (relative residual),
+    differentiable in ``b`` and in the tensors ``params`` that ``matvec``
+    reads (the values of A): the counterpart of the gradient rule of
+    ``jax.scipy.sparse.linalg.cg`` (a symmetric ``custom_linear_solve``).
+
+    ``matvec`` is a callable or an ``ELLMatrix`` (its products, and so both
+    solves, through the ELL kernel on the card); A must be symmetric
+    positive definite.  The
+    backward solves ``A lam = g`` by the same CG and returns ``grad_b =
+    lam`` and ``grad_params = -d(lam^T A(params) x)/d(params)`` through
+    ``torch.autograd.grad`` of one product.  ``M`` (a callable, taken as
+    constant) preconditions both solves.  Raises ``RuntimeError`` when a
+    solve misses ``tol`` in ``maxiter`` iterations."""
+    from .sparse import ELLMatrix
+
+    if isinstance(matvec, ELLMatrix):
+        matvec = matvec.matvec
+    params = tuple(params)
+
+    def solve(rhs):
+        with torch.no_grad():
+            x, k, res = cg(matvec, rhs, M=M, maxiter=maxiter, tol=tol)
+            bn = torch.sqrt(_vdot(rhs, rhs))
+            if not bool(res <= tol * bn.clamp_min(1e-30)):
+                raise RuntimeError(
+                    f"cg_implicit: CG reached a relative residual of "
+                    f"{float(res / bn.clamp_min(1e-30)):.3e}, not {tol:.0e}, "
+                    f"in {k} iterations")
+        return x
+
+    return _ImplicitCG.apply(b, solve, matvec, *params)
+
+
 def minres(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
     """Preconditioned MINRES (Paige-Saunders) for symmetric indefinite
     systems; returns (x, iters, rel_res_estimate).

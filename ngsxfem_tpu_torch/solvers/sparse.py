@@ -9,8 +9,10 @@ the reference has no Pallas kernel behind them either.
 sliced layout (on the card; the CPU sums the table itself), which on CUDA
 tensors is the hand-written kernel
 ``csrc/ell_spmv.cu`` (the reference's ``matvec_pallas`` has no separate
-counterpart).  ``InverseMatrix`` keeps the reference's dispatch with one
-change on the card: the named direct solvers factorize on the host with
+counterpart); under autograd its transposed product runs the same kernel
+on the cached transposed table (``ELLMatrix.transposed``).
+``InverseMatrix`` keeps the reference's dispatch with one change on the
+card: the named direct solvers factorize on the host with
 scipy, ``"cg"`` runs Jacobi-CG on the ELL view of the matrix through that
 kernel, and the default ``""`` does the same for a matrix on the card whose
 free block is symmetric with a positive diagonal (the host LU otherwise).
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from ..config import config, resolve_device
 from ..ops.scatter import ScatterPlan
 from . import ell_spmv
-from .ell_spmv import ell_matvec, prepare_ell
+from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
 
 
 def _as_array(x):
@@ -144,14 +146,17 @@ class SparseMatrix:
 class ELLMatrix:
     """Padded-row sparse matrix: cols (n, K) int32, vals (n, K), shape
     (n, ncols).  ``matvec`` is ``ell_matvec`` on ``layout()``: the CUDA
-    kernel on the card, the plain row sum on the CPU.  The table is not to
-    be changed in place: the layout is a copy of it."""
+    kernel on the card, the plain row sum on the CPU; under autograd its
+    backward's transposed product runs the same way on ``transposed()``.
+    The table is not to be changed in place: the layouts are copies of
+    it."""
 
     def __init__(self, cols, vals, shape):
         self.cols = cols
         self.vals = vals
         self.shape = tuple(int(s) for s in shape)
         self._layout = None
+        self._transposed = None
 
     @classmethod
     def from_numpy(cls, cols, vals, shape=None, *, device=None):
@@ -183,12 +188,28 @@ class ELLMatrix:
             return None
         lay = self._layout
         if lay is None or lay[0] is not self.vals or lay[1] is not self.cols:
-            lay = self._layout = (self.vals, self.cols, prepare_ell(
-                self.vals, self.cols, self.shape[1]))
+            with torch.no_grad():
+                lay = self._layout = (self.vals, self.cols, prepare_ell(
+                    self.vals, self.cols, self.shape[1]))
         return lay[2]
 
+    def transposed(self):
+        """The ``ELLMatrix`` of the transpose (``ell_spmv.transpose_ell``,
+        values detached), made at the first backward and kept, with its
+        own layout, while ``vals`` and ``cols`` are the same tensors."""
+        tr = self._transposed
+        if tr is None or tr[0] is not self.vals or tr[1] is not self.cols:
+            vt, ct = transpose_ell(self.vals.detach(), self.cols,
+                                   self.shape[1])
+            tr = self._transposed = (self.vals, self.cols, ELLMatrix(
+                ct, vt, (self.shape[1], self.shape[0])))
+        return tr[2]
+
     def matvec(self, x):
-        return ell_matvec(self.vals, self.cols, x, self.layout())
+        """A @ x.  Under autograd (``ell_spmv.EllMatvec``) the backward's
+        ``A^T g`` is the product of ``transposed()``."""
+        return ell_matvec(self.vals, self.cols, x, self.layout(),
+                          lambda g: self.transposed().matvec(g))
 
     __mul__ = matvec
     __matmul__ = matvec

@@ -1,13 +1,19 @@
-"""Reference helper functions of the port's examples.
+"""Reference helper functions: level-set zoo and convergence reporting.
 
-Counterpart of part of ``ngsxfem_tpu/utils/utils.py``: the level-set
-geometry zoo ``LevelsetExamples`` with its ``BoundingBoxes`` (the
-reference's ``utils/utils.py:5-27``, which the ``lsetgeoms`` example
-drives) and ``SpaceTimeWeakSet``, which the CG-in-time heat example calls.
+Counterpart of ``ngsxfem_tpu/utils/utils.py``: the level-set geometry zoo
+``LevelsetExamples`` with its ``BoundingBoxes`` (the reference's
+``utils/utils.py:5-27``, which the ``lsetgeoms`` example drives),
+``SpaceTimeWeakSet`` (the CG-in-time heat example), the reporting pieces of
+``lsetcurving/calcgeomerrors`` (``StatisticContainer``,
+``PrintConvergenceTable``) and the deprecated helpers ``kappa`` and
+``IsCut`` of the reference's ``python/__init__.py``.
 """
 from __future__ import annotations
 
+from math import log as _mlog
 from math import pi as _pi
+
+import numpy as np
 
 from ..cf.coefficient import x, y, z, sqrt, sin, cos, IfPos
 
@@ -77,3 +83,64 @@ def SpaceTimeWeakSet(gf, cf, space):
     arr = gf._arr.clone()
     arr[: space.ndof] = tmp._arr
     gf._set_array(arr)
+
+
+class StatisticContainer:
+    """Collects error series over refinements (cf.
+    calcgeomerrors.hpp:19-25)."""
+
+    def __init__(self):
+        self.errors = {}
+
+    def Add(self, name, value):
+        self.errors.setdefault(name, []).append(float(value))
+
+    def __getitem__(self, name):
+        return self.errors[name]
+
+    def Print(self, label="something", select="all"):
+        """Print convergence tables of the collected series (reference
+        python_lsetcurving.cpp:27-45): ``select`` picks "L1", "L2", "max",
+        "misc" or "all"."""
+        keys = ("L1", "L2", "max", "misc") if select == "all" else (select,)
+        for k in keys:
+            if k in self.errors:
+                PrintConvergenceTable(self.errors[k], label=f"{label}_{k}")
+
+
+def PrintConvergenceTable(errors, label="error"):
+    """Print an error/EOC table (cf. the PrintConvergenceTable binding);
+    returns the last EOC, or None."""
+    print(f"{'lvl':>4} {label:>14} {'eoc':>7}")
+    for i, e in enumerate(errors):
+        eoc = ""
+        if i > 0 and errors[i - 1] > 0 and e > 0:
+            eoc = f"{_mlog(errors[i - 1] / e) / _mlog(2):7.2f}"
+        print(f"{i:>4} {e:14.6e} {eoc:>7}")
+    if len(errors) > 1 and errors[-1] > 0 and errors[-2] > 0:
+        return _mlog(errors[-2] / errors[-1]) / _mlog(2)
+    return None
+
+
+def kappa(mesh, lset_approx, subdivlvl=0):
+    """Deprecated Hansbo-weight helper (python/__init__.py kappa): the cut
+    ratio CF and one minus it; use ``CutRatioGF(CutInfo(mesh, lset))``."""
+    from ..geom.cutinfo import CutInfo, CutRatioGF
+
+    k = CutRatioGF(CutInfo(mesh, lset_approx))
+    return (k, 1.0 - k)
+
+
+def IsCut(mesh, lset_approx, subdivlvl=0):
+    """Deprecated cut-indicator helper (python/__init__.py:422-439): a
+    piecewise-constant GridFunction, 1 on cut elements and 0 elsewhere, on
+    the level set's device; use ``CutInfo`` + ``BitArrayCF``."""
+    from ..fem.gridfunction import GridFunction
+    from ..fem.space import L2
+    from ..geom.cutinfo import CutInfo
+
+    k = np.asarray(CutInfo(mesh, lset_approx).GetCutRatios())
+    dev = getattr(lset_approx, "device", None)
+    gf = GridFunction(L2(mesh, order=0, device=dev), device=dev)
+    gf.vec.data = ((k > 1e-16) & (k < 1.0 - 1e-16)).astype(np.float64)
+    return gf

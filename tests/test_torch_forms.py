@@ -416,16 +416,25 @@ def test_not_ported_raises():
         (lambda: T.SymbolicFacetPatchBFI(form=u * v, skeleton=True),
          "skeleton"),
         (lambda: u.Operator("hesse"), "Operator"),
-        (lambda: T.Periodic(V), "A9d"),
-        (lambda: mesh.Materials("inner"), "A9d"),
-        (lambda: mesh.GetMaterials(), "A9d"),
-        (lambda: T.MakeStructured2DMesh(nx=2, ny=2, periodic="x"), "A9d"),
-        (lambda: T.MakeStructured3DMesh(nx=1, ny=1, nz=1, periodic="xy"),
-         "A9d"),
     ]
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             fn()
+    # ported since (ROADMAP A9d): periodic meshes and spaces, and material
+    # regions, as the JAX package gives them
+    with pytest.raises(ValueError, match="no periodic identification"):
+        T.Periodic(V)
+    assert mesh.GetMaterials() == ("mat1",)
+    assert mesh.Materials("inner").Mask().sum() == 0
+    assert mesh.Materials("mat1").Mask().all()
+    for args, kw in (((), dict(nx=2, ny=2, periodic="x")),
+                     ((), dict(nx=1, ny=1, nz=1, periodic="xy"))):
+        make = "MakeStructured2DMesh" if "nz" not in kw else \
+            "MakeStructured3DMesh"
+        pm_t, pm_j = getattr(T, make)(**kw), getattr(J, make)(**kw)
+        assert np.array_equal(pm_t.periodic_facet_np, pm_j.periodic_facet_np)
+        assert T.Periodic(T.H1(pm_t, **CPU)).ndof == \
+            J.Periodic(J.H1(pm_j)).ndof
     # a proxy op that no factor exists for
     a = T.BilinearForm(V)
     a += T.SymbolicBFI(form=t_prox.ProxyFunction(V, False, op="hesse") * v)

@@ -71,6 +71,10 @@ import ngsxfem_tpu_torch.examples.cutmg
 import ngsxfem_tpu_torch.examples.unstructured_nxfem
 import ngsxfem_tpu_torch.examples.integrate_curved
 import ngsxfem_tpu_torch.examples.lsetgeoms
+import ngsxfem_tpu_torch.examples.levelset_shape_opt
+import ngsxfem_tpu_torch.utils.timing
+import ngsxfem_tpu_torch.utils.vtkout
+import ngsxfem_tpu_torch.utils.globals
 import chip_smoke
 from ngsxfem_tpu_torch import *
 
@@ -132,6 +136,15 @@ err = ngsxfem_tpu_torch.examples.unstructured_nxfem.run(
 assert 0 < err < 0.5, err
 cm = MakeQuadDominated2DMesh(nx=4, ny=4)
 assert abs(IntegrateC(None, 1.0, cm, order=1, device="cpu") - 1.0) < 1e-12
+# differentiation through the level set, periodic spaces, the utilities
+r_opt, area_opt = ngsxfem_tpu_torch.examples.levelset_shape_opt.run(
+    nx=16, verbose=False, device="cpu")
+assert abs(area_opt - 0.25) < 1e-10, area_opt
+pm = MakeStructured2DMesh(quads=False, nx=4, ny=4, periodic="x")
+assert Periodic(H1(pm, order=1, device="cpu")).ndof == 20
+with Timer("import probe"):
+    ngsglobals.msg_level = 1
+assert "import probe" in ngsxfem_tpu_torch.utils.timing.GetTimers()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ngsxfem_tpu"))
 print(bad)

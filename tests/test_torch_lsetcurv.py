@@ -241,7 +241,8 @@ def test_nonconverged_shift_warns():
 
 def test_not_ported_raise():
     """The refinement hooks (ROADMAP A14, ported) set the same refinement
-    flags as the JAX package; periodic spaces (A9d) still raise."""
+    flags as the JAX package; ``periodic=True`` (A9d, ported) needs a
+    mesh with a periodic identification, as in the JAX package."""
     marks = {}
     for N, kw in PKGS:
         mesh = _mesh(N, "trig", 4)
@@ -255,6 +256,7 @@ def test_not_ported_raise():
         marks[N] = got
     for a, b in zip(marks[T], marks[J]):
         assert a.any() and np.array_equal(a, b)
-    mesh = _mesh(T, "trig", 4)
-    with pytest.raises(NotImplementedError, match="A9d"):
-        T.LevelSetMeshAdaptation(mesh, periodic=True, **CPU)
+    for N, kw in PKGS:
+        with pytest.raises(ValueError, match="no periodic identification"):
+            N.LevelSetMeshAdaptation(_mesh(N, "trig", 4), periodic=True,
+                                     **kw)
