@@ -12,8 +12,10 @@ skeleton, vector and XFEM workloads in phases 16-17, the isoparametric
 moving-domain workloads in phases 20-21, the matrix-free operators, the
 subdivision quadrature and the HDG trace FEM in phases 22-23, and the
 general cut multigrid and the meshing and refinement in phases 24-25, the
-gradient of a cut-FEM functional with respect to the level set in phase 26
-and the periodic spaces, materials and utilities in phase 27:
+gradient of a cut-FEM functional with respect to the level set in phase 26,
+the periodic spaces, materials and utilities in phase 27, the parallel
+layouts at world size 1 through NCCL in phase 28 and the reference's other
+assembly routes of the flagship in phase 29:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -310,7 +312,30 @@ Phases, one line each:
    max distance 1e-8), region-wise and ``definedon`` integrals of a cut
    domain (1e-12), ``VTKOutput`` of the card GridFunctions (the file's
    numbers 1e-8); B2 launches of each phase (the record's
-   ``launches_autograd`` and ``launches_periodic``).
+   ``launches_autograd`` and ``launches_periodic``);
+28. the parallel layouts (``ngsxfem_tpu_torch.parallel``) on cuda:0 at
+   world size 1: ``init_process_group("nccl")`` through a ``FileStore`` in
+   ``build/``, destroyed at the end; on the f64 flagship (nx=48) layout A
+   (``spmd_step``, one all-reduce of the dof vector per product) and B
+   (``spmd_step_sharded``, the shared halo buffer, empty at one rank), each
+   a 25-iteration partial CG held to the same CG on one device
+   (``replicated_operator``; 1e-5 f64, 1e-3 f32); on the f32 and f64
+   flagships layout C (``LatticeShard`` Jacobi-PCG-50 vs ``dia_matvec``'s)
+   and layout D (each rank's DIA rows assembled from its planes plus the
+   exchanged halo planes, bitwise the whole table's, then ``cg_ir`` 4 x 120
+   on the slab product: 1e-6 of the one-device pipeline, true relative
+   residual <= 1e-8); ms per step and per CG iteration by CUDA events
+   after a warm-up, collectives and bytes per iteration, the idle share of
+   one step of A, and the host halo tables of ``DofPartition`` and
+   ``LatticeShard`` for 2, 4 and 8 ranks at nx=48 (no run);
+29. the other assembly routes on the f64 flagship: ``assemble_vals_stencil``
+   within 1e-13 of ``assemble_vals_lattice``, ``apply_compact`` within
+   1e-12 of ``apply``, ``assemble_ell_vals`` / ``_gather`` / ``_soa``
+   within 1e-12 of ``assemble_vals_soa1``, each with its ms; B2's launch
+   counter reset, Jacobi-CG-50 on the compact ELL table through B2
+   (launches == products, the solution bitwise the plain product's), and
+   B2 against its plain versions on that table with its times, bound and
+   cuSPARSE (the record's ``launches_slice13`` and ``slice13_tables``).
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -4298,6 +4323,275 @@ def phases_26_27(T, dev, t_start, model64=None, dst64=None, st64=None):
     return ad_launches, per_launches, ad_tables
 
 
+# phase 28: the parallel layouts at world size 1 through NCCL, nx=48 (the
+# flagship's full width); phase 29: the reference's other assembly routes
+PAR_WIDTHS = (2, 4, 8)    # halo tables from the host partitions
+PAR_ITERS = 25            # layouts A-B: the reference's partial CG
+PAR_PCG = 50              # layout C: Jacobi-PCG
+PAR_TOL = {torch.float64: 1e-5, torch.float32: 1e-3}  # partial CGs
+PAR_D_TOL = 1e-6          # layout D vs the single-rank pipeline
+PAR_D_RES = 1e-8          # layout D's true relative residual
+A4B_CAP_EXTRA = 64        # cut capacity beyond ncut
+A4B_TOL = 1e-12           # relative, apply_compact and the ELL routes
+A4B_STENCIL_TOL = 1e-13   # stencil vs lattice, absolute (the JAX test's)
+
+
+def par_group(dev):
+    """(world-size-1 ``ShardGroup`` on ``dev`` through a ``FileStore``,
+    the store's path) : NCCL on a card, gloo on the CPU."""
+    from ngsxfem_tpu_torch.parallel import init_group
+
+    build = os.path.join(os.path.dirname(TOOLS), "build")
+    os.makedirs(build, exist_ok=True)
+    store = os.path.join(build, f"filestore-{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    return init_group(0, 1, store, device=dev), store
+
+
+def halo_tables(model, offsets):
+    """(ranks, shared dofs of ``DofPartition``, lattice halo dofs per rank
+    boundary 2 H plane, slab planes L) for ``PAR_WIDTHS`` ranks, from the
+    host tables alone."""
+    from ngsxfem_tpu_torch.parallel import (DofPartition, LatticeShard,
+                                            ShardGroup, element_chunks)
+
+    e2d = model.space.el2dof_np
+    fd = np.concatenate([e2d[model.gp_e1], e2d[model.gp_e2]], axis=1)
+    rows = []
+    for n in PAR_WIDTHS:
+        ch = element_chunks(model.mesh.ne, n, planes=model.nx)
+        part = DofPartition(model.ndof, [e2d, fd], [ch, ch[model.gp_e1]], n)
+        ls = LatticeShard(offsets, model.nx + 1, model.dim,
+                          ShardGroup(0, n, "cpu"))
+        rows.append((n, part.S, 2 * ls.H * ls.plane, ls.L))
+    return rows
+
+
+def _counted(group, fn, reps=3):
+    """(fn() of a first call, the median ms of ``reps`` more by CUDA
+    events, the collectives the first call issued, the bytes they
+    moved)."""
+    c0, b0 = group.calls, group.bytes
+    out = fn()
+    calls, nbytes = group.calls - c0, group.bytes - b0
+    return out, _warm_ms(fn, reps), calls, nbytes
+
+
+def _warm_ms(fn, reps=3):
+    """Median ms of ``reps`` calls of an already warmed ``fn`` (CUDA events;
+    the host clock on the CPU)."""
+    return statistics.median(event_ms(fn)[1] for _ in range(reps))
+
+
+def phase_28(dev, flagships):
+    """The parallel layouts on ``dev`` at world size 1 (NCCL on the card,
+    gloo on the CPU) on the flagships ``{dtype: (model, dia structure, DIA
+    table)}``: A and B in f64, C and D in f32 and f64, each against the
+    same solve on one device; ms per step and per CG iteration, the
+    collectives and bytes per CG iteration, the host halo tables for 2, 4
+    and 8 ranks, the idle share of one step of A.  A failed collective
+    raises; the group is destroyed at the end."""
+    import torch.distributed as dist
+    from ngsxfem_tpu_torch.parallel import dryrun as D
+
+    t0 = time.perf_counter()
+    group, store = par_group(dev)
+    rows = []
+    try:
+        f64 = torch.float64
+        m64 = flagships[f64][0]
+        x1, _ = D.single_apply_cg(m64, PAR_ITERS)
+        for name, make in (("A element-sharded (spmd_step)",
+                            lambda it: m64.spmd_step(group, maxiter=it)),
+                           ("B dof-sharded (spmd_step_sharded)",
+                            lambda it: m64.spmd_step_sharded(group,
+                                                             maxiter=it))):
+            made = make(PAR_ITERS)
+            step, args = made[:2]
+            out, ms, calls, nbytes = _counted(group, lambda: step(*args))
+            step0, args0 = make(0)[:2]
+            step0(*args0)
+            ms0 = _warm_ms(lambda: step0(*args0))
+            if name.startswith("A"):
+                x = out[0]
+                busy = (device_busy(lambda: step(*args))
+                        if dev.type == "cuda" else None)
+            else:
+                x = made[2](out[0], out[1])
+                busy = None
+            rel = D._rel(x, x1)
+            check(rel <= PAR_TOL[f64], f"{name} vs one device: rel {rel}")
+            rows.append({"layout": name, "dtype": "float64", "ms": ms,
+                         "ms_iter": (ms - ms0) / PAR_ITERS,
+                         "calls_iter": calls / PAR_ITERS,
+                         "bytes_iter": nbytes / PAR_ITERS, "rel": rel,
+                         "busy": busy})
+        for dt in (torch.float32, f64):
+            m, dst, V = flagships[dt]
+            (x, _, ls, cg_bytes), ms, calls, _ = _counted(
+                group, lambda: D.layout_c(m, dst, V, group, PAR_PCG, 0.0))
+            xr, _ = D.single_dia_cg(m, dst, V, PAR_PCG, 0.0)
+            rel = D._rel(x, xr)
+            check(rel <= PAR_TOL[dt], f"layout C {dt} vs one device: {rel}")
+            rows.append({"layout": f"C lattice-slab Jacobi-PCG-{PAR_PCG}",
+                         "dtype": str(dt)[6:], "ms": ms, "ms_iter": ms / PAR_PCG,
+                         "calls_iter": calls / PAR_PCG,
+                         "bytes_iter": cg_bytes / PAR_PCG, "rel": rel,
+                         "busy": None})
+            (x, res, Vl, ls), ms, calls, nbytes = _counted(
+                group, lambda: D.layout_d(m, dst, group, outer=IR_OUTER,
+                                          inner=IR_INNER), reps=1)
+            xs, res1, Vfull = D.single_pipeline_d(m, dst, outer=IR_OUTER,
+                                                  inner=IR_INNER)
+            rel = D._rel(x, xs)
+            bn = float(torch.linalg.vector_norm(D.indicator(m, dst).double()))
+            check(torch.equal(Vl[:, :ls.n], Vfull),
+                  f"layout D {dt}: slab rows != the whole table's")
+            check(rel <= PAR_D_TOL, f"layout D {dt} vs one device: {rel}")
+            check(float(res) / bn <= PAR_D_RES,
+                  f"layout D {dt}: true rel res {float(res) / bn}")
+            iters = IR_OUTER * IR_INNER
+            rows.append({"layout": f"D slab assembly + cg_ir "
+                                   f"({IR_OUTER} x {IR_INNER})",
+                         "dtype": str(dt)[6:], "ms": ms, "ms_iter": ms / iters,
+                         "calls_iter": calls / iters,
+                         "bytes_iter": nbytes / iters, "rel": rel,
+                         "busy": None, "rel_res": float(res) / bn})
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):  # the store removes its file itself
+            os.remove(store)
+    m32, d32, _ = flagships[torch.float32]
+    halos = halo_tables(m32, d32["offsets"])
+    for r in rows:
+        idle = ("" if r["busy"] is None else
+                f", one step {r['busy'][0]} device kernels, busy "
+                f"{r['busy'][1]:.3f} ms of {r['busy'][2]:.3f} ms wall (idle "
+                f"share {1 - r['busy'][1] / r['busy'][2]:.3f})")
+        res = "" if "rel_res" not in r else \
+            f", true rel res {r['rel_res']:.3e}"
+        print(f"[28 parallel] {card() if dev.type == 'cuda' else 'CPU'} | "
+              f"nx={m64.nx} world size 1 | {r['layout']} {r['dtype']}: "
+              f"{r['ms']:.3f} ms per step, {r['ms_iter']:.3f} ms per CG "
+              f"iteration, {r['calls_iter']:.2f} collectives and "
+              f"{r['bytes_iter']:.0f} B per iteration, vs one device rel "
+              f"{r['rel']:.3e}{res}{idle}", flush=True)
+    print(f"[28 halo tables] nx={m32.nx} ndof={m32.ndof} (host partitions, "
+          f"no run): " + "; ".join(
+              f"{n} ranks: dof-sharded shared buffer {S} dofs "
+              f"({100.0 * S / m32.ndof:.1f}% of ndof), lattice slabs of {L} "
+              f"planes, halo {h} dofs per rank boundary"
+              for n, S, h, L in halos)
+          + f"; wall of phase 28 {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return rows, halos
+
+
+def phase_29(dev, model, dst, V, st):
+    """The reference's other assembly routes of the f64 flagship ``model``
+    (DIA structure ``dst`` and lattice table ``V``, ELL structure ``st``):
+    ``assemble_vals_stencil`` against ``V``, ``apply_compact`` against
+    ``apply``, ``assemble_ell_vals`` / ``_gather`` / ``_soa`` against each
+    other and ``assemble_vals_soa1``; their ELL table solved by Jacobi-CG-50
+    through B2 (the launches of the phase) and, on the card, B2 against its
+    plain versions with its times.  Returns (B2 launches, B2's record or
+    None on the CPU, the numbers)."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers.krylov import cg
+    from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix
+
+    t0 = time.perf_counter()
+    out = {}
+    S, n1 = model.assemble_vals_stencil(model.vertices, model.lset, dst)
+    out["stencil_bitwise"] = torch.equal(S, V)
+    out["stencil_diff"] = float((S - V).abs().max())
+    check(out["stencil_diff"] <= A4B_STENCIL_TOL,
+          f"stencil vs lattice: {out['stencil_diff']}")
+    ncut = int(n1)
+    cap = ncut + A4B_CAP_EXTRA
+    rng = np.random.default_rng(2031)
+    x = torch.as_tensor(rng.standard_normal(model.ndof), dtype=model.dtype,
+                        device=dev)
+    yc = model.apply_compact(model.vertices, model.lset, x, cap)
+    ya = model.apply(model.vertices, model.lset, x)
+    out["compact_rel"] = float((yc - ya).abs().max() / ya.abs().max())
+    check(out["compact_rel"] <= A4B_TOL,
+          f"apply_compact vs apply: {out['compact_rel']}")
+    gt = model.ell_gather_structure(st)
+    tables = {}
+    for name, fn in (
+            ("assemble_ell_vals", lambda: model.assemble_ell_vals(
+                model.vertices, model.lset, cap, st)),
+            ("assemble_ell_vals_gather", lambda: model.assemble_ell_vals_gather(
+                model.vertices, model.lset, cap, st, gt)),
+            ("assemble_ell_vals_soa", lambda: model.assemble_ell_vals_soa(
+                model.vertices, model.lset, cap, st)),
+            ("assemble_vals_soa1", lambda: model.assemble_vals_soa1(
+                model.vertices, model.lset, st))):
+        (vals, n), ms = event_ms(fn)
+        check(int(n) == ncut, f"{name}: ncut {int(n)} != {ncut}")
+        tables[name] = (vals, ms)
+    ref = tables["assemble_vals_soa1"][0]
+    big = float(ref.abs().max())
+    out["ell_rel"] = {k: float((v - ref).abs().max()) / big
+                      for k, (v, _) in tables.items()}
+    check(max(out["ell_rel"].values()) <= A4B_TOL,
+          f"the ELL routes disagree: {out['ell_rel']}")
+    out["ms"] = {k: ms for k, (_, ms) in tables.items()}
+
+    # the path: Jacobi-CG-50 on the compact table through B2, counters
+    # reset just before it
+    cols = torch.as_tensor(st["ell_cols"], device=dev)
+    A = ELLMatrix(cols, tables["assemble_ell_vals"][0], (model.ndof,) * 2)
+    b = torch.as_tensor(np.where(model.active_dofs, 1.0, 0.0),
+                        dtype=model.dtype, device=dev)
+    dinv = 1.0 / A.diagonal()
+    ell_spmv.launches = 0
+    xk, _, res = cg(A.matvec, b, M=lambda r: dinv * r, maxiter=CG_ITERS,
+                    tol=0.0)
+    launches = ell_spmv.launches
+    xp, _, _ = cg(lambda z: ell_spmv.ell_matvec_plain(A.vals, A.cols, z), b,
+                  M=lambda r: dinv * r, maxiter=CG_ITERS, tol=0.0)
+    ell_spmv.launches = launches  # the plain solve is no path's
+    check(torch.equal(xk, xp), "Jacobi-CG on B2 != on ell_matvec_plain")
+    if dev.type == "cuda":
+        check(launches == CG_ITERS + 1,
+              f"B2 launches {launches} != products {CG_ITERS + 1}")
+        b2 = b2_on_table(f"compact ELL nx={model.nx} f64", A,
+                         np.ones(model.ndof, bool), b, dev)
+    else:
+        b2 = None
+    out["cg_rel"] = float(res) / float(torch.linalg.vector_norm(b))
+    print(f"[29 a4b] nx={model.nx} f64 | assemble_vals_stencil vs "
+          f"assemble_vals_lattice: bitwise {out['stencil_bitwise']}, max|d| "
+          f"{out['stencil_diff']:.3e} | apply_compact (cap {cap}) vs apply "
+          f"rel {out['compact_rel']:.3e} | vs assemble_vals_soa1 rel "
+          + ", ".join(f"{k} {v:.3e} ({out['ms'][k]:.3f} ms)"
+                      for k, v in out["ell_rel"].items())
+          + f" | Jacobi-CG-{CG_ITERS} on the compact ELL table: {launches} "
+          f"B2 launches, == on ell_matvec_plain bitwise, rel res "
+          f"{out['cg_rel']:.3e}"
+          + (f" | B2 on this table ({model.ndof} x {st['K']} f64): kernel == "
+             f"plain bitwise (max|dy| {b2['err']:.3e}), {b2_text(b2)}"
+             if b2 is not None else "")
+          + f"; wall of phase 29 {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return launches, b2, out
+
+
+def phases_28_29(dev, t_start, flagships, st):
+    """Phases 28 (the parallel layouts) and 29 (the other assembly routes,
+    B2's launch counter reset before its solve).  Returns (B2 launches of
+    phase 29, B2's record, phase 28's rows, its halo tables)."""
+    rows, halos = phase_28(dev, flagships)
+    m64, d64, V64 = flagships[torch.float64]
+    launches, b2, _ = phase_29(dev, m64, d64, V64, st)
+    print(f"[29 whole] of the whole run {time.perf_counter() - t_start:.2f} s",
+          flush=True)
+    return launches, b2, rows, halos
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -4849,6 +5143,10 @@ def main():
     mg_launches, mesh_launches, mg_tables = phases_24_25(T, dev, t_start)
     ad_launches, per_launches, ad_tables = phases_26_27(
         T, dev, t_start, f64["model"], f64["struct"], st48)
+    sl13_launches, sl13_b2, _, _ = phases_28_29(
+        dev, t_start, {torch.float32: (model, struct, V),
+                       torch.float64: (f64["model"], f64["struct"],
+                                       f64["V"])}, st48)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -4899,6 +5197,8 @@ def main():
         "launches_autograd": ad_launches,
         "autograd_tables": ad_tables,
         "launches_periodic": per_launches,
+        "launches_slice13": sl13_launches,
+        "slice13_tables": [dict(b2_record(sl13_b2), launches=sl13_launches)],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -122,6 +122,7 @@ from .solvers.stencilop import LatticeStencilOperator
 from .solvers.condense import condensed_solve
 from .solvers.latticemg import LatticeDIAMG
 from .ops.straightcut import cut_rule_element as CreateCutIntegrationRule
+from . import parallel
 
 FIRST, OPTIMAL, FALLBACK = "FIRST", "OPTIMAL", "FALLBACK"
 CXFESpace = XFESpace  # the reference's C++ class name

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ..mesh.mesh import (geom_shapes, map_jacobian, small_matmul, _det,
-                         _inv)
+from ..mesh.mesh import (geom_shapes, map_jacobian, pointwise_pow,
+                         small_matmul, _det, _inv)
 from . import coefficient as C
 
 
@@ -122,7 +122,7 @@ class EvalCtx:
     @property
     def h(self):
         """NGSolve-like mesh size |det J|^(1/dim)."""
-        return self.absdetJ ** (1.0 / self.mesh.dim)
+        return pointwise_pow(self.absdetJ, 1.0 / self.mesh.dim)
 
     def _jinvt_nref(self):
         """J^-T n_ref and its norm, shared by `normal` and `if_scale`."""

@@ -47,9 +47,12 @@ from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx
 from ..domaintype import IF, NEG, POS
 from ..integrate import (_cut_ctx_and_weights, _p1_vertex_dofs, cut_tiers,
-                         ensure_p1_levelset, normalize_levelset_domain)
+                         ensure_p1_levelset, normalize_levelset_domain,
+                         tier_rows)
 from ..mesh.mesh import (FACET_ET, FACET_VERTS, det_and_inv, geom_dshapes,
-                         geom_shapes, map_points, small_matmul)
+                         geom_shapes, map_points, pointwise_pow,
+                         small_matmul)
+from ..parallel.sharding import mesh_shard, sum_over_ranks
 from ..ops.cuttables import ET_SPLIT, REF_VERTS
 from ..ops.gauss import ET_DIM, reference_rule
 from ..ops.scatter import ScatterPlan
@@ -282,27 +285,36 @@ def _volume_tiers(integral: Integral, mesh, order, device):
     package."""
     o = _intorder(integral, order)
     deform = _deformation_of(integral, mesh)
+    sh = mesh_shard(mesh)
     if integral.levelset_domain is None:
         rp, rw = reference_rule(mesh.et, o)
         rp = torch.as_tensor(rp, dtype=config.dtype, device=device)[None]
         rw = torch.as_tensor(rw, dtype=config.dtype, device=device)[None]
         # the plain space-time volume rule: spatial rule x time Gauss
         pts, rw, _, times = time_tensorize(rp, rw, integral.time_order)
-        ctx = EvalCtx(mesh, pts, deformation=deform, time=times)
-        w = (rw * ctx.detJ.abs()).expand(mesh.ne, rw.shape[1])
-        tiers = [(ctx, w, torch.ones_like(w, dtype=torch.bool), None)]
+        ids, full = None, None
+        if sh is not None:  # this rank's elements of a sharded mesh
+            ids, full = tier_rows(mesh, torch.ones(
+                mesh.ne, dtype=torch.bool, device=device), True)
+        ctx = EvalCtx(mesh, pts, elem_ids=ids, deformation=deform, time=times)
+        ctx.shard_full = full
+        w = (rw * ctx.detJ.abs()).expand(
+            mesh.ne if ids is None else len(ids), rw.shape[1])
+        tiers = [(ctx, w, torch.ones_like(w, dtype=torch.bool), ids)]
     elif integral.levelset_domain["subdivlvl"] > 0:
         ld = integral.levelset_domain
         ctx, w, mask = _cut_ctx_and_weights(
             mesh, ld["levelset"], int(ld["domain_type"]), o,
             integral.time_order, deformation=deform,
             subdivlvl=ld["subdivlvl"], device=device)
+        if sh is not None:  # every element computed: other ranks' weigh 0
+            w = torch.where(sh.own_on(device)[:, None], w, 0.0)
         tiers = [(ctx, w, mask, None)]
     else:
         ld = integral.levelset_domain
         tiers = cut_tiers(mesh, ld["levelset"], int(ld["domain_type"]), o,
                           ld["quad_dir_policy"], integral.time_order,
-                          deform=deform)
+                          deform=deform, sharded=True)
     if integral.definedonelements is not None:
         sel = torch.as_tensor(integral.definedonelements, device=device)
         masked = []
@@ -322,7 +334,37 @@ def _facet_patch_fids(integral: Integral, mesh):
     return np.nonzero(sel)[0]
 
 
-def _facet_patch_ctx(integral: Integral, mesh, order, device):
+def _own_weights(sh, rows, w):
+    """Weights ``w`` (R, Q) of rows computed on every rank, zero on the
+    rows (elements ``rows``) that another rank of a sharded mesh owns."""
+    if sh is None:
+        return w
+    return torch.where(sh.own_on(w.device)[rows][:, None], w, 0.0)
+
+
+def _full_rows(m, n, pos):
+    """(n, ...) zeros with this rank's rows ``m`` at ``pos``."""
+    out = m.new_zeros((n,) + tuple(m.shape[1:]))
+    out[pos] = m
+    return out
+
+
+def _owned_facet_patch(integral, mesh, order, device, sh):
+    """The facet-patch tier of a sharded mesh: the selected facets whose
+    first element this rank owns, built alone, their context carrying the
+    single-rank layout of every selected facet (``shard_full``)."""
+    fids = _facet_patch_fids(integral, mesh)
+    f2e = mesh.facet2el_np
+    own = sh.own[f2e[fids, 0]]
+    ctx, e1, e2, w_phys, mask = _facet_patch_ctx(integral, mesh, order,
+                                                 device, fids=fids[own])
+    t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    ctx.shard_full = (t(f2e[fids, 0]), t(f2e[fids, 1]),
+                      t(np.nonzero(own)[0]))
+    return ctx, w_phys, mask, (e1, e2)
+
+
+def _facet_patch_ctx(integral: Integral, mesh, order, device, fids=None):
     """Contexts for facet-patch integrals: union of both neighbor volume rules.
 
     Returns (ctx_self, elem_ids_self, elem_ids_other, w_phys, mask); ctx has
@@ -338,7 +380,8 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
     reference's space-time variant, symboliccutbfi.cpp:1256-1324).
     """
     f2e = mesh.facet2el_np
-    fids = _facet_patch_fids(integral, mesh)
+    if fids is None:
+        fids = _facet_patch_fids(integral, mesh)
     e1 = torch.as_tensor(f2e[fids, 0], dtype=torch.int64, device=device)
     e2 = torch.as_tensor(f2e[fids, 1], dtype=torch.int64, device=device)
     dtype = config.dtype
@@ -390,7 +433,7 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device):
         # affine initial guess
         p, _ = def_map(coords_to, e_to, xr)
         err = torch.linalg.vector_norm(target - p, dim=-1)  # (F, Q)
-        h = detc[:, :1].abs() ** (1.0 / d)
+        h = pointwise_pow(detc[:, :1].abs(), 1.0 / d)
         tol = 1e4 * torch.finfo(dtype).eps * h.clamp_min(1e-30)
         conv = err <= tol
         if config.newton_debug:
@@ -818,8 +861,11 @@ class BilinearForm:
             vparts.append(m)
             rparts.append(rows)
             cparts.append(cols)
-        self.mat = SparseMatrix(torch.cat(rparts), torch.cat(cparts),
-                                torch.cat(vparts),
+        # on a sharded mesh each rank filled its own rows of the value
+        # stream: one all_reduce gives every rank the single-rank stream
+        # (x + 0 = x), which the matrix sums in its one fixed order
+        vals = sum_over_ranks(self.space.mesh, torch.cat(vparts))
+        self.mat = SparseMatrix(torch.cat(rparts), torch.cat(cparts), vals,
                                 (self.space_v.ndof, self.space_u.ndof),
                                 device=self.space.device)
         return self
@@ -842,6 +888,10 @@ class BilinearForm:
         if lattice not in ("auto", True, False):
             raise ValueError(f"lattice must be 'auto', True or False, "
                              f"got {lattice!r}")
+        if mesh_shard(self.space.mesh) is not None:
+            raise NotImplementedError(
+                "AssembleOperator on a sharded mesh: use Assemble, whose "
+                "value stream is summed over the ranks")
         batches = list(self._elmat_batches())
         space = self.space_v
         device = self.space.device
@@ -897,19 +947,24 @@ class BilinearForm:
         for i in self.integrals:
             _ensure_p1_ld(i, mesh, device)
             _check_proxy_spaces(i.form, space_u, space_v)
+        sh = mesh_shard(mesh)
         for integral in map(self._with_restriction, self.integrals):
-            if integral.facet_patch or integral.skeleton:
+            if integral.facet_patch and sh is not None:
+                tiers = [_owned_facet_patch(integral, mesh, 2 * order, device,
+                                            sh)]
+            elif integral.facet_patch or integral.skeleton:
                 build = (_facet_patch_ctx if integral.facet_patch
                          else _skeleton_ctx)
                 ctx, e1, e2, w_phys, mask = build(integral, mesh, 2 * order,
                                                   device)
-                tiers = [(ctx, w_phys, mask, (e1, e2))]
+                tiers = [(ctx, _own_weights(sh, e1, w_phys), mask, (e1, e2))]
             elif integral.element_boundary or integral.vb == BND:
                 build = (_element_boundary_ctx if integral.element_boundary
                          else _boundary_ctx)
                 ctx, row_e, w_phys, mask = build(integral, mesh, 2 * order,
                                                  device)
-                tiers = [(ctx, w_phys, mask, (row_e, row_e))]
+                tiers = [(ctx, _own_weights(sh, row_e, w_phys), mask,
+                          (row_e, row_e))]
             else:
                 tiers = [(ctx, w, mask, (ids, None)) for ctx, w, mask, ids
                          in _volume_tiers(
@@ -932,6 +987,13 @@ class BilinearForm:
                     m = _term_elmat(t, W, mask)
                     key = (t.ufac.block, t.vfac.block)
                     acc[key] = m if key not in acc else acc[key] + m
+                full = getattr(tctx, "shard_full", None)
+                if full is not None:  # this rank's rows in the single-rank
+                    # layout, zero on the other ranks' rows
+                    *rows, pos = full
+                    es, eo = rows if len(rows) == 2 else (rows[0], None)
+                    acc = {k: _full_rows(m, es.numel(), pos)
+                           for k, m in acc.items()}
                 for (bu, bv), m in acc.items():
                     yield (m,
                            block_dofmap(space_v, bv, es, eo, device=device),
@@ -998,12 +1060,14 @@ class LinearForm:
             if integral.vb == BND:
                 ctx, row_e, w_phys, mask = _boundary_ctx(
                     integral, mesh, 2 * order + mesh.dim, device)
-                tiers = [(ctx, w_phys, mask, row_e)]
+                tiers = [(ctx, _own_weights(mesh_shard(mesh), row_e, w_phys),
+                          mask, row_e)]
             else:
                 tiers = _volume_tiers(integral, mesh, 2 * order + mesh.dim,
                                       device)
             for tctx, w_phys, mask, ids in tiers:
                 W = _safe_weights(w_phys, mask)
+                full = getattr(tctx, "shard_full", None)
                 for t in eval_form(integral.form, tctx):
                     if t.ufac is None and t.vfac is None:
                         raise TypeError(
@@ -1012,12 +1076,17 @@ class LinearForm:
                     if t.vfac is None or t.ufac is not None:
                         raise TypeError(
                             "linear form must be linear in the test function")
-                    ve = _term_elvec(t, W, mask).to(config.dtype).reshape(-1)
-                    dm_v = block_dofmap(space, t.vfac.block, ids,
+                    ve = _term_elvec(t, W, mask).to(config.dtype)
+                    rows = ids
+                    if full is not None:  # the single-rank layout
+                        rows = full[0]
+                        ve = _full_rows(ve, rows.numel(), full[1])
+                    ve = ve.reshape(-1)
+                    dm_v = block_dofmap(space, t.vfac.block, rows,
                                         device=device).reshape(-1)
                     # placeholder slots hold zeros and would all land on one
                     # dof (as in BilinearForm.Assemble): left out
-                    vv = block_valid(space, t.vfac.block, ids, device=device)
+                    vv = block_valid(space, t.vfac.block, rows, device=device)
                     if vv is not None:
                         keep = vv.reshape(-1)
                         dm_v, ve = dm_v[keep], ve[keep]
@@ -1031,7 +1100,8 @@ class LinearForm:
                     or hit[0].device != index.device
                     or not torch.equal(hit[0], index)):
                 hit = self._plan = (index, ScatterPlan(index, space.ndof))
-            hit[1].add(torch.cat(contribs), out)
+            # a sharded mesh's ranks each filled their own rows
+            hit[1].add(sum_over_ranks(mesh, torch.cat(contribs)), out)
         self._vec = out
         return self
 

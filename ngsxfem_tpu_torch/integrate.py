@@ -34,6 +34,7 @@ import warnings
 import numpy as np
 import torch
 
+from .parallel.sharding import mesh_shard, sum_over_ranks
 from .config import config, resolve_device
 from .domaintype import DOMAIN_TYPE, NEG, POS, IF
 from .cf.coefficient import wrap
@@ -227,13 +228,35 @@ def _rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if, nref,
     return ctx, w_phys, w_ref > 0
 
 
-def two_tier_tiers(mesh, lgf, dt, order, policy, deform="inherit"):
+def tier_rows(mesh, sel, sharded=False):
+    """(ids, full) of a tier: the elements of the (ne,) mask ``sel`` this
+    rank computes, and None, or, with ``sharded`` on a sharded mesh
+    (``parallel.sharding.shard_mesh``), the owned elements only and
+    ``full = (every id of the tier, positions of ids among them)``, from
+    which the forms lay the rank's rows out in the single-rank order."""
+    ids = torch.nonzero(sel)[:, 0]
+    sh = mesh_shard(mesh) if sharded else None
+    if sh is None:
+        return ids, None
+    keep = sh.own_on(sel.device)[ids]
+    return ids[keep], (ids, torch.nonzero(keep)[:, 0])
+
+
+def _with_rows(ctx, full):
+    """``ctx`` carrying the single-rank layout of its rows (``tier_rows``)."""
+    ctx.shard_full = full
+    return ctx
+
+
+def two_tier_tiers(mesh, lgf, dt, order, policy, deform="inherit",
+                   sharded=False):
     """Two-tier cut quadrature tiers [(ctx, w_phys (R,Q), mask, elem_ids)]:
     the standard rule on the uncut elements of the requested side (NEG/POS
     only), and the cut rule on the cut elements, each set taken exactly with
     ``torch.nonzero``.  The cut-rule construction then scales with the
     interface, not the volume.  ``deform`` is the deformation of both
-    tiers' contexts (``EvalCtx``)."""
+    tiers' contexts (``EvalCtx``).  With ``sharded`` on a sharded mesh each
+    tier keeps this rank's elements (``tier_rows``)."""
     dt = int(dt)
     if dt not in (int(NEG), int(POS), int(IF)):
         raise ValueError(
@@ -244,23 +267,25 @@ def two_tier_tiers(mesh, lgf, dt, order, policy, deform="inherit"):
     tiers = []
     if dt != int(IF):
         sel = (has_neg & ~has_pos) if dt == int(NEG) else (has_pos & ~has_neg)
-        ids = torch.nonzero(sel)[:, 0]
+        ids, full = tier_rows(mesh, sel, sharded)
         rp, rw = reference_rule(mesh.et, order)
         pts = torch.as_tensor(rp, dtype=vals.dtype, device=vals.device)[None]
-        ctx = EvalCtx(mesh, pts, elem_ids=ids, deformation=deform)
+        ctx = _with_rows(EvalCtx(mesh, pts, elem_ids=ids, deformation=deform),
+                         full)
         w = torch.as_tensor(rw, dtype=vals.dtype, device=vals.device) \
             * ctx.detJ.abs()
         w = w.expand(len(ids), len(rw))
         tiers.append((ctx, w, torch.ones_like(w, dtype=torch.bool), ids))
-    cut_ids = torch.nonzero(has_neg & has_pos)[:, 0]
+    cut_ids, full = tier_rows(mesh, has_neg & has_pos, sharded)
     rule = cut_rule_element(mesh.et, vals[cut_ids], order, policy)
-    tiers.append((*_rule_ctx_weights(mesh, dt, *rule, elem_ids=cut_ids,
-                                     deformation=deform), cut_ids))
+    ctx, w, mask = _rule_ctx_weights(mesh, dt, *rule, elem_ids=cut_ids,
+                                     deformation=deform)
+    tiers.append((_with_rows(ctx, full), w, mask, cut_ids))
     return tiers
 
 
 def spacetime_tiers(mesh, lgf, dt, order, time_order, policy,
-                    deform="inherit"):
+                    deform="inherit", sharded=False):
     """The two tiers of a space-time cut integral, as ``two_tier_tiers``
     gives them: the plain spatial rule x the time Gauss rule on the
     elements that ``spacetime_split`` finds on the requested side (NEG/POS
@@ -278,44 +303,57 @@ def spacetime_tiers(mesh, lgf, dt, order, time_order, policy,
     split = spacetime_split(vals, kt, time_order)
     tiers = []
     if dt != int(IF):
-        ids = torch.nonzero(split == dt)[:, 0]
+        ids, full = tier_rows(mesh, split == dt, sharded)
         rp, rw = reference_rule(mesh.et, order)
         pts, rw, _, times = time_tensorize(
             torch.as_tensor(rp, dtype=vals.dtype, device=vals.device)[None],
             torch.as_tensor(rw, dtype=vals.dtype, device=vals.device)[None],
             time_order)
-        ctx = EvalCtx(mesh, pts, elem_ids=ids, deformation=deform, time=times)
+        ctx = _with_rows(EvalCtx(mesh, pts, elem_ids=ids, deformation=deform,
+                                 time=times), full)
         w = (rw * ctx.detJ.abs()).expand(len(ids), rw.shape[1])
         tiers.append((ctx, w, torch.ones_like(w, dtype=torch.bool), ids))
-    cut_ids = torch.nonzero(split < 0)[:, 0]
+    cut_ids, full = tier_rows(mesh, split < 0, sharded)
     rule = spacetime_cut_rule(mesh.et, vals[cut_ids], kt, order, time_order,
                               policy)
     pts, times, w, side, pts_if, times_if, w_if, nref = rule
-    tiers.append((*_rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if,
+    ctx, w, mask = _rule_ctx_weights(mesh, dt, pts, w, side, pts_if, w_if,
                                      nref, elem_ids=cut_ids,
                                      deformation=deform, times=times,
-                                     times_if=times_if), cut_ids))
+                                     times_if=times_if)
+    tiers.append((_with_rows(ctx, full), w, mask, cut_ids))
     return tiers
 
 
-def cut_tiers(mesh, lgf, dt, order, policy, time_order=-1, deform="inherit"):
+def cut_tiers(mesh, lgf, dt, order, policy, time_order=-1, deform="inherit",
+              sharded=False):
     """``two_tier_tiers``, or ``spacetime_tiers`` for ``time_order >= 0``."""
     if time_order >= 0:
         return spacetime_tiers(mesh, lgf, dt, order, time_order, policy,
-                               deform)
-    return two_tier_tiers(mesh, lgf, dt, order, policy, deform)
+                               deform, sharded)
+    return two_tier_tiers(mesh, lgf, dt, order, policy, deform, sharded)
+
+
+def _rank_sum(mesh, out, ew):
+    """The per-element sums ``out`` (ne,) of this rank's elements summed
+    over the ranks of a sharded mesh: the (ne,) vector when ``ew``, else
+    the 0-d integral (one all-reduced scalar)."""
+    if ew:
+        return sum_over_ranks(mesh, out)
+    return sum_over_ranks(mesh, out.sum().reshape(1))[0]
 
 
 def _two_tier_integrate(mesh, cf, lgf, dt, order, policy, ew, time_order=-1):
     """Two-tier cut integration of a CoefficientFunction over the tiers of
     ``cut_tiers``: per-element sums (ne,) when ``ew``, else the 0-d
-    integral."""
-    tiers = cut_tiers(mesh, lgf, dt, order, policy, time_order)
+    integral.  On a sharded mesh each rank integrates its elements and the
+    result is summed over the ranks."""
+    tiers = cut_tiers(mesh, lgf, dt, order, policy, time_order, sharded=True)
     total_e = torch.zeros(mesh.ne, dtype=lgf.dtype, device=lgf.device)
     for ctx, w, mask, ids in tiers:
         f = torch.broadcast_to(eval_pure(cf, ctx), w.shape)
         total_e.index_add_(0, ids, (torch.where(mask, f, 0.0) * w).sum(1))
-    return total_e if ew else total_e.sum()
+    return _rank_sum(mesh, total_e, ew)
 
 
 def _lattice_values(mesh, levelset, lattice, device, deformation):
@@ -511,7 +549,10 @@ def _subdiv_integrate(mesh, cf, ld, order, ew, time_order, device):
             total_e += per
         else:  # ids repeat in the children's tier: a fixed-order sum
             ScatterPlan(ids, mesh.ne).add(per, total_e)
-    return total_e if ew else total_e.sum()
+    sh = mesh_shard(mesh)
+    if sh is not None:  # every rank computed every element: keep its own
+        total_e = torch.where(sh.own_on(dev), total_e, 0.0)
+    return _rank_sum(mesh, total_e, ew)
 
 
 def _cut_ctx_and_weights(mesh, lset_gf, domain_type, order, time_order=-1,
@@ -593,12 +634,14 @@ def Integrate(levelset_domain=None, cf=None, mesh=None, order=5,
             dev = resolve_device(device)
             rp, rw = reference_rule(mesh.et, order)
             pts = torch.as_tensor(rp, dtype=config.dtype, device=dev)[None]
-            ctx = EvalCtx(mesh, pts)
+            ids, full = tier_rows(
+                mesh, torch.ones(mesh.ne, dtype=torch.bool, device=dev), True)
+            ctx = EvalCtx(mesh, pts, elem_ids=None if full is None else ids)
             w = torch.as_tensor(rw, dtype=config.dtype, device=dev) * ctx.detJ.abs()
-            f = torch.broadcast_to(eval_pure(cf, ctx), (mesh.ne, len(rw)))
-            out = (f * w).sum(1)
-            if not element_wise:
-                out = out.sum()
+            f = torch.broadcast_to(eval_pure(cf, ctx), (len(ids), len(rw)))
+            out = torch.zeros(mesh.ne, dtype=config.dtype, device=dev) \
+                .index_add_(0, ids, (f * w).sum(1))
+            out = _rank_sum(mesh, out, element_wise)
         else:
             ld = normalize_levelset_domain(levelset_domain)
             time_order = int(ld.get("time_order", time_order))

@@ -331,11 +331,42 @@ def geom_dshapes(et: str, pts):
     raise ValueError(et)
 
 
+# elements of one chunk of a CPU power (ATen's thread grain), and the
+# multiple its flat length is padded to (a whole number of vector steps)
+_POW_CHUNK = 32768
+_POW_ALIGN = 64
+
+
+def pointwise_pow(a, e):
+    """``a ** e`` with every element's bits independent of its place in the
+    tensor.  On the CPU, ATen computes the last (length mod 16) elements of
+    a vectorized loop, and each thread's share of a long one, with the
+    scalar libm ``pow``, whose last bit can differ from the vector path's;
+    so the flat tensor is padded to whole vector steps and taken in chunks
+    that one thread runs.  A rank's rows of a sharded assembly then equal
+    the single-rank rows bit for bit.  On the card every element takes one
+    path already."""
+    if a.is_cuda:
+        return a ** e
+    flat = a.reshape(-1)
+    n = flat.numel()
+    pad = (-n) % _POW_ALIGN
+    if pad:
+        flat = torch.cat([flat, flat.new_ones(pad)])
+    out = torch.cat([c ** e for c in flat.split(_POW_CHUNK)])
+    return out[:n].reshape(a.shape)
+
+
 def small_matmul(a, b):
-    """a @ b for a short contraction (k <= ~10), with broadcasting batch
-    dims, as k elementwise multiply-adds in order.  On the card a batched
-    matmul of millions of tiny matrices runs as a library GEMM/GEMV that
-    is many times slower than these memory-bound elementwise kernels."""
+    """a @ b with broadcasting batch dims.  On the card, as k elementwise
+    multiply-adds in order: there a batched matmul of millions of tiny
+    matrices runs as a library GEMM/GEMV that is many times slower than
+    these memory-bound elementwise kernels.  On the CPU the batched BLAS
+    product is the fast one (the loop makes k passes over the whole
+    output), so the CPU takes ``torch.matmul``; the two differ in rounding
+    only."""
+    if not a.is_cuda:
+        return torch.matmul(a, b)
     out = a[..., :, 0, None] * b[..., 0, None, :]
     for k in range(1, a.shape[-1]):
         out = out + a[..., :, k, None] * b[..., k, None, :]

@@ -21,6 +21,7 @@ numpy; the model holds ``vertices`` and ``lset`` as buffers on its device.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -31,7 +32,7 @@ from ..ops.gauss import ET_DIM, reference_rule
 from ..ops.scatter import ScatterPlan
 from ..fem.basis import ndof_el, lagrange_element, shapes, dshapes
 from ..integrate import vertex_local_ids
-from ..mesh.mesh import map_points, det_and_inv, small_matmul
+from ..mesh.mesh import map_points, det_and_inv, pointwise_pow, small_matmul
 from ..ops.straightcut import cut_rule_element, eps_guard, eps_guard_list
 
 
@@ -185,6 +186,76 @@ def _soa_jacobian(x, d):
     return det, Jinv
 
 
+@lru_cache(maxsize=None)
+def _affine_stiffness_S(et, order):
+    """Host: the constant affine-element stiffness tensor
+    S[i,d,j,c] = sum_q w_q dN[q,i,d] dN[q,j,c] (exact: degree-2(order-1)
+    integrand), in float64.  With it the standard-tier element stiffness
+    factorizes as A[e,i,j] = |detJ_e| * sum_{d,c} M_e[d,c] S[i,d,j,c],
+    M_e[d,c] = sum_g Jinv[e,d,g] Jinv[e,c,g]: no quadrature axis on the
+    device.  The cached array is shared: do not write to it."""
+    rp, rw = reference_rule(et, max(2 * order - 2, 0))
+    rp = np.asarray(rp, np.float64)
+    rw = np.asarray(rw, np.float64)
+    b = lagrange_element(et, order)
+    exps, C = b["exps"], b["coeff"]
+    Q, d = rp.shape
+    nm = exps.shape[0]
+    G = np.zeros((Q, C.shape[1], d))
+    for ax in range(d):
+        dm = np.zeros((Q, nm))
+        for m in range(nm):
+            e_ax = int(exps[m, ax])
+            if e_ax == 0:
+                continue
+            v = np.full(Q, float(e_ax))
+            for j in range(d):
+                e = int(exps[m, j]) - (1 if j == ax else 0)
+                if e > 0:
+                    v = v * rp[:, j] ** e
+            dm[:, m] = v
+        G[:, :, ax] = dm @ C
+    return np.einsum("q,qid,qjc->idjc", rw, G, G)
+
+
+def _std_stiffness_soa_flat(et, order, S_np, det, Jinv, w):
+    """SoA standard-tier stiffness: flat (nd*nd*E,) values in (i, j, e)
+    order from (E,) tensors (``_soa_jacobian``'s det and Jinv, weights
+    ``w``); the structure indices (i, j, d, c) are unrolled in Python."""
+    d = {"trig": 2, "tet": 3, "segm": 1}[et]
+    nd_l = S_np.shape[0]
+    M = [[sum(Jinv[a][g] * Jinv[b][g] for g in range(d)) for b in range(d)]
+         for a in range(d)]
+    W = det.abs() * w
+    A = [[None] * nd_l for _ in range(nd_l)]
+    for i in range(nd_l):
+        for j in range(i, nd_l):
+            s = None
+            for a in range(d):
+                for b in range(d):
+                    coef = float(S_np[i, a, j, b])
+                    if abs(coef) > 1e-14:
+                        t = coef * M[a][b]
+                        s = t if s is None else s + t
+            Aij = W * s if s is not None else torch.zeros_like(W)
+            A[i][j] = Aij
+            A[j][i] = Aij
+    return torch.cat([A[i][j] for i in range(nd_l) for j in range(nd_l)])
+
+
+def _map_blocks(fn, blk, *args):
+    """``fn`` over leading-axis blocks of ``blk`` rows of ``args``, the
+    results concatenated: the temporaries of one block at a time, however
+    many elements (the reference's ``lax.map`` over padded blocks; an
+    80 GB card runs out too, past a few million elements).  ``blk`` None
+    runs ``fn`` once on everything."""
+    n = args[0].shape[0]
+    if blk is None or n <= blk:
+        return fn(*args)
+    return torch.cat([fn(*(a[i:i + blk] for a in args))
+                      for i in range(0, n, blk)])
+
+
 def _p1_affine_basis(et):
     """Host: P1 basis as an affine map: B_i(p) = b0[i] + Gref[i, :] @ p,
     plus the reference vertex coordinates R (basis-node order)."""
@@ -249,7 +320,7 @@ def ghost_penalty_flat_soa(et, x1, x2, gamma=0.1):
             F[nv + i][nv + k] = -1.0 if i == int(vperm[k]) else 0.0
 
     c = 1.0 / ((d + 1) * (d + 2))
-    h2 = det1.abs() ** (2.0 / d)
+    h2 = pointwise_pow(det1.abs(), 2.0 / d)
     scale = gamma / h2.clamp_min(1e-30)
     w1 = scale * V1 * c
     w2 = scale * V2 * c
@@ -325,7 +396,7 @@ def cut_poisson_flat_soa(et, lv, det, Jinv, lam_nitsche):
     dn = [sum(Gp[i][g] * nphys[g] for g in range(d)) for i in range(nv)]
     # physical measure of a unit-ref-area piece of the interface plane
     ifscale = absdet * ngphys / ngref.clamp_min(1e-30)
-    h = absdet ** (1.0 / d)
+    h = pointwise_pow(absdet, 1.0 / d)
     lam = lam_nitsche / h.clamp_min(1e-30)
 
     # edge cut parameters (safe everywhere; only used under matching masks)
@@ -428,6 +499,15 @@ def cut_poisson_flat_soa(et, lv, det, Jinv, lam_nitsche):
         for j in range(i):
             A[i][j] = A[j][i]
     return A
+
+
+def _tier_ids(vals):
+    """(ids of the uncut NEG elements, ids of the cut elements) of
+    eps-guarded element vertex values (E, nv), taken exactly."""
+    has_neg = (vals < 0).any(1)
+    has_pos = (vals > 0).any(1)
+    return (torch.nonzero(has_neg & ~has_pos)[:, 0],
+            torch.nonzero(has_neg & has_pos)[:, 0])
 
 
 def _disp(v, d, nv1):
@@ -627,20 +707,22 @@ class UnfittedPoisson(nn.Module):
             "K": K,
         }
 
-    def gp_mats(self, vertices):
+    def gp_mats(self, vertices, block=None):
         """Ghost-penalty patch matrices (F, 2nd, 2nd) of the frozen band,
         rows and columns in the stacked [e2d[gp_e1]; e2d[gp_e2]] order of
         the gp slots.  Order 1 takes the closed-form
         ``ghost_penalty_flat_soa`` (the reference holds it equal to its
         quadrature ``ghost_penalty_elmats`` to 1e-12,
-        tests/test_model_poisson.py:154-171), higher orders the quadrature."""
+        tests/test_model_poisson.py:154-171), higher orders the quadrature,
+        in blocks of ``block`` facets when given (``_map_blocks``)."""
         if self.order != 1:
             dev = vertices.device
-            return ghost_penalty_elmats(
-                self.et, self.order,
+            fn = lambda c1, c2: ghost_penalty_elmats(
+                self.et, self.order, c1, c2, self.gamma_gp)
+            return _map_blocks(
+                fn, block,
                 vertices[self._index(self.elements[self.gp_e1], dev)],
-                vertices[self._index(self.elements[self.gp_e2], dev)],
-                self.gamma_gp)
+                vertices[self._index(self.elements[self.gp_e2], dev)])
         x1, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e1])
         x2, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e2])
         A = ghost_penalty_flat_soa(self.et, x1, x2, self.gamma_gp)
@@ -649,15 +731,34 @@ class UnfittedPoisson(nn.Module):
                             for i in range(n2)], -2)
 
     # -- the quadrature path -------------------------------------------------
-    def _tiers(self, lset_vertex):
+    def _tiers(self, lset_vertex, elements=None):
         """(eps-guarded element vertex values, ids of the uncut NEG
-        elements, ids of the cut elements), the sets taken exactly."""
+        elements, ids of the cut elements), the sets taken exactly, of the
+        mesh's elements or of the (E, nv) host table ``elements``."""
         dev = lset_vertex.device
-        vals = eps_guard(lset_vertex[self._index(self.elements, dev)])
-        has_neg = (vals < 0).any(1)
-        has_pos = (vals > 0).any(1)
-        return (vals, torch.nonzero(has_neg & ~has_pos)[:, 0],
-                torch.nonzero(has_neg & has_pos)[:, 0])
+        els = self.elements if elements is None else elements
+        vals = eps_guard(lset_vertex[self._index(els, dev)])
+        return (vals,) + _tier_ids(vals)
+
+    def _std_elmats(self, coords):
+        """Stiffness matrices (E, nd, nd) of whole elements from the
+        standard rule of degree 2 (order - 1), exactly symmetric."""
+        _, W, Jinv, rp = _uncut_rule(self.et, max(2 * self.order - 2, 0),
+                                     coords)
+        Gp = small_matmul(dshapes(self.et, self.order, rp), Jinv)
+        An = torch.einsum("eq,eqig,eqjg->eij", W, Gp, Gp)
+        return 0.5 * (An + An.transpose(1, 2))
+
+    def _elmats_of(self, coords, vals):
+        """Element matrices (E, nd, nd) of elements with corner coordinates
+        ``coords`` (E, nv, d) and eps-guarded level-set values ``vals``
+        (E, nv), in the two tiers of ``elmats``."""
+        neg, cut = _tier_ids(vals)
+        A = coords.new_zeros((coords.shape[0], self.nd, self.nd))
+        A[neg] = self._std_elmats(coords[neg])
+        A[cut] = cut_poisson_elmats(self.et, self.order, coords[cut],
+                                    vals[cut], self.lam_nitsche)
+        return A
 
     def elmats(self, vertices, lset_vertex):
         """Element matrices (ne, nd, nd) of the cut operator from quadrature
@@ -665,19 +766,8 @@ class UnfittedPoisson(nn.Module):
         elements, ``cut_poisson_elmats`` on cut ones, zero on POS ones (the
         reference builds the cut rule on every element; the result is the
         same to rounding)."""
-        dev = vertices.device
-        coords = vertices[self._index(self.elements, dev)]
-        vals, neg, cut = self._tiers(lset_vertex)
-        A = torch.zeros((self.mesh.ne, self.nd, self.nd), dtype=vertices.dtype,
-                        device=dev)
-        _, W, Jinv, rp = _uncut_rule(self.et, max(2 * self.order - 2, 0),
-                                     coords[neg])
-        Gp = small_matmul(dshapes(self.et, self.order, rp), Jinv)
-        An = torch.einsum("eq,eqig,eqjg->eij", W, Gp, Gp)
-        A[neg] = 0.5 * (An + An.transpose(1, 2))
-        A[cut] = cut_poisson_elmats(self.et, self.order, coords[cut],
-                                    vals[cut], self.lam_nitsche)
-        return A
+        idx = self._index(self.elements, vertices.device)
+        return self._elmats_of(vertices[idx], eps_guard(lset_vertex[idx]))
 
     def _gp_dofs(self, dev):
         """(F, 2nd) stacked dof map of the ghost-penalty facets."""
@@ -745,6 +835,188 @@ class UnfittedPoisson(nn.Module):
         return cg(self.operator(self.vertices, self.lset), b, maxiter=maxiter,
                   tol=tol)
 
+    # -- sharded steps over torch.distributed ----------------------------------
+    def _rank_tensors(self, dev, elems, facets, fill_pos):
+        """Host rows of one rank -> its tensors on ``dev``: corner
+        coordinates and level-set values of the elements ``elems`` (values
+        set to +1, pure POS, where ``fill_pos``), and the corner
+        coordinates of the two elements of the facets ``facets``."""
+        dt = self.dtype
+        els = self.mesh.elements_np
+        vals = self.lset_np[els[elems]].copy()
+        vals[fill_pos] = 1.0
+        t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+        verts = self.mesh.vertices_np
+        return (t(verts[els[elems]]), t(vals),
+                t(verts[els[self.gp_e1[facets]]]),
+                t(verts[els[self.gp_e2[facets]]]))
+
+    def _chunk_mats(self, coords, vals, c1, c2):
+        """Element and ghost-penalty matrices of one rank's rows (the
+        quadrature kernels, as the reference's steps build them)."""
+        A = self._elmats_of(coords, eps_guard(vals))
+        G = ghost_penalty_elmats(self.et, self.order, c1, c2, self.gamma_gp)
+        return A, G
+
+    @staticmethod
+    def _rows_product(A, G, e2d, fd, n):
+        """x -> the (n,) sums of one rank's element rows (A, dof map e2d)
+        and facet rows (G, fd), each slot's contributions added in one
+        fixed order (a ``ScatterPlan``): the same bits on every run."""
+        plan = ScatterPlan(torch.cat([e2d.reshape(-1), fd.reshape(-1)]), n)
+
+        def prod(x):
+            return plan.add(torch.cat([
+                (A * x[e2d][:, None, :]).sum(-1).reshape(-1),
+                (G * x[fd][:, None, :]).sum(-1).reshape(-1)]))
+
+        return prod
+
+    def replicated_operator(self):
+        """x -> A x of the sharded steps on one device: their element and
+        ghost-penalty matrices (``spmd_step``) on every row, summed in the
+        same fixed order, identity rows on the inactive dofs.  At world size
+        1 both steps' products equal it bit for bit: the single-device
+        solve they are held to."""
+        dev = self.vertices.device
+        coords, vals, c1, c2 = self._rank_tensors(
+            dev, np.arange(self.mesh.ne),
+            np.arange(len(self.gp_e1)), np.zeros(self.mesh.ne, bool))
+        A, G = self._chunk_mats(coords, vals, c1, c2)
+        prod = self._rows_product(A, G, self._index(self.el2dof, dev),
+                                  self._gp_dofs(dev), self.ndof)
+        active = torch.as_tensor(self.active_dofs, device=dev)
+        return lambda x: torch.where(active, prod(x), x)
+
+    def spmd_step(self, group, maxiter=25):
+        """Element-sharded matrix-free step over the ranks of ``group``
+        (a ``parallel.sharding.ShardGroup``): each rank holds one
+        contiguous chunk of the elements and of the ghost-penalty facets,
+        both padded to a multiple of the world size (padded elements are
+        forced to POS, padded facets get zero weight, as in the reference),
+        applies its chunk's matrices, and one ``all_reduce`` of the whole
+        (ndof,) vector sums each product.  CG to 1e-8 in at most
+        ``maxiter`` iterations (f64-accumulated dots) on the indicator load.
+
+        Returns (step, args): ``step(*args)`` gives (x (ndof,), residual
+        norm), the same on every rank.  The chunk's element matrices are
+        built once per step, before the CG loop (the reference's program
+        builds them inside every product; the values are the same)."""
+        from ..solvers.krylov import cg
+
+        n, r, dev = group.world_size, group.rank, group.device
+        ne = self.mesh.ne
+        el2dof = self.space.el2dof_np
+        pad = (-ne) % n
+        rows = np.concatenate([np.arange(ne), np.zeros(pad, np.int64)])
+        pad_flag = np.arange(len(rows)) >= ne
+        nf = len(self.gp_facets)
+        padf = (-nf) % n if nf else n
+        frows = np.concatenate([np.arange(nf), np.zeros(padf, np.int64)])
+        fpad_flag = np.arange(len(frows)) >= nf
+        Ec, Fc = len(rows) // n, len(frows) // n
+        es, fs = slice(r * Ec, (r + 1) * Ec), slice(r * Fc, (r + 1) * Fc)
+        gp = self.gp_e1 if nf else np.zeros(1, np.int64)
+        gp2 = self.gp_e2 if nf else np.zeros(1, np.int64)
+        fd = np.concatenate([el2dof[gp[frows[fs]]], el2dof[gp2[frows[fs]]]],
+                            axis=1)
+        if nf:
+            coords, vals, c1, c2 = self._rank_tensors(
+                dev, rows[es], frows[fs], pad_flag[es])
+        else:  # no band: the padded facet rows repeat element 0's pair
+            coords, vals, _, _ = self._rank_tensors(
+                dev, rows[es], np.zeros(0, np.int64), pad_flag[es])
+            c1 = c2 = coords[:1].expand(Fc, -1, -1)
+        it = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+        fl = lambda a: torch.as_tensor(a, dtype=self.dtype, device=dev)
+        b = fl(np.where(self.active_dofs, 1.0, 0.0))
+        args = (coords, vals, it(el2dof[rows[es]]), fl(pad_flag[es]), c1, c2,
+                it(fd), fl(fpad_flag[fs]), b)
+        active = torch.as_tensor(self.active_dofs, device=dev)
+
+        def step(coords, vals, e2d, pflag, c1, c2, fd, fflag, b):
+            A, G = self._chunk_mats(coords, vals, c1, c2)
+            A = A * (1.0 - pflag)[:, None, None]
+            G = G * (1.0 - fflag)[:, None, None]
+            prod = self._rows_product(A, G, e2d, fd, self.ndof)
+
+            def mv(x):
+                return torch.where(active, group.all_reduce(prod(x)), x)
+
+            x, _, res = cg(mv, b, maxiter=maxiter, tol=1e-8)
+            return x, res
+
+        return step, args
+
+    def spmd_step_sharded(self, group, maxiter=25):
+        """Dof-sharded step: the interior dofs of each rank's plane-aligned
+        element chunk live on that rank only and need no communication;
+        the shared (halo-layer) buffer, of ``DofPartition.S`` dofs and not
+        ndof, is summed by one ``all_reduce`` per product, and a dot is the
+        all-reduced interior part plus the replicated shared part (f64
+        accumulated).  Fixed-budget CG of ``maxiter`` iterations on the
+        indicator load.
+
+        Returns (step, args, merge): ``step(*args)`` gives this rank's
+        (x_int (Ni_max,), x_sh (S,), residual norm), and
+        ``merge(x_int, x_sh)``, a collective, the whole (ndof,) numpy
+        vector.  Each rank holds its own rows only, so there is no padding
+        (the reference pads the chunks to one length for its device
+        mesh)."""
+        from ..parallel.halo import DofPartition
+        from ..parallel.sharding import element_chunks
+        from ..solvers.krylov import cg
+
+        n, r, dev = group.world_size, group.rank, group.device
+        el2dof = self.space.el2dof_np
+        chunk = element_chunks(self.mesh.ne, n, planes=self.nx)
+        F = len(self.gp_e1)
+        fd_g = np.concatenate([el2dof[self.gp_e1], el2dof[self.gp_e2]],
+                              axis=1)
+        cf = chunk[self.gp_e1]
+        part = DofPartition(self.ndof, [el2dof, fd_g] if F else [el2dof],
+                            [chunk, cf] if F else [chunk], n)
+        Ni, S = part.Ni_max, part.S
+        mine = np.nonzero(chunk == r)[0]
+        fmine = np.nonzero(cf == r)[0]
+        coords, vals, c1, c2 = self._rank_tensors(
+            dev, mine, fmine, np.zeros(len(mine), bool))
+        act_int, act_sh = part.split_vector(self.active_dofs)
+        b_int, b_sh = part.split_vector(np.where(self.active_dofs, 1.0, 0.0))
+        it = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+        fl = lambda a: torch.as_tensor(a, dtype=self.dtype, device=dev)
+        args = (coords, vals, it(part.localize_rows(el2dof[mine], chunk[mine])),
+                c1, c2, it(part.localize_rows(fd_g[fmine], cf[fmine])),
+                torch.as_tensor(act_int[r], device=dev), fl(b_int[r]),
+                torch.as_tensor(act_sh, device=dev), fl(b_sh))
+
+        def step(coords, vals, e2dl, c1, c2, fdl, ai, bi, ash, bsh):
+            A, G = self._chunk_mats(coords, vals, c1, c2)
+            act = torch.cat([ai, ash])
+            prod = self._rows_product(A, G, e2dl, fdl, Ni + S)
+
+            def mv(x):
+                buf = prod(x)
+                ys = group.all_reduce(buf[Ni:].clone())  # payload S, not ndof
+                return torch.where(act, torch.cat([buf[:Ni], ys]), x)
+
+            def dot(a, b):
+                part_i = torch.dot(a[:Ni].double(), b[:Ni].double()).reshape(1)
+                s = group.all_reduce(part_i)[0]
+                return (s + torch.dot(a[Ni:].double(), b[Ni:].double())) \
+                    .to(a.dtype)
+
+            x, _, res = cg(mv, torch.cat([bi, bsh]), maxiter=maxiter, tol=0.0,
+                           dot=dot)
+            return x[:Ni], x[Ni:], res
+
+        def merge(x_int, x_sh):
+            parts = group.all_gather(x_int.contiguous())
+            return part.merge_vector(
+                torch.stack(parts).cpu().numpy(), x_sh.cpu().numpy())
+
+        return step, args, merge
+
     def assemble_vals_soa1(self, vertices, lset_vertex, struct):
         """Fully SoA one-pass global assembly (P1 simplices only).
 
@@ -794,12 +1066,13 @@ class UnfittedPoisson(nn.Module):
         vals = vals * self._band_guard(lset_vertex, vertices.dtype)
         return vals.reshape(out_shape), ncut
 
-    def _assembly_plan(self, struct, nslots, device):
-        """The ``ScatterPlan`` of the element, ghost-penalty and identity
-        slot streams of ``struct`` on ``device``, built at the first call
-        and kept beside the structure's slot tables (whose ids key it)."""
-        tabs = (struct["elm_slots_soa"], struct["gp_slots"],
-                struct["diag_slots"])
+    def _assembly_plan(self, struct, nslots, device,
+                       tabs=("elm_slots_soa", "gp_slots", "diag_slots")):
+        """The ``ScatterPlan`` of the slot streams ``tabs`` of ``struct``
+        (by default the element, ghost-penalty and identity streams of
+        ``assemble_vals_soa1``) on ``device``, built at the first call and
+        kept beside the structure's slot tables (whose ids key it)."""
+        tabs = tuple(struct[t] for t in tabs)
         key = ("plan", *map(id, tabs), str(device))
         hit = self._index_cache.get(key)
         if hit is None or any(a is not b for a, b in zip(hit[0], tabs)):
@@ -808,6 +1081,248 @@ class UnfittedPoisson(nn.Module):
             hit = (tabs, ScatterPlan(index, nslots))
             self._index_cache[key] = hit
         return hit[1]
+
+    # -- the reference's other assembly routes (its A4b variants) -----------
+    def lset_elem_vals(self, lset_vertex):
+        """(ne, nvel) level-set values of the element corners."""
+        return lset_vertex[self._index(self.elements, lset_vertex.device)]
+
+    def elmats_compact(self, vertices, lset_vertex, elements, cut_capacity,
+                       block=None):
+        """Two-tier element matrices with a fixed-capacity cut tier: the
+        standard stiffness on the uncut NEG elements (zero elsewhere) and
+        ``cut_poisson_elmats`` on at most ``cut_capacity`` cut elements.
+
+        Returns (A_std (ne, nd, nd), A_cut (cap, nd, nd), cut_ids (cap,),
+        ncut): slot i of the cut tier is element ``cut_ids[i]`` while
+        i < ncut; the slots beyond hold element 0 and zero matrices, and
+        ``ncut > cut_capacity`` says the capacity overflowed.  With
+        ``block`` both tiers run in blocks of that many elements
+        (``_map_blocks``)."""
+        dev = vertices.device
+        vals, neg, cut = self._tiers(lset_vertex, elements)
+        coords = vertices[self._index(elements, dev)]
+        ncut = torch.tensor(cut.numel(), device=dev)
+        A_std = coords.new_zeros((coords.shape[0], self.nd, self.nd))
+        A_std[neg] = _map_blocks(self._std_elmats, block, coords[neg])
+        take = cut[:cut_capacity]
+        cut_ids = torch.zeros(cut_capacity, dtype=torch.int64, device=dev)
+        cut_ids[:take.numel()] = take
+        A_cut = coords.new_zeros((cut_capacity, self.nd, self.nd))
+        A_cut[:take.numel()] = _map_blocks(
+            lambda c, v: cut_poisson_elmats(self.et, self.order, c, v,
+                                            self.lam_nitsche),
+            block, coords[take], vals[take])
+        return A_std, A_cut, cut_ids, ncut
+
+    def apply_compact(self, vertices, lset_vertex, x, cut_capacity):
+        """A @ x from ``elmats_compact``'s two tiers and the ghost penalty,
+        identity rows on the dofs inactive under ``lset_vertex``; NaN when
+        the cut tier overflowed its capacity or the ghost-penalty band left
+        the frozen one: never silently wrong."""
+        dev = x.device
+        A_std, A_cut, cut_ids, ncut = self.elmats_compact(
+            vertices, lset_vertex, self.elements, cut_capacity)
+        e2d = self._index(self.el2dof, dev)
+        y = torch.zeros_like(x)
+        y.index_add_(0, e2d.reshape(-1),
+                     (A_std * x[e2d][:, None, :]).sum(-1).reshape(-1))
+        cd = e2d[cut_ids]
+        y.index_add_(0, cd.reshape(-1),
+                     (A_cut * x[cd][:, None, :]).sum(-1).reshape(-1))
+        dmap = self._gp_dofs(dev)
+        y.index_add_(0, dmap.reshape(-1),
+                     (self.gp_mats(vertices) * x[dmap][:, None, :])
+                     .sum(-1).reshape(-1))
+        poison = torch.where(ncut <= cut_capacity,
+                             torch.tensor(1.0, dtype=x.dtype, device=dev),
+                             torch.tensor(float("nan"), dtype=x.dtype,
+                                          device=dev))
+        poison = poison * self._band_guard(lset_vertex, x.dtype)
+        return torch.where(self.active_dof_mask(lset_vertex), y, x) * poison
+
+    def gp_flat_soa(self, vertices):
+        """Closed-form ghost-penalty values of the frozen band, one flat
+        (i, j, f) stream matching ``gp_slots_soa``."""
+        x1, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e1])
+        x2, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e2])
+        A = ghost_penalty_flat_soa(self.et, x1, x2, self.gamma_gp)
+        n2 = len(A)
+        return torch.cat([A[i][j] for i in range(n2) for j in range(n2)])
+
+    def _identity_weights(self, lset_vertex, dtype):
+        """1 on the dofs inactive under ``lset_vertex``, else 0."""
+        return 1.0 - self.active_dof_mask(lset_vertex).to(dtype)
+
+    def assemble_vals_stencil(self, vertices, lset_vertex, struct):
+        """Scatter-free element stream into a DIA structure: the closed-form
+        element values summed per (diagonal, corner displacement) group and
+        added as windows of the (n_off, nv1, ..) lattice view of the table
+        (``stencil_groups``); the ghost-penalty (``gp_slots_soa``) and
+        identity (``diag_slots``) streams follow through one fixed-order
+        ``ScatterPlan``.  Returns (V (n_off, n), ncut)."""
+        from ..ops.straightcut import eps_guard_list
+
+        et = self.et
+        d = ET_DIM[et]
+        nx = self.nx
+        nv1 = nx + 1
+        offsets = struct["offsets"]
+        n_off = len(offsets)
+        if not hasattr(self, "_stencil_cache"):
+            self._stencil_cache = self.stencil_groups(offsets)
+        groups, S, nc = self._stencil_cache
+
+        x, lv = _soa_corner_arrays(vertices, self.elements, lset_vertex)
+        lv = eps_guard_list(lv)
+        has_neg = lv[0] < 0
+        has_pos = lv[0] > 0
+        for v in lv[1:]:
+            has_neg = has_neg | (v < 0)
+            has_pos = has_pos | (v > 0)
+        ncut = (has_neg & has_pos).sum()
+
+        det, Jinv = _soa_jacobian(x, d)
+        A = cut_poisson_flat_soa(et, lv, det, Jinv, self.lam_nitsche)
+        V = torch.zeros((n_off,) + (nv1,) * d, dtype=vertices.dtype,
+                        device=vertices.device)
+        for (k, dsp), combos in sorted(groups.items()):
+            s = None
+            for (t, i, j) in combos:
+                term = A[i][j].reshape(nc, S)[:, t]
+                s = term if s is None else s + term
+            V[(k,) + tuple(slice(dz, dz + nx) for dz in dsp)] += \
+                s.reshape((nx,) * d)
+        plan = self._assembly_plan(struct, V.numel(), vertices.device,
+                                   ("gp_slots_soa", "diag_slots"))
+        flat = plan.add(torch.cat([
+            self.gp_flat_soa(vertices),
+            self._identity_weights(lset_vertex, vertices.dtype)]),
+            V.reshape(-1))
+        flat = flat * self._band_guard(lset_vertex, vertices.dtype)
+        return flat.reshape(n_off, struct["n"]), ncut
+
+    def ell_gather_structure(self, struct):
+        """Inverse slot map for a gather assembly: for every flat ELL value
+        slot, the (padded) indices of its contributions in the concatenated
+        [element matrices; identity rows] stream, in stream order; padding
+        points one past the stream's end, which ``assemble_ell_vals_gather``
+        maps to a zero.  The ghost-penalty stream (up to ~160 contributions
+        to one slot) stays a scatter.  Host numpy (nslots, M) int32."""
+        elm = np.asarray(struct["elm_slots"], dtype=np.int64)
+        idr = np.asarray(struct["diag_slots"], dtype=np.int64)
+        slots = np.concatenate([elm, idr])
+        nstream = len(slots)
+        nslots = struct["ell_cols"].shape[0] * struct["K"]
+        counts = np.bincount(slots, minlength=nslots)
+        M = int(counts.max()) if nstream else 1
+        table = np.full((nslots, M), nstream, dtype=np.int32)  # pad -> zero
+        order = np.argsort(slots, kind="stable")
+        srt = slots[order]
+        start = np.zeros(nslots + 1, dtype=np.int64)
+        np.cumsum(counts, out=start[1:])
+        pos = np.arange(nstream) - start[srt]
+        table[srt, pos] = order.astype(np.int32)
+        return table
+
+    def _compact_all(self, vertices, lset_vertex, cut_capacity, block):
+        """(element matrices (ne, nd, nd) of both compact tiers, ncut)."""
+        A_std, A_cut, cut_ids, ncut = self.elmats_compact(
+            vertices, lset_vertex, self.elements, cut_capacity, block=block)
+        # the cut tier's rows of A_std are zero and its fill slots add zero
+        return A_std.index_add(0, cut_ids, A_cut), ncut
+
+    def assemble_ell_vals_gather(self, vertices, lset_vertex, cut_capacity,
+                                 struct, gtable, block=None):
+        """``assemble_ell_vals`` with the element and identity streams
+        gathered through ``gtable`` (``ell_gather_structure``) and summed
+        per slot; the ghost penalty scattered after."""
+        dev = vertices.device
+        A_all, ncut = self._compact_all(vertices, lset_vertex, cut_capacity,
+                                        block)
+        stream = torch.cat([
+            A_all.reshape(-1),
+            self._identity_weights(lset_vertex, vertices.dtype),
+            vertices.new_zeros(1)])  # the padding's target
+        vals = stream[self._index(gtable, dev)].sum(1)
+        plan = self._assembly_plan(struct, vals.numel(), dev, ("gp_slots",))
+        vals = plan.add(self.gp_mats(vertices, block=block).reshape(-1), vals)
+        vals = vals * self._band_guard(lset_vertex, vertices.dtype)
+        return vals.reshape(struct["ell_cols"].shape), ncut
+
+    def assemble_ell_vals(self, vertices, lset_vertex, cut_capacity, struct,
+                          block=None):
+        """ELL value table (ndof, K) from ``elmats_compact``'s two tiers, the
+        ghost-penalty matrices and the identity rows, added through one
+        fixed-order ``ScatterPlan`` of ``elm_slots``, ``gp_slots`` and
+        ``diag_slots``.  Returns (table, ncut)."""
+        dev = vertices.device
+        A_all, ncut = self._compact_all(vertices, lset_vertex, cut_capacity,
+                                        block)
+        nK = struct["ell_cols"].shape[0] * struct["K"]
+        plan = self._assembly_plan(struct, nK, dev,
+                                   ("elm_slots", "gp_slots", "diag_slots"))
+        vals = plan.add(torch.cat([
+            A_all.reshape(-1), self.gp_mats(vertices, block=block).reshape(-1),
+            self._identity_weights(lset_vertex, vertices.dtype)]))
+        vals = vals * self._band_guard(lset_vertex, vertices.dtype)
+        return vals.reshape(struct["ell_cols"].shape), ncut
+
+    def assemble_ell_vals_soa(self, vertices, lset_vertex, cut_capacity,
+                              struct, block=None):
+        """SoA assembly: the standard tier as (E,) vectors through the
+        constant stiffness tensor (``_affine_stiffness_S``,
+        ``_std_stiffness_soa_flat``, no quadrature axis), the cut tier from
+        ``cut_poisson_elmats`` on a fixed-capacity compaction.  Accepts ELL
+        structures (table (ndof, K)) and DIA structures (table (n_off, n));
+        ``struct`` holds ``elm_slots_soa`` beside ``elm_slots``.  Returns
+        (table, ncut)."""
+        from ..ops.straightcut import eps_guard_list
+
+        et = self.et
+        d = ET_DIM[et]
+        nd = self.nd
+        dev = vertices.device
+        ne = self.elements.shape[0]
+        S_np = _affine_stiffness_S(et, self.order)
+
+        x, lv = _soa_corner_arrays(vertices, self.elements, lset_vertex)
+        lv = eps_guard_list(lv)
+        has_neg = lv[0] < 0
+        has_pos = lv[0] > 0
+        for v in lv[1:]:
+            has_neg = has_neg | (v < 0)
+            has_pos = has_pos | (v > 0)
+        cut = torch.nonzero(has_neg & has_pos)[:, 0]
+        ncut = torch.tensor(cut.numel(), device=dev)
+        det, Jinv = _soa_jacobian(x, d)
+        flat_std = _std_stiffness_soa_flat(
+            et, self.order, S_np, det, Jinv,
+            (has_neg & ~has_pos).to(vertices.dtype))
+
+        if "offsets" in struct:
+            out_shape = (len(struct["offsets"]), struct["n"])
+        else:
+            out_shape = tuple(struct["ell_cols"].shape)
+        take = cut[:cut_capacity]
+        idx = self._index(self.elements, dev)[take]
+        A_cut = _map_blocks(
+            lambda c, v: cut_poisson_elmats(et, self.order, c, v,
+                                            self.lam_nitsche),
+            block, vertices[idx], eps_guard(lset_vertex[idx]))
+        slots_cut = self._index(struct["elm_slots"], dev).reshape(
+            ne, nd * nd)[take]
+        # the cut slots depend on the level set: their plan is made per call
+        index = torch.cat([
+            self._index(struct["elm_slots_soa"], dev), slots_cut.reshape(-1),
+            self._index(struct["gp_slots"], dev),
+            self._index(struct["diag_slots"], dev)])
+        vals = ScatterPlan(index, out_shape[0] * out_shape[1]).add(torch.cat([
+            flat_std, A_cut.reshape(-1),
+            self.gp_mats(vertices, block=block).reshape(-1),
+            self._identity_weights(lset_vertex, vertices.dtype)]))
+        vals = vals * self._band_guard(lset_vertex, vertices.dtype)
+        return vals.reshape(out_shape), ncut
 
     def dia_structure(self):
         """Host precompute of the offset-diagonal (DIA) global operator in
@@ -985,7 +1500,8 @@ class UnfittedPoisson(nn.Module):
             types.append((ta, tb, dlt, groups))
         return types
 
-    def assemble_vals_lattice(self, vertices, lset_vertex, struct):
+    def assemble_vals_lattice(self, vertices, lset_vertex, struct,
+                              planes=None):
         """Gather-free lattice assembly of the DIA table.
 
         After one permutation into vertex-lexicographic order, the corner
@@ -995,12 +1511,25 @@ class UnfittedPoisson(nn.Module):
         entry and identity row is a windowed add into the
         (n_off, nv1, ..)-lattice view of the table.  Returns
         (V (n_off, n), ncut).
+
+        ``planes=(p0, p1)`` assembles a box of the lattice instead: the
+        vertex planes p0 <= z < p1 along the slowest axis, whose vertices
+        and level-set values ``vertices`` and ``lset_vertex`` then hold
+        (layout D of ``parallel.dryrun``).  The rows of a plane whose cells
+        and ghost-penalty patches all lie in the box (two planes from its
+        ends, or at the lattice's own end) equal the whole table's rows
+        bit for bit; ``ncut`` counts the box's cut elements.
         """
         et = self.et
         d = ET_DIM[et]
         nv = d + 1
         nx = self.nx
         nv1 = nx + 1
+        p0, p1 = (0, nv1) if planes is None else planes
+        # vertex and cell extent of the box per axis (the whole lattice
+        # unless `planes` cuts the slowest axis)
+        vshape = (p1 - p0,) + (nv1,) * (d - 1)
+        cshape = (p1 - p0 - 1,) + (nx,) * (d - 1)
         offsets = struct["offsets"]
         n_off = len(offsets)
         if not hasattr(self, "_stencil_cache"):
@@ -1015,11 +1544,11 @@ class UnfittedPoisson(nn.Module):
         # `vertices`/`lset_vertex` are indexed by mesh VERTEX id, which on
         # the structured mesh is already lexicographic — the lattice views
         # are plain reshapes, no permutation gather at all
-        vlat = vertices.reshape((nv1,) * d + (d,))
-        llat = lset_vertex.reshape((nv1,) * d)
+        vlat = vertices.reshape(vshape + (d,))
+        llat = lset_vertex.reshape(vshape)
 
         def sl(dsp):
-            return tuple(slice(dz, dz + nx) for dz in dsp)
+            return tuple(slice(dz, dz + c) for dz, c in zip(dsp, cshape))
 
         x = []
         lv = []
@@ -1048,14 +1577,14 @@ class UnfittedPoisson(nn.Module):
 
         # the reference's functional `V.at[idx].add(lat)` becomes an in-place
         # `V[idx] += lat` on a view of the lattice-shaped table
-        V = torch.zeros((n_off,) + (nv1,) * d, dtype=vertices.dtype,
+        V = torch.zeros((n_off,) + vshape, dtype=vertices.dtype,
                         device=vertices.device)
         for (k, dsp), combos in sorted(groups.items()):
             s = None
             for (t, i, j) in combos:
                 term = A[i][j][t]
                 s = term if s is None else s + term
-            V[(k,) + sl(dsp)] += s.reshape((nx,) * d)
+            V[(k,) + sl(dsp)] += s.reshape(cshape)
 
         # ghost penalty: lattice facet-type sweep — corner coords are window
         # slices, the band mask is computed from the current lset, and the
@@ -1063,14 +1592,14 @@ class UnfittedPoisson(nn.Module):
         if not hasattr(self, "_gp_lattice_cache"):
             self._gp_lattice_cache = self.gp_lattice_types(offsets)
         cut_e = has_neg & has_pos          # (S, nc)
-        cutL = [cut_e[t].reshape((nx,) * d) for t in range(S)]
-        negL = [has_neg[t].reshape((nx,) * d) for t in range(S)]
+        cutL = [cut_e[t].reshape(cshape) for t in range(S)]
+        negL = [has_neg[t].reshape(cshape) for t in range(S)]
 
         def cdisp(t, c):
             return _disp(int(D[t, int(vperm[c])]), d, nv1)
 
         for (ta, tb, dlt, ggroups) in self._gp_lattice_cache:
-            win = tuple(nx - dlt[ax] for ax in range(d))
+            win = tuple(max(cshape[ax] - dlt[ax], 0) for ax in range(d))
 
             def wsl(extra):
                 return tuple(slice(extra[ax], extra[ax] + win[ax])
@@ -1099,11 +1628,11 @@ class UnfittedPoisson(nn.Module):
         # per-type raw has_neg element lattices through the corner
         # displacements (the reference pads and ORs; here each element
         # lattice is OR-ed into its window of one vertex lattice in place)
-        act = torch.zeros((nv1,) * d, dtype=torch.bool, device=vertices.device)
+        act = torch.zeros(vshape, dtype=torch.bool, device=vertices.device)
         for t in range(S):
-            nl = raw_neg[t].reshape((nx,) * d)
+            nl = raw_neg[t].reshape(cshape)
             for c in range(nv):
                 act[sl(cdisp(t, c))] |= nl
         idx0 = int(np.searchsorted(offsets, 0))
         V[idx0] += 1.0 - act.to(vertices.dtype)
-        return V.reshape(n_off, struct["n"]), ncut
+        return V.reshape(n_off, -1), ncut

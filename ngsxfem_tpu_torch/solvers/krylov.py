@@ -25,41 +25,44 @@ def _vdot(a, b):
     return torch.dot(a.double(), b.double()).to(a.dtype)
 
 
-def cg(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
+def cg(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10, dot=None):
     """Preconditioned conjugate gradients; returns (x, iters, res_norm).
 
     With ``tol=0`` the loop runs exactly ``maxiter`` iterations (the
-    reference's fixed-budget ``fori_loop`` path).
+    reference's fixed-budget ``fori_loop`` path).  ``dot`` replaces the
+    inner product (``_vdot``): a sharded vector's all-reduced one
+    (``LatticeShard.dot``), so every rank takes the same branches.
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
         M = lambda r: r
+    vdot = dot or _vdot
 
     r = b - matvec(x0)
     z = M(r)
     p = z
-    rz = _vdot(r, z)
+    rz = vdot(r, z)
     x = x0
-    bnorm = torch.sqrt(_vdot(b, b))
+    bnorm = torch.sqrt(vdot(b, b))
     atol2 = (tol * bnorm.clamp_min(1e-30)) ** 2
 
     k = 0
     while k < maxiter:
-        if tol != 0 and not bool(_vdot(r, r) > atol2):
+        if tol != 0 and not bool(vdot(r, r) > atol2):
             break
         Ap = matvec(p)
-        denom = _vdot(p, Ap)
+        denom = vdot(p, Ap)
         alpha = rz / torch.where(denom == 0, 1.0, denom)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _vdot(r, z)
+        rz_new = vdot(r, z)
         beta = rz_new / torch.where(rz == 0, 1.0, rz)
         p = z + beta * p
         rz = rz_new
         k += 1
-    return x, k, torch.sqrt(_vdot(r, r))
+    return x, k, torch.sqrt(vdot(r, r))
 
 
 class _ImplicitCG(torch.autograd.Function):
@@ -178,7 +181,7 @@ def minres(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
     return x, k, phibar / beta1.clamp_min(1e-30)
 
 
-def cg_ir(matvec32, matvec64, b, M=None, outer=4, inner=120):
+def cg_ir(matvec32, matvec64, b, M=None, outer=4, inner=120, dot=None):
     """Mixed-precision iterative refinement: f32 inner PCG, f64 outer
     residual.
 
@@ -189,23 +192,29 @@ def cg_ir(matvec32, matvec64, b, M=None, outer=4, inner=120):
     zeroed first, so the returned residual is monotone and finite.
 
     `matvec32`/`matvec64` act on f32/f64 vectors; `M` is the f32
-    preconditioner.  Returns (x (f64), res_norm (f64, TRUE residual)).
+    preconditioner.  ``dot`` is the inner product of a sharded vector (see
+    ``cg``): the norms and the inner PCG then run on it.  Returns
+    (x (f64), res_norm (f64, TRUE residual)).
     """
     if M is None:
         M = lambda r: r
+    if dot is None:
+        norm = torch.linalg.vector_norm
+    else:
+        norm = lambda v: torch.sqrt(dot(v, v))
     b64 = b.to(torch.float64)
     x64 = torch.zeros_like(b64)
     r64 = b64
-    rn = torch.linalg.vector_norm(r64)
+    rn = norm(r64)
     for _ in range(outer):
         scale = rn.clamp_min(1e-30)
         r32 = (r64 / scale).to(torch.float32)
-        d, _, _ = cg(matvec32, r32, M=M, maxiter=inner, tol=0.0)
+        d, _, _ = cg(matvec32, r32, M=M, maxiter=inner, tol=0.0, dot=dot)
         d64 = d.to(torch.float64)
         d64 = torch.where(torch.isfinite(d64), d64, 0.0)
         x_c = x64 + scale * d64
         r_c = b64 - matvec64(x_c)
-        rn_c = torch.linalg.vector_norm(r_c)
+        rn_c = norm(r_c)
         accept = rn_c < rn  # False on NaN: rejects a poisoned correction
         x64 = torch.where(accept, x_c, x64)
         r64 = torch.where(accept, r_c, r64)

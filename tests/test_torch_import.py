@@ -75,6 +75,11 @@ import ngsxfem_tpu_torch.examples.levelset_shape_opt
 import ngsxfem_tpu_torch.utils.timing
 import ngsxfem_tpu_torch.utils.vtkout
 import ngsxfem_tpu_torch.utils.globals
+import ngsxfem_tpu_torch.parallel
+import ngsxfem_tpu_torch.parallel.sharding
+import ngsxfem_tpu_torch.parallel.halo
+import ngsxfem_tpu_torch.parallel.latticeshard
+import ngsxfem_tpu_torch.parallel.dryrun
 import chip_smoke
 from ngsxfem_tpu_torch import *
 

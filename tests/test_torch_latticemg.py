@@ -51,8 +51,9 @@ def _level_jax(nx):
     m = JaxPoisson(nx=nx, dim=3, order=1, dtype=jnp.float64)
     d = m.dia_structure()
     dd = {k: (jnp.asarray(v) if "slots" in k else v) for k, v in d.items()}
-    V, _ = jax.jit(lambda v, l: m.assemble_vals_lattice(v, l, dd))(
-        m.vertices, m.lset)
+    # one call per input: eager, not jit (its compile took minutes)
+    with jax.disable_jit():
+        V, _ = m.assemble_vals_lattice(m.vertices, m.lset, dd)
     return (d["offsets"], np.asarray(V)) + _masks(m, d)
 
 

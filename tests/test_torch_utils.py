@@ -27,7 +27,6 @@ from ngsxfem_tpu.utils import utils as jutils
 
 CPU = "cpu"
 ABSENT = {"jitcache": "the port runs eagerly: no program cache",
-          "parallel": "ROADMAP A16",
           "jax_trace": "torch_trace takes its place"}
 
 
