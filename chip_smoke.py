@@ -14,8 +14,9 @@ subdivision quadrature and the HDG trace FEM in phases 22-23, and the
 general cut multigrid and the meshing and refinement in phases 24-25, the
 gradient of a cut-FEM functional with respect to the level set in phase 26,
 the periodic spaces, materials and utilities in phase 27, the parallel
-layouts at world size 1 through NCCL in phase 28 and the reference's other
-assembly routes of the flagship in phase 29:
+layouts through spawned NCCL ranks and at world size 1 through NCCL, with
+the matrix-free operators and the solve on a sharded mesh, in phase 28 and
+the reference's other assembly routes of the flagship in phase 29:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -75,7 +76,12 @@ assembly routes of the flagship in phase 29:
 - the meshing path: ``Mesh.Refine`` (trig/tet bisection, quad/hex
   uniform), ``RefineAtLevelSet``, ``MakeUnstructuredMesh``, Gmsh I/O and
   ``examples.unstructured_nxfem`` (its default ``Inverse()`` through
-  ``ell_matvec``), ``integrate_curved`` and ``lsetgeoms``.
+  ``ell_matvec``), ``integrate_curved`` and ``lsetgeoms``;
+- the sharded path: ``dryrun_multichip`` through one spawned NCCL rank per
+  card, the layouts A-D at world size 1 through NCCL, and
+  ``examples.fictdom3d`` on a sharded mesh: ``AssembleOperator()`` and
+  ``Assemble()`` -> the default ``a.mat.Inverse(freedofs)`` (Jacobi-CG
+  through ``ell_matvec``).
 
 Phases, one line each:
 
@@ -313,8 +319,12 @@ Phases, one line each:
    domain (1e-12), ``VTKOutput`` of the card GridFunctions (the file's
    numbers 1e-8); B2 launches of each phase (the record's
    ``launches_autograd`` and ``launches_periodic``);
-28. the parallel layouts (``ngsxfem_tpu_torch.parallel``) on cuda:0 at
-   world size 1: ``init_process_group("nccl")`` through a ``FileStore`` in
+28. the parallel layer (``ngsxfem_tpu_torch.parallel``) on the card:
+   first ``dryrun_multichip(torch.cuda.device_count())`` through
+   ``spawn_ranks``' default path (one spawned NCCL rank per card, on its
+   card by ``rank_device``; layouts A-C at nx=12 equal to one rank, checked
+   on rank 0; a failed rank fails the script); then on cuda:0 at world
+   size 1: ``init_process_group("nccl")`` through a ``FileStore`` in
    ``build/``, destroyed at the end; on the f64 flagship (nx=48) layout A
    (``spmd_step``, one all-reduce of the dof vector per product) and B
    (``spmd_step_sharded``, the shared halo buffer, empty at one rank), each
@@ -327,7 +337,17 @@ Phases, one line each:
    residual <= 1e-8); ms per step and per CG iteration by CUDA events
    after a warm-up, collectives and bytes per iteration, the idle share of
    one step of A, and the host halo tables of ``DofPartition`` and
-   ``LatticeShard`` for 2, 4 and 8 ranks at nx=48 (no run);
+   ``LatticeShard`` for 2, 4 and 8 ranks at nx=48 (no run); and the
+   public-API flagship (``examples.fictdom3d``, P1, f64, nx=48) built
+   unsharded and on a mesh sharded over that group: the sharded
+   ``AssembleOperator()`` (stencil) and ``AssembleOperator(lattice=False)``
+   (PA) each built with one all-reduce of the element stream, their
+   ``matvec`` and ``diagonal()``, Jacobi-PCG-50 through the stencil, and
+   ``Assemble()`` + the default ``Inverse()`` (Jacobi-CG through B2, the
+   launch counter reset just before the sharded solve, launches ==
+   products; the record's ``launches_slice14``) bitwise equal to the
+   unsharded ones, with the ms of each step by CUDA events and the
+   collectives and bytes of each sharded build;
 29. the other assembly routes on the f64 flagship: ``assemble_vals_stencil``
    within 1e-13 of ``assemble_vals_lattice``, ``apply_compact`` within
    1e-12 of ``apply``, ``assemble_ell_vals`` / ``_gather`` / ``_soa``
@@ -4323,14 +4343,18 @@ def phases_26_27(T, dev, t_start, model64=None, dst64=None, st64=None):
     return ad_launches, per_launches, ad_tables
 
 
-# phase 28: the parallel layouts at world size 1 through NCCL, nx=48 (the
-# flagship's full width); phase 29: the reference's other assembly routes
+# phase 28: the dry run through spawned NCCL ranks, the parallel layouts at
+# world size 1 through NCCL, nx=48 (the flagship's full width), and the
+# public-API flagship on a sharded mesh; phase 29: the reference's other
+# assembly routes
 PAR_WIDTHS = (2, 4, 8)    # halo tables from the host partitions
 PAR_ITERS = 25            # layouts A-B: the reference's partial CG
 PAR_PCG = 50              # layout C: Jacobi-PCG
 PAR_TOL = {torch.float64: 1e-5, torch.float32: 1e-3}  # partial CGs
 PAR_D_TOL = 1e-6          # layout D vs the single-rank pipeline
 PAR_D_RES = 1e-8          # layout D's true relative residual
+PAR_API_NX = 48           # phase 28(b): examples.fictdom3d P1 f64, full width
+PAR_API_SEED = 2032       # the seeded x of the sharded operators' products
 A4B_CAP_EXTRA = 64        # cut capacity beyond ncut
 A4B_TOL = 1e-12           # relative, apply_compact and the ELL routes
 A4B_STENCIL_TOL = 1e-13   # stencil vs lattice, absolute (the JAX test's)
@@ -4382,6 +4406,127 @@ def _warm_ms(fn, reps=3):
     """Median ms of ``reps`` calls of an already warmed ``fn`` (CUDA events;
     the host clock on the CPU)."""
     return statistics.median(event_ms(fn)[1] for _ in range(reps))
+
+
+def par_dryrun(dev):
+    """Phase 28(a): ``dryrun_multichip`` on every card of this host through
+    ``spawn_ranks``' default path (one spawned NCCL rank per card:
+    ``rank_device``, ``set_device``, a ``FileStore``), on the CPU one gloo
+    rank.  Its checks run on rank 0 and a failed rank raises here.
+    Returns (the world size, rank 0's numbers, wall s)."""
+    from ngsxfem_tpu_torch.parallel import dryrun_multichip
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share this process's card
+        n = torch.cuda.device_count()
+        out = dryrun_multichip(n)
+    else:
+        n = 1
+        out = dryrun_multichip(n, device="cpu")
+    return n, out, time.perf_counter() - t0
+
+
+def par_operator(dev, group):
+    """Phase 28(b): the public-API flagship (``examples.fictdom3d``, P1,
+    f64, ``PAR_API_NX``) built twice, its mesh unsharded and sharded over
+    ``group`` (world size 1 through NCCL on the card).  The sharded
+    ``AssembleOperator()`` (stencil) and ``AssembleOperator(lattice=False)``
+    (PA) give the unsharded operators' ``matvec`` of a seeded x and
+    ``diagonal()`` bit for bit, Jacobi-PCG-50 through the sharded stencil
+    the unsharded one's iterate, and the sharded ``Assemble()`` and default
+    ``a.mat.Inverse(freedofs)`` (Jacobi-CG through B2, the launch counter
+    reset just before the sharded solve) the unsharded solution.  Returns
+    the numbers: ms of each step by CUDA events per run, the collectives
+    and bytes of each sharded build, B2's launches and the CG's products
+    of the sharded solve."""
+    from ngsxfem_tpu_torch import GridFunction
+    from ngsxfem_tpu_torch.examples import fictdom3d
+    from ngsxfem_tpu_torch.parallel import shard_space
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers.krylov import cg
+
+    t0 = time.perf_counter()
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        a, f, Vh, free, l2error = fictdom3d.system(nx=PAR_API_NX, device=dev)
+        if name == "sharded":
+            shard_space(Vh, group)
+        r = runs[name] = {"ms": {}, "coll": {}, "ndof": Vh.ndof}
+        x = torch.as_tensor(
+            np.random.default_rng(PAR_API_SEED).standard_normal(Vh.ndof),
+            dtype=torch.float64, device=dev)
+        c0, b0 = group.calls, group.bytes
+        _, r["ms"]["LinearForm.Assemble"] = event_ms(f.Assemble)
+        r["coll"]["LinearForm.Assemble"] = (group.calls - c0,
+                                            group.bytes - b0)
+        fm = torch.as_tensor(free.np, device=dev)
+        load = torch.where(fm, f.vec.data, 0.0)
+        for kind, lattice in (("stencil", "auto"), ("pa", False)):
+            c0, b0 = group.calls, group.bytes
+            op, r["ms"][f"{kind} build"] = event_ms(
+                lambda: a.AssembleOperator(lattice))
+            r["coll"][f"{kind} build"] = (group.calls - c0, group.bytes - b0)
+            check(op.kind == kind, f"{name} AssembleOperator({lattice!r}): "
+                                   f"kind {op.kind}, {kind} expected")
+            r[kind] = (op.matvec(x), op.diagonal())
+            r["ms"][f"{kind} matvec"] = _warm_ms(lambda: op.matvec(x))
+            if kind == "stencil":
+                d = r[kind][1]
+                dinv = torch.where(fm & (d.abs() > 1e-30), 1.0 / d, 0.0)
+
+                def pcg():
+                    return cg(lambda z: torch.where(
+                        fm, op.matvec(torch.where(fm, z, 0.0)), 0.0), load,
+                        M=lambda q: dinv * q, maxiter=PAR_PCG, tol=0.0)[0]
+
+                r["pcg"], _ = event_ms(pcg)
+                r["ms"][f"stencil PCG-{PAR_PCG}"] = _warm_ms(pcg, reps=1)
+            del op
+        c0, b0 = group.calls, group.bytes
+        _, r["ms"]["BilinearForm.Assemble"] = event_ms(a.Assemble)
+        r["coll"]["BilinearForm.Assemble"] = (group.calls - c0,
+                                              group.bytes - b0)
+
+        def solve():
+            inv = a.mat.Inverse(free)
+            return inv, inv * f.vec.data
+
+        if name == "sharded":
+            ell_spmv.launches = 0
+        before = ell_spmv.launches
+        with counted_products("cg") as cnt:
+            (inv, r["x"]), r["ms"]["Inverse() solve"] = event_ms(solve)
+        r["launches"] = ell_spmv.launches - before
+        r["path"], r["products"], r["iters"] = inv.path, cnt.products, \
+            cnt.iters
+        gfu = GridFunction(Vh)
+        gfu.vec.data = r["x"]
+        r["l2"] = float(l2error(gfu))
+        del a, f, Vh, inv, gfu
+    one, sh = runs["unsharded"], runs["sharded"]
+    for kind in ("stencil", "pa"):
+        for i, what in enumerate(("matvec", "diagonal()")):
+            check(torch.equal(sh[kind][i], one[kind][i]),
+                  f"sharded {kind} {what} != the unsharded operator's")
+        check(sh["coll"][f"{kind} build"][0] == 1,
+              f"sharded {kind} build: {sh['coll'][f'{kind} build'][0]} "
+              "collectives, one all-reduce of the element stream expected")
+    check(torch.equal(sh["pcg"], one["pcg"]),
+          f"Jacobi-PCG-{PAR_PCG} through the sharded stencil != unsharded")
+    check(torch.equal(sh["x"], one["x"]),
+          "the sharded Assemble + Inverse() solution != the unsharded one")
+    check(np.isfinite(sh["l2"]) and abs(sh["l2"] - one["l2"])
+          <= 1e-12 * one["l2"], f"L2 errors {sh['l2']} vs {one['l2']}")
+    if dev.type == "cuda":
+        for r in (one, sh):
+            check(r["path"] == "device_cg" and r["launches"] == r["products"]
+                  == r["iters"] + 1 > 1,
+                  f"Inverse(): path {r['path']}, {r['launches']} B2 "
+                  f"launches for {r['products']} products, {r['iters']} "
+                  "iterations")
+    sh["wall"] = time.perf_counter() - t0
+    return one, sh
 
 
 def phase_28(dev, flagships):
@@ -4458,6 +4603,7 @@ def phase_28(dev, flagships):
                          "calls_iter": calls / iters,
                          "bytes_iter": nbytes / iters, "rel": rel,
                          "busy": None, "rel_res": float(res) / bn})
+        api = par_operator(dev, group)
     finally:
         dist.destroy_process_group()
         if os.path.exists(store):  # the store removes its file itself
@@ -4482,10 +4628,28 @@ def phase_28(dev, flagships):
               f"{n} ranks: dof-sharded shared buffer {S} dofs "
               f"({100.0 * S / m32.ndof:.1f}% of ndof), lattice slabs of {L} "
               f"planes, halo {h} dofs per rank boundary"
-              for n, S, h, L in halos)
-          + f"; wall of phase 28 {time.perf_counter() - t0:.2f} s",
+              for n, S, h, L in halos), flush=True)
+    one, sh = api
+    where, clock = ((card(), "CUDA events") if dev.type == "cuda"
+                    else ("CPU", "host clock"))
+    print(f"[28 sharded api] {where} | examples.fictdom3d P1 f64 "
+          f"nx={PAR_API_NX} ({sh['ndof']} dofs), mesh sharded at world size "
+          f"1 through {group_backend(dev)} vs unsharded: AssembleOperator() "
+          "stencil and AssembleOperator(lattice=False) PA, matvec and "
+          f"diagonal() bitwise; Jacobi-PCG-{PAR_PCG} through the stencil "
+          "bitwise; Assemble() + default Inverse() bitwise, path "
+          f"{sh['path']}, {sh['iters']} iterations = {sh['products']} "
+          f"products = {sh['launches']} B2 launches; L2 error "
+          f"{sh['l2']:.10e} | ms ({clock}), sharded (unsharded): "
+          + ", ".join(f"{k} {v:.3f} ({one['ms'][k]:.3f})"
+                      for k, v in sh["ms"].items())
+          + " | collectives and bytes of the sharded builds: "
+          + ", ".join(f"{k} {c} ({nb} B)" for k, (c, nb)
+                      in sh["coll"].items())
+          + f"; wall of 28(b) {sh['wall']:.2f} s", flush=True)
+    print(f"[28 whole] wall of phase 28 {time.perf_counter() - t0:.2f} s",
           flush=True)
-    return rows, halos
+    return rows, halos, api
 
 
 def phase_29(dev, model, dst, V, st):
@@ -4580,16 +4744,36 @@ def phase_29(dev, model, dst, V, st):
     return launches, b2, out
 
 
+def group_backend(dev):
+    return "NCCL" if dev.type == "cuda" else "gloo"
+
+
 def phases_28_29(dev, t_start, flagships, st):
-    """Phases 28 (the parallel layouts) and 29 (the other assembly routes,
-    B2's launch counter reset before its solve).  Returns (B2 launches of
-    phase 29, B2's record, phase 28's rows, its halo tables)."""
-    rows, halos = phase_28(dev, flagships)
+    """Phases 28 (the spawned dry run, the parallel layouts, the sharded
+    public-API operators and solve, B2's launch counter reset before that
+    solve) and 29 (the other assembly routes, the counter reset before its
+    solve).  Returns (B2 launches of phase 29, B2's record, phase 28's
+    rows, its halo tables, the (unsharded, sharded) numbers of 28(b))."""
+    n, dry, wall = par_dryrun(dev)
+    lay = dry["layouts"]
+    print(f"[28 spawn] {card() if dev.type == 'cuda' else 'CPU'} | "
+          f"dryrun_multichip({n}) through spawn_ranks"
+          + ("' default path: one spawned NCCL rank per card (rank_device, "
+             "set_device, FileStore)" if dev.type == "cuda" else
+             "(device='cpu'): one spawned gloo rank (FileStore)")
+          + f"; layouts at nx=12 "
+          f"(ne={lay['ne']}, ndof={lay['ndof']}) vs one rank rel A "
+          f"{lay['d_rep']:.3e}, B {lay['d_dof']:.3e}, C {lay['d_lat']:.3e}"
+          + (f", {len(dry['scaling'])} halo-table rows, layout D widths "
+             f"{[r['width'] for r in dry['layout_d']]}"
+             if "scaling" in dry else "")
+          + f"; wall {wall:.2f} s", flush=True)
+    rows, halos, api = phase_28(dev, flagships)
     m64, d64, V64 = flagships[torch.float64]
     launches, b2, _ = phase_29(dev, m64, d64, V64, st)
     print(f"[29 whole] of the whole run {time.perf_counter() - t_start:.2f} s",
           flush=True)
-    return launches, b2, rows, halos
+    return launches, b2, rows, halos, api
 
 
 def main():
@@ -5143,7 +5327,7 @@ def main():
     mg_launches, mesh_launches, mg_tables = phases_24_25(T, dev, t_start)
     ad_launches, per_launches, ad_tables = phases_26_27(
         T, dev, t_start, f64["model"], f64["struct"], st48)
-    sl13_launches, sl13_b2, _, _ = phases_28_29(
+    sl13_launches, sl13_b2, _, _, (_, sl14) = phases_28_29(
         dev, t_start, {torch.float32: (model, struct, V),
                        torch.float64: (f64["model"], f64["struct"],
                                        f64["V"])}, st48)
@@ -5199,6 +5383,7 @@ def main():
         "launches_periodic": per_launches,
         "launches_slice13": sl13_launches,
         "slice13_tables": [dict(b2_record(sl13_b2), launches=sl13_launches)],
+        "launches_slice14": sl14["launches"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

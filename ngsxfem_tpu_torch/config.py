@@ -43,14 +43,16 @@ config = _Config()
 
 def resolve_device(device=None):
     """The device an entry point makes its tensors on: the given one, or
-    the first CUDA card when none is given.  Without a card the default
-    raises; the CPU runs only when the caller asks for it."""
+    the current CUDA card (``torch.cuda.current_device()``: card 0 in a
+    single process, the rank's own card once a rank has called
+    ``torch.cuda.set_device``) when none is given.  Without a card the
+    default raises; the CPU runs only when the caller asks for it."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card by "
                            "default; pass device='cpu' to run on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def set_default_dtype(dtype):

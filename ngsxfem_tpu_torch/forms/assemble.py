@@ -857,15 +857,13 @@ class BilinearForm:
         if not self.integrals:
             raise ValueError("no integrals to assemble")
         vparts, rparts, cparts = [], [], []
-        for m, rows, cols in map(_triplets, self._elmat_batches()):
+        for m, rows, cols in map(_triplets, self._summed_batches()):
             vparts.append(m)
             rparts.append(rows)
             cparts.append(cols)
-        # on a sharded mesh each rank filled its own rows of the value
-        # stream: one all_reduce gives every rank the single-rank stream
-        # (x + 0 = x), which the matrix sums in its one fixed order
-        vals = sum_over_ranks(self.space.mesh, torch.cat(vparts))
-        self.mat = SparseMatrix(torch.cat(rparts), torch.cat(cparts), vals,
+        # the matrix sums the single-rank stream in its one fixed order
+        self.mat = SparseMatrix(torch.cat(rparts), torch.cat(cparts),
+                                torch.cat(vparts),
                                 (self.space_v.ndof, self.space_u.ndof),
                                 device=self.space.device)
         return self
@@ -880,7 +878,10 @@ class BilinearForm:
         ``lattice=True`` raises ``ValueError`` where the stencil cannot be
         built, ``lattice=False`` always takes the partial assembly.  A form
         without integrals gives the zero operator.  The kind taken is the
-        operator's ``kind`` and the form's ``operator_kind``."""
+        operator's ``kind`` and the form's ``operator_kind``.  On a sharded
+        mesh the element stream is summed over the ranks once
+        (``_summed_batches``), so every rank holds the single-rank operator
+        and applies it with no collective."""
         from ..solvers.operator import PartialAssemblyOperator
         from ..solvers.stencilop import (LatticeStencilOperator,
                                          StencilTooLarge, lattice_dof_map)
@@ -888,11 +889,7 @@ class BilinearForm:
         if lattice not in ("auto", True, False):
             raise ValueError(f"lattice must be 'auto', True or False, "
                              f"got {lattice!r}")
-        if mesh_shard(self.space.mesh) is not None:
-            raise NotImplementedError(
-                "AssembleOperator on a sharded mesh: use Assemble, whose "
-                "value stream is summed over the ranks")
-        batches = list(self._elmat_batches())
+        batches = self._summed_batches()
         space = self.space_v
         device = self.space.device
         op = None
@@ -932,6 +929,23 @@ class BilinearForm:
                 dtype=config.dtype)
         self.operator_kind = op.kind
         return op
+
+    def _summed_batches(self):
+        """``_elmat_batches`` as a list.  On a sharded mesh each rank filled
+        its own rows of every batch (zeros elsewhere): one all_reduce of
+        their values gives every rank the single-rank batches (x + 0 = x)
+        for ``Assemble`` and ``AssembleOperator`` alike."""
+        batches = list(self._elmat_batches())
+        mesh = self.space.mesh
+        if mesh_shard(mesh) is None or not batches:
+            return batches
+        flat = sum_over_ranks(
+            mesh, torch.cat([b[0].reshape(-1) for b in batches]))
+        out, k = [], 0
+        for m, *rest in batches:
+            out.append((flat[k:k + m.numel()].view(m.shape), *rest))
+            k += m.numel()
+        return out
 
     def _elmat_batches(self):
         """The element-matrix batches of every integral, in assembly order:

@@ -5,10 +5,11 @@ multi-rank dry run of the flagship's layouts."""
 from .halo import DofPartition
 from .latticeshard import LatticeShard
 from .sharding import (ShardGroup, backend_for, device_mesh, element_chunks,
-                       init_group, replicate, shard_mesh, shard_space,
-                       spawn_ranks)
+                       init_group, rank_device, replicate, shard_mesh,
+                       shard_space, spawn_ranks)
 from .dryrun import dryrun_multichip
 
 __all__ = ["DofPartition", "LatticeShard", "ShardGroup", "backend_for",
-           "device_mesh", "element_chunks", "init_group", "replicate",
-           "shard_mesh", "shard_space", "spawn_ranks", "dryrun_multichip"]
+           "device_mesh", "element_chunks", "init_group", "rank_device",
+           "replicate", "shard_mesh", "shard_space", "spawn_ranks",
+           "dryrun_multichip"]

@@ -15,10 +15,11 @@ Counterpart of ``__graft_entry__._dryrun_multichip_impl``.  Four layouts of
   level-set planes plus the halo planes ``LatticeShard.halo`` brings, then
   ``cg_ir`` runs on the slab product with all-reduced dots.
 
-``dryrun_multichip(n)`` starts n gloo ranks on the CPU (``spawn_ranks``)
-and runs all four, the halo/payload table at nx=24 over 2, 4 and 8 ranks
-included.  On the card the same functions run at world size 1 through NCCL
-(``chip_smoke.py`` phase 28).
+``dryrun_multichip(n)`` starts one NCCL rank per card on n cards
+(``spawn_ranks``), or n gloo ranks on the CPU with ``device="cpu"``, and
+runs all four, the halo/payload table at nx=24 over 2, 4 and 8 ranks
+included.  ``chip_smoke.py`` phase 28 runs it on every card of its host and
+the layouts at nx=48 at world size 1 through NCCL.
 """
 from __future__ import annotations
 
@@ -328,10 +329,12 @@ def _dryrun_rank(group):
     return out
 
 
-def dryrun_multichip(n):
-    """The layouts on ``n`` gloo ranks on the CPU (``spawn_ranks``), the
-    counterpart of the reference's ``dryrun_multichip``: layouts A, B and
-    C at nx=12 held against the single-rank solve and, with more than one
-    rank, the nx=24 halo/payload table over 2/4/8 ranks and layout D at
-    nx=15.  Rank 0 prints; returns its numbers."""
-    return spawn_ranks(n, _dryrun_rank)[0]
+def dryrun_multichip(n, device=None):
+    """The layouts on ``n`` ranks (``spawn_ranks``: one NCCL rank per card
+    by default, raising when fewer than n cards are visible; gloo ranks on
+    the CPU with ``device="cpu"``), the counterpart of the reference's
+    ``dryrun_multichip``: layouts A, B and C at nx=12 held against the
+    single-rank solve and, with more than one rank, the nx=24 halo/payload
+    table over 2/4/8 ranks and layout D at nx=15.  Rank 0 prints; returns
+    its numbers."""
+    return spawn_ranks(n, _dryrun_rank, device=device)[0]

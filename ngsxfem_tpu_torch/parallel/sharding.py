@@ -10,11 +10,14 @@ quadrature tiers of ``Integrate``, ``BilinearForm.Assemble`` and
 and the results are summed over the ranks with one ``all_reduce``.
 
 One rank runs per process.  The backend follows the device: NCCL for CUDA
-tensors (one rank per card), gloo on the CPU; asking for NCCL without a card
-raises, and nothing falls back to gloo.  ``spawn_ranks`` starts n gloo ranks
-on the CPU, the counterpart of the reference's virtual CPU devices
-(``virtual_cpu_devices``); it meets its ranks through a ``FileStore`` in a
-temporary directory, never a fixed TCP port.
+tensors, one rank per card (rank r on ``cuda:r``, or on ``cuda:LOCAL_RANK``
+under a launcher that sets it: ``rank_device``), gloo on the CPU; asking for
+NCCL without a card, or for more ranks than cards, raises, and nothing falls
+back to gloo or to a shared card.  ``spawn_ranks`` starts one NCCL rank per
+card by default, as the reference's layouts run on the accelerator's chips,
+and n gloo ranks with ``device="cpu"``, the counterpart of the reference's
+virtual CPU devices (``virtual_cpu_devices``); it meets its ranks through a
+``FileStore`` in a temporary directory, never a fixed TCP port.
 """
 from __future__ import annotations
 
@@ -27,8 +30,6 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
-
-from ..config import resolve_device
 
 # seconds a collective waits for its peers before it raises
 TIMEOUT_S = 300
@@ -126,13 +127,31 @@ def backend_for(device):
     raise ValueError(f"no process-group backend for device {device}")
 
 
+def rank_device(rank, n_cards=None):
+    """The card of rank ``rank`` on its host: ``cuda:LOCAL_RANK`` when a
+    launcher set ``LOCAL_RANK`` (one process per card), else ``cuda:rank``.
+    ``n_cards`` is the number of visible cards (``torch.cuda.device_count()``
+    when None).  Raises when the card is not below it: two ranks never share
+    a card (NCCL refuses it) and nothing falls back to the CPU."""
+    local = os.environ.get("LOCAL_RANK", "")
+    idx = int(local) if local else int(rank)
+    if n_cards is None:
+        n_cards = torch.cuda.device_count()
+    if not 0 <= idx < n_cards:
+        raise RuntimeError(
+            f"rank {rank} needs CUDA card {idx} and {n_cards} are visible: "
+            "one NCCL rank runs per card; pass device='cpu' for gloo ranks")
+    return torch.device("cuda", idx)
+
+
 def init_group(rank, world_size, store_path, device=None):
     """``init_process_group`` for this rank through a ``FileStore`` at
     ``store_path`` (a file every rank can reach; it must not exist before
-    the first rank starts), on ``device`` (the card unless the caller asks
-    for the CPU), with the backend of that device.  Returns the
+    the first rank starts), with the backend of its device: by default the
+    rank's own card (``rank_device``), made the current card before NCCL
+    starts, or the given ``device`` (``"cpu"`` for gloo).  Returns the
     ``ShardGroup``; ``dist.destroy_process_group()`` ends it."""
-    device = resolve_device(device)
+    device = rank_device(rank) if device is None else torch.device(device)
     backend = backend_for(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -235,10 +254,30 @@ def replicate(t, group):
     return group.broadcast(t, 0)
 
 
-def _rank_main(rank, world_size, store_path, fn, args, results):
+def _spawn_device(n, device):
+    """The device ``spawn_ranks`` gives ``init_group`` in its n ranks: None
+    (each rank's own card) by default, after checking that n cards are
+    visible; the CPU for ``"cpu"``."""
+    if device is None:
+        cards = torch.cuda.device_count()
+        if cards < n:
+            raise RuntimeError(
+                f"spawn_ranks({n}): one NCCL rank per card needs {n} CUDA "
+                f"cards and {cards} are visible; pass device='cpu' for gloo "
+                "ranks")
+        return None
+    if torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"spawn_ranks runs one rank per card (device=None) or "
+                     f"gloo ranks (device='cpu'), not on {device}")
+
+
+def _rank_main(rank, world_size, store_path, device, fn, args, results):
     try:
         torch.set_num_threads(RANK_THREADS)
-        group = init_group(rank, world_size, store_path, device="cpu")
+        if device is None:  # spawned rank r is local rank r of this host
+            os.environ["LOCAL_RANK"] = str(rank)
+        group = init_group(rank, world_size, store_path, device=device)
         try:
             out = fn(group, *args)
         finally:
@@ -249,20 +288,24 @@ def _rank_main(rank, world_size, store_path, fn, args, results):
         raise
 
 
-def spawn_ranks(n, fn, *args):
-    """Run ``fn(group, *args)`` on ``n`` gloo ranks on the CPU, one spawned
-    process each with ``RANK_THREADS`` torch threads, and return their
-    results in rank order (they are pickled, so ``fn`` is a module-level
-    function).  The ranks meet through a ``FileStore`` in a fresh temporary
-    directory.  A rank that raises makes this raise with its traceback, as
-    does a rank with no result after ``RESULT_TIMEOUT_S``; every process is
-    ended before this returns."""
+def spawn_ranks(n, fn, *args, device=None):
+    """Run ``fn(group, *args)`` on ``n`` ranks, one spawned process each
+    with ``RANK_THREADS`` torch threads, and return their results in rank
+    order (they are pickled, so ``fn`` is a module-level function).  By
+    default the ranks are NCCL ranks, rank r on card r, and this raises
+    before spawning when fewer than n cards are visible; ``device="cpu"``
+    gives gloo ranks on the CPU.  The ranks meet through a ``FileStore`` in
+    a fresh temporary directory.  A rank that raises makes this raise with
+    its traceback, as does a rank with no result after
+    ``RESULT_TIMEOUT_S``; every process is ended before this returns."""
+    device = _spawn_device(n, device)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="ngsxfem_ranks_") as tmp:
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, n, store, fn, args, results),
+                             args=(r, n, store, device, fn, args,
+                                   results),
                              daemon=True)
                  for r in range(n)]
         for p in procs:

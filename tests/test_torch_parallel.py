@@ -179,7 +179,7 @@ def _rank_job(group):
 @pytest.fixture(scope="module")
 def ranks():
     """``_rank_job`` on 2, 4 and 8 gloo ranks: {world size: results}."""
-    return {n: spawn_ranks(n, _rank_job) for n in WORLDS}
+    return {n: spawn_ranks(n, _rank_job, device="cpu") for n in WORLDS}
 
 
 @pytest.fixture(scope="module")
@@ -337,10 +337,10 @@ def test_layout_d_slab_rows_bitwise(ranks, n):
 
 
 def test_dryrun_multichip_4():
-    """``dryrun_multichip(4)``: layouts A, B and C held against one rank,
-    the nx=24 halo table over 2 and 4 ranks, layout D at nx=15 (its
-    asserts run on rank 0)."""
-    out = dryrun_multichip(4)
+    """``dryrun_multichip(4, device="cpu")`` (four gloo ranks): layouts A,
+    B and C held against one rank, the nx=24 halo table over 2 and 4 ranks,
+    layout D at nx=15 (its asserts run on rank 0)."""
+    out = dryrun_multichip(4, device="cpu")
     lay = out["layouts"]
     assert lay["d_rep"] < 1e-5 and lay["d_dof"] < 1e-5 and lay["d_lat"] < 1e-5
     assert [r["width"] for r in out["scaling"]] == [2, 2, 4, 4]
@@ -362,16 +362,23 @@ def test_backends_and_chunks():
         element_chunks(10, 2, planes=3)
 
 
-def test_chip_smoke_phases_28_29_on_cpu():
+def test_chip_smoke_phases_28_29_on_cpu(monkeypatch):
     """chip_smoke.py's phases 28-29 on the CPU at nx=8 (gloo at world size
     1; CPU tensors launch no kernel, so B2's launches and timings are the
-    card's alone): every layout's solve equals its single-device solve bit
-    for bit, layout D's rows the whole table's; the host halo tables for
-    2, 4 and 8 ranks; the stencil, compact and ELL routes within their
-    limits, the Jacobi-CG on the compact table equal on the plain product."""
+    card's alone): the dry run through one spawned gloo rank; every
+    layout's solve equals its single-device solve bit for bit, layout D's
+    rows the whole table's; the host halo tables for 2, 4 and 8 ranks; the
+    public-API flagship on a sharded mesh (``PAR_API_NX`` patched to 8):
+    its stencil and PA operators, the PCG through the stencil and the
+    ``Assemble`` + ``Inverse()`` solve bitwise the unsharded ones, each
+    sharded operator built with one all-reduce; the stencil, compact and
+    ELL routes within their limits, the Jacobi-CG on the compact table
+    equal on the plain product."""
     import time
 
     import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "PAR_API_NX", 8)
 
     flagships = {}
     for dt in (torch.float32, torch.float64):
@@ -380,9 +387,15 @@ def test_chip_smoke_phases_28_29_on_cpu():
         V, _ = m.assemble_vals_lattice(m.vertices, m.lset, d)
         flagships[dt] = (m, d, V)
     st = flagships[torch.float64][0].ell_structure()
-    launches, b2, rows, halos = cs.phases_28_29(
+    launches, b2, rows, halos, (one, sh) = cs.phases_28_29(
         CPU, time.perf_counter(), flagships, st)
     assert launches == 0 and b2 is None
+    assert sh["launches"] == 0 and sh["path"] == one["path"]
+    assert sh["products"] == one["products"] and sh["ndof"] == 729
+    assert {k: c for k, (c, _) in sh["coll"].items()} == {
+        "LinearForm.Assemble": 1, "stencil build": 1, "pa build": 1,
+        "BilinearForm.Assemble": 1}
+    assert all(c == 0 for c, _ in one["coll"].values())
     assert len(rows) == 6 and all(r["rel"] == 0.0 for r in rows)
     assert [h[0] for h in halos] == [2, 4, 8]
     assert all(h[2] == halos[0][2] for h in halos)  # a slab surface

@@ -6,9 +6,11 @@ alone on one CUDA card.
 Builds the ELL kernel B2 and the row-major kernel it replaced (B2's timings
 set them side by side) as chip_smoke.py does, builds the f32 and f64
 flagships at nx=48 (chip_smoke.py reuses phases 4 and 13's) and the ELL
-structure, then runs phases 28 (the layouts at world size 1 through NCCL)
-and 29 (every check of the whole script included) and prints their lines,
-B2's launches and the wall time.
+structure, then runs phases 28 (``dryrun_multichip`` on every card through
+spawned NCCL ranks, the layouts at world size 1 through NCCL, the
+public-API flagship's operators and solve on a sharded mesh) and 29 (every
+check of the whole script included) and prints their lines, B2's launches
+and the wall time.
 """
 import json
 import os
@@ -45,10 +47,11 @@ def main():
     st = flagships[torch.float64][0].ell_structure()
     print(f"flagships and structures in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    launches, b2, _, _ = cs.phases_28_29(dev, t0, flagships, st)
+    launches, b2, _, _, (_, sh) = cs.phases_28_29(dev, t0, flagships, st)
     print(json.dumps({"launches_slice13": launches,
                       "slice13_tables": [dict(cs.b2_record(b2),
-                                              launches=launches)]}))
+                                              launches=launches)],
+                      "launches_slice14": sh["launches"]}))
     print(f"total {time.perf_counter() - t0:.2f} s")
     return 0
 
