@@ -15,8 +15,11 @@ general cut multigrid and the meshing and refinement in phases 24-25, the
 gradient of a cut-FEM functional with respect to the level set in phase 26,
 the periodic spaces, materials and utilities in phase 27, the parallel
 layouts through spawned NCCL ranks and at world size 1 through NCCL, with
-the matrix-free operators and the solve on a sharded mesh, in phase 28 and
-the reference's other assembly routes of the flagship in phase 29:
+the matrix-free operators and the solve on a sharded mesh, in phase 28,
+the reference's other assembly routes of the flagship in phase 29, and the
+public-API paths the parity run with the JAX package's own tests repaired
+(numpy vectors at the solvers and transfers, ``Compress`` of a facet space,
+the assembly timers) in phase 30:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -355,7 +358,22 @@ Phases, one line each:
    counter reset, Jacobi-CG-50 on the compact ELL table through B2
    (launches == products, the solution bitwise the plain product's), and
    B2 against its plain versions on that table with its times, bound and
-   cuSPARSE (the record's ``launches_slice13`` and ``slice13_tables``).
+   cuSPARSE (the record's ``launches_slice13`` and ``slice13_tables``);
+30. the public-API paths the parity run repaired, each B2 launch counter
+   reset just before its call: phase 28's unsharded ``examples.fictdom3d``
+   P1 f64 nx=48 solved with a numpy right-hand side by ``CGSolver(a.mat,
+   freedofs) *`` and ``a.mat.Inverse(freedofs, inverse="cg") *``, each
+   bitwise the call with the tensor on the card, B2 launches == products,
+   true relative residual <= 1e-8; ``P2Prolongation.Prolongate`` of a numpy
+   vector on a P2 pair (nx 64 -> 128) as one B2 product, bitwise the
+   tensor call's, the constant to the constant within 1e-10; a
+   ``Compress``ed ``FacetFESpace`` on the facets of the ``tracefem_hdg``
+   band at nx=256: its ``element_boundary`` mass form assembled on the card
+   within 1e-12 of the CPU assembly (no dead rows) and solved by its
+   default ``Inverse()`` (Jacobi-CG through B2, launches == products);
+   ``GetTimers()`` after that card ``Assemble`` and a ``LinearForm``'s has
+   both ``::Assemble`` keys, once each; ms by CUDA events (the record's
+   ``launches_slice15``).
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
@@ -4439,7 +4457,8 @@ def par_operator(dev, group):
     reset just before the sharded solve) the unsharded solution.  Returns
     the numbers: ms of each step by CUDA events per run, the collectives
     and bytes of each sharded build, B2's launches and the CG's products
-    of the sharded solve."""
+    of the sharded solve, and the unsharded system (``system``: the
+    assembled forms, the space and the free dofs) for phase 30."""
     from ngsxfem_tpu_torch import GridFunction
     from ngsxfem_tpu_torch.examples import fictdom3d
     from ngsxfem_tpu_torch.parallel import shard_space
@@ -4503,6 +4522,8 @@ def par_operator(dev, group):
         gfu = GridFunction(Vh)
         gfu.vec.data = r["x"]
         r["l2"] = float(l2error(gfu))
+        if name == "unsharded":  # phase 30 solves it again
+            r["system"] = (a, f, Vh, free)
         del a, f, Vh, inv, gfu
     one, sh = runs["unsharded"], runs["sharded"]
     for kind in ("stencil", "pa"):
@@ -4774,6 +4795,200 @@ def phases_28_29(dev, t_start, flagships, st):
     print(f"[29 whole] of the whole run {time.perf_counter() - t_start:.2f} s",
           flush=True)
     return launches, b2, rows, halos, api
+
+
+P30_P2_NX = 128       # fine mesh of the P2 pair (coarse nx 64)
+P30_HDG_NX = 256      # the tracefem_hdg band's mesh, phase 23's size
+P30_SEED = 3030       # seeded numpy right-hand sides and vectors
+P30_CG_STEPS = 4000   # CGSolver's budget at nx=48 (converges well before)
+P30_RES = 1e-8        # true relative residual of the numpy-input solves
+P30_ASM_TOL = 1e-12   # compressed facet assembly, card vs CPU
+
+
+def p30_solve(fn):
+    """(fn(), ms by CUDA events, B2 launches, products, iterations) of one
+    ``krylov.cg`` solve, B2's launch counter reset just before it."""
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+
+    ell_spmv.launches = 0
+    with counted_products("cg") as cnt:
+        x, ms = event_ms(fn)
+    return x, ms, ell_spmv.launches, cnt.products, cnt.iters
+
+
+def p30_rel_res(A, x, b, free=None):
+    """True relative residual of A x = b on the free dofs (all without)."""
+    r = A.matvec(x) - b
+    if free is not None:
+        r, b = torch.where(free, r, 0.0), torch.where(free, b, 0.0)
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+
+
+def phase_30(dev, system, t_start):
+    """Phase 30: the public-API paths the parity run repaired, on ``dev``.
+    ``system`` is phase 28's unsharded ``examples.fictdom3d`` (assembled
+    forms ``a``/``f``, the space, the free dofs).  Each solve and product
+    runs once with a numpy input and once with the tensor on ``dev``: the
+    two results bitwise equal, B2's launches (counter reset just before
+    each call) == the products (0 on the CPU).  Returns the cases' numbers
+    and the B2 launches of the phase."""
+    from ngsxfem_tpu_torch import (
+        CGSolver, Compress, CutInfo, GetFacetsWithNeighborTypes,
+        GridFunction, H1, IF, InterpolateToP1, BilinearForm,
+        MakeStructured2DMesh, P2Prolongation, SymbolicBFI, sqrt, x, y)
+    from ngsxfem_tpu_torch.fem.facetspace import (FacetFESpace,
+                                                  GetDofsOfFacets)
+    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.utils.timing import GetTimers, ResetTimers
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    where = card() if on_card else "CPU"
+    clock = "CUDA events" if on_card else "host clock"
+    rng = np.random.default_rng(P30_SEED)
+    out = {"launches": 0}
+
+    def launches_ok(what, launches, products):
+        check(launches == (products if on_card else 0) and products > 0,
+              f"{what}: {launches} B2 launches for {products} products")
+        out["launches"] += launches
+
+    # (a) numpy right-hand sides of the public-API flagship
+    a, f, Vh, free = system
+    fm = torch.as_tensor(free.np, device=dev)
+    b = f.vec.data
+    b_np = b.cpu().numpy()
+    rows = []
+    for name, solve in (
+            ("CGSolver(a.mat, freedofs) *",
+             lambda rhs: CGSolver(a.mat, freedofs=free, maxsteps=P30_CG_STEPS,
+                                  tol=1e-10) * rhs),
+            ('a.mat.Inverse(freedofs, inverse="cg") *',
+             lambda rhs: a.mat.Inverse(free, inverse="cg") * rhs)):
+        solve(b)  # warm-up, so that both timed calls find the same state
+        res = {}
+        for kind, rhs in (("numpy", b_np), ("tensor", b)):
+            xk, ms, launches, products, iters = p30_solve(lambda: solve(rhs))
+            launches_ok(f"{name} {kind}", launches, products)
+            check(products == iters + 1, f"{name} {kind}: {products} "
+                                         f"products, {iters} iterations")
+            res[kind] = (xk, ms, launches, iters)
+        check(torch.equal(res["numpy"][0], res["tensor"][0]),
+              f"{name}: the numpy right-hand side's solution != the tensor's")
+        rel = p30_rel_res(a.mat, res["numpy"][0], b, fm)
+        check(rel <= P30_RES, f"{name}: true relative residual {rel}")
+        rows.append((name, res, rel))
+    print(f"[30 numpy rhs] {where} | examples.fictdom3d P1 f64 nx="
+          f"{PAR_API_NX} ({Vh.ndof} dofs, phase 28's unsharded system): "
+          + "; ".join(
+              f"{n} b_np: bitwise the tensor call's, {r['numpy'][3]} "
+              f"iterations, {r['numpy'][2]} B2 launches = products, true rel "
+              f"res {rel:.3e}, ms ({clock}) numpy {r['numpy'][1]:.3f} / "
+              f"tensor {r['tensor'][1]:.3f}" for n, r, rel in rows),
+          flush=True)
+    out["solves"] = [{"call": n, "iters": r["numpy"][3],
+                      "launches": r["numpy"][2], "ms_numpy": r["numpy"][1],
+                      "ms_tensor": r["tensor"][1], "rel_res": rel}
+                     for n, r, rel in rows]
+
+    # (b) P2Prolongation.Prolongate of a numpy vector: one B2 product
+    m1 = MakeStructured2DMesh(quads=False, nx=P30_P2_NX // 2,
+                              ny=P30_P2_NX // 2)
+    m2 = MakeStructured2DMesh(quads=False, nx=P30_P2_NX, ny=P30_P2_NX)
+    prol = P2Prolongation(m1)
+    prol.Update(H1(m1, order=2, device=dev))
+    prol.Update(H1(m2, order=2, device=dev))
+    nc = prol.mats[0].shape[1]
+    ones = prol.Prolongate(1, np.ones(nc))  # builds the ELL view once
+    check(float((ones - 1.0).abs().max()) <= 1e-10,
+          "P2Prolongation: the constant does not map to the constant")
+    c_np = rng.standard_normal(nc)
+    pro = {}
+    for kind, vec in (("numpy", c_np), ("tensor", torch.as_tensor(
+            c_np, device=dev))):
+        ell_spmv.launches = 0
+        pro[kind], ms = event_ms(lambda: prol.Prolongate(1, vec))
+        launches_ok(f"Prolongate {kind}", ell_spmv.launches, 1)
+        pro[kind + "_ms"] = ms
+    check(torch.equal(pro["numpy"], pro["tensor"]),
+          "P2Prolongation.Prolongate: numpy input != tensor input")
+    print(f"[30 prolongation] {where} | P2Prolongation nx {P30_P2_NX // 2} "
+          f"-> {P30_P2_NX} ({nc} -> {pro['numpy'].numel()} dofs): "
+          f"Prolongate(1, numpy) bitwise the tensor call's, one B2 launch "
+          f"each, constant -> constant within 1e-10 (max dev "
+          f"{float((ones - 1.0).abs().max()):.3e}); ms ({clock}) numpy "
+          f"{pro['numpy_ms']:.3f} / tensor {pro['tensor_ms']:.3f}",
+          flush=True)
+    out["prolongate"] = {"nc": nc, "ms_numpy": pro["numpy_ms"],
+                         "ms_tensor": pro["tensor_ms"]}
+    del prol, ones, pro
+
+    # (c) a Compressed FacetFESpace on the tracefem_hdg band, and (d) the
+    # assembly timers of one card Assemble of each form
+    mesh = MakeStructured2DMesh(quads=False, nx=P30_HDG_NX, ny=P30_HDG_NX,
+                                mapping=lambda s, t: (2 * s - 1, 2 * t - 1))
+    lset = GridFunction(H1(mesh, order=1, device=dev))
+    InterpolateToP1(sqrt(x * x + y * y) - 0.7, lset)
+    band = CutInfo(mesh, lset).GetElementsOfType(IF)
+    band_f = GetFacetsWithNeighborTypes(mesh, a=band, b=band, use_and=True)
+    mats = {}
+    for d in (dev, torch.device("cpu")):
+        F = FacetFESpace(mesh, order=1, device=d)
+        Fc = Compress(F, GetDofsOfFacets(F, band_f))
+        u, v = Fc.TnT()
+        form = BilinearForm(Fc)
+        form += SymbolicBFI(form=u * v, element_boundary=True,
+                            definedonelements=band)
+        if d == dev:
+            ResetTimers()
+            _, asm_ms = event_ms(form.Assemble)
+            _, lf_ms = event_ms(f.Assemble)
+            timers = GetTimers()
+        else:
+            form.Assemble()
+        mats[d.type] = form.mat
+    Ad = mats[dev.type].todense()
+    Ah = mats["cpu"].todense().to(dev)
+    scale = float(Ah.abs().max())
+    diff = float((Ad - Ah).abs().max())
+    check(scale > 0 and diff <= P30_ASM_TOL * scale,
+          f"compressed facet assembly card vs CPU: {diff} of {scale}")
+    check(bool((Ad.abs().sum(1) > 1e-12 * scale).all()),
+          "compressed facet assembly: a dead row")
+    A = mats[dev.type]
+    inv = A.Inverse()
+    check(inv.path == ("device_cg" if on_card else "host_lu"),
+          f"compressed facet Inverse(): path {inv.path}")
+    rhs = rng.standard_normal(A.shape[0])
+    xc, inv_ms, launches, products, iters = p30_solve(lambda: inv * rhs)
+    if on_card:
+        launches_ok("compressed facet Inverse()", launches, products)
+    rel = p30_rel_res(A, xc, torch.as_tensor(rhs, device=dev))
+    check(rel <= P30_RES, f"compressed facet Inverse(): rel res {rel}")
+    for key in ("BilinearForm::Assemble", "LinearForm::Assemble"):
+        check(timers.get(key, (0.0, 0))[1] == 1,
+              f"GetTimers() after one Assemble: {key} {timers.get(key)}")
+    print(f"[30 compressed facet space] {where} | FacetFESpace order 1 on "
+          f"the tracefem_hdg band at nx={P30_HDG_NX} ({int(band.np.sum())} "
+          f"band elements, {int(band_f.np.sum())} band facets), Compress -> "
+          f"{A.shape[0]} dofs: element_boundary mass on the card vs CPU max "
+          f"{diff:.3e} of {scale:.3e}, no dead row; default Inverse() path "
+          f"{inv.path}, {iters} iterations, {launches} B2 launches = "
+          f"products, true rel res {rel:.3e}; ms ({clock}) Assemble "
+          f"{asm_ms:.3f}, solve {inv_ms:.3f} | GetTimers() after one card "
+          f"Assemble of each form: "
+          + ", ".join(f"{k} {timers[k][1]} call {1e3 * timers[k][0]:.3f} ms"
+                      for k in ("BilinearForm::Assemble",
+                                "LinearForm::Assemble"))
+          + f" (host clock, LinearForm.Assemble {lf_ms:.3f} ms by {clock})",
+          flush=True)
+    out["facet"] = {"ndof": A.shape[0], "asm_ms": asm_ms, "diff": diff,
+                    "scale": scale, "iters": iters, "launches": launches,
+                    "solve_ms": inv_ms, "rel_res": rel}
+    print(f"[30 whole] B2 launches of phase 30 {out['launches']}; wall of "
+          f"phase 30 {time.perf_counter() - t0:.2f} s, of the whole run "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    return out
 
 
 def main():
@@ -5327,10 +5542,11 @@ def main():
     mg_launches, mesh_launches, mg_tables = phases_24_25(T, dev, t_start)
     ad_launches, per_launches, ad_tables = phases_26_27(
         T, dev, t_start, f64["model"], f64["struct"], st48)
-    sl13_launches, sl13_b2, _, _, (_, sl14) = phases_28_29(
+    sl13_launches, sl13_b2, _, _, (one14, sl14) = phases_28_29(
         dev, t_start, {torch.float32: (model, struct, V),
                        torch.float64: (f64["model"], f64["struct"],
                                        f64["V"])}, st48)
+    sl15 = phase_30(dev, one14.pop("system"), t_start)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -5384,6 +5600,7 @@ def main():
         "launches_slice13": sl13_launches,
         "slice13_tables": [dict(b2_record(sl13_b2), launches=sl13_launches)],
         "launches_slice14": sl14["launches"],
+        "launches_slice15": sl15["launches"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -55,10 +56,24 @@ def resolve_device(device=None):
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def torch_dtype(dtype):
+    """The torch dtype of ``dtype``: a torch dtype itself, or what numpy
+    names (``np.float32``, ``"float64"``, ``np.dtype("f4")``) as the JAX
+    package's entry points take it; None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+    except TypeError as e:
+        raise TypeError(f"not a dtype torch has: {dtype!r}") from e
+
+
 def set_default_dtype(dtype):
     """Set ``config.dtype``, the floating dtype of geometry, quadrature and
-    dof vectors made without one (a torch floating dtype)."""
-    if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
-        raise TypeError(f"set_default_dtype takes a torch floating dtype, "
+    dof vectors made without one (a floating dtype of torch, or one numpy
+    names)."""
+    dt = torch_dtype(dtype)
+    if dt is None or not dt.is_floating_point:
+        raise TypeError(f"set_default_dtype takes a floating dtype, "
                         f"got {dtype!r}")
-    config.dtype = dtype
+    config.dtype = dt

@@ -14,6 +14,7 @@ import time
 import torch
 
 from ngsxfem_tpu_torch import *
+from ngsxfem_tpu_torch.config import resolve_device
 from ngsxfem_tpu_torch.solvers.krylov import (cg, jacobi_preconditioner,
                                               masked_matvec)
 from ngsxfem_tpu_torch.solvers.mg import prolongation_matrix
@@ -71,9 +72,11 @@ def run(nx0=8, levels=3, order=1, verbose=True, dim=2, device=None,
     prototype is 2D-only).  ``stats`` (a dict), if given, receives the host
     seconds of each setup stage (``setup_s``), the solver objects and the
     two solves as closures (``mgcg``, ``jcg``) for timing."""
+    device = resolve_device(device)  # raises without a card unless asked
+
     def clock():
-        if device is None or torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         return time.perf_counter()
 
     setup = {}

@@ -418,12 +418,27 @@ class CompressedFESpace(FESpace):
         # inactive dofs map to 0; assembly masks guarantee zero contributions
         mapped = self.base2comp[base.el2dof_np]
         self.el2dof_np = np.where(mapped >= 0, mapped, 0).astype(np.int32)
-        # placeholder-0 slots are NOT dof 0; set algebra must skip them
-        self.el2dof_valid_np = mapped >= 0
+        # placeholder-0 slots are NOT dof 0; set algebra must skip them, and
+        # so must the slots a masked base (SFESpace, XFESpace) leaves empty
+        valid = mapped >= 0
+        base_valid = getattr(base, "el2dof_valid_np", None)
+        self.el2dof_valid_np = valid if base_valid is None else valid & base_valid
         self.dirichlet_dofs = base.dirichlet_dofs[self.comp2base]
+        # optional base attributes: facet spaces (FacetFESpace/HDiv/SFESpace)
+        # do not carry all of these; compress what exists
         for attr in ("bc_of_dof", "dof_rep_elem", "dof_rep_local",
                      "dof_rep_ref"):
-            setattr(self, attr, getattr(base, attr)[self.comp2base])
+            v = getattr(base, attr, None)
+            if v is not None:
+                setattr(self, attr, v[self.comp2base])
+        # non-Lagrange bases (FacetFESpace, HDiv, SFESpace, XFESpace)
+        # evaluate through the base's hook: its factor's local slot layout is
+        # that of el2dof_np above
+        hook = getattr(base, "proxy_factor_hook", None)
+        if hook is not None:
+            self.proxy_factor_hook = hook
+            # the hook's values have the base's shape (HDiv: vectors)
+            self.vdim = getattr(base, "vdim", 1)
 
 
 def Compress(space: FESpace, active_dofs=None):

@@ -60,6 +60,7 @@ from ..ops.spacetimecut import time_tensorize
 from ..ops.straightcut import _gram_measure, cut_rule_simplices, eps_guard
 from ..fem.space import CompoundFESpace, VectorFESpace, _arr
 from ..solvers.sparse import SparseMatrix
+from ..utils.timing import Timer
 from .evaluate import eval_form
 from .proxies import ProxyFunction
 
@@ -856,6 +857,8 @@ class BilinearForm:
     def Assemble(self, reallocate=False, heapsize=None):
         if not self.integrals:
             raise ValueError("no integrals to assemble")
+        # host clock only: the card is not waited for
+        _t = Timer("BilinearForm::Assemble", block=False).Start()
         vparts, rparts, cparts = [], [], []
         for m, rows, cols in map(_triplets, self._summed_batches()):
             vparts.append(m)
@@ -866,6 +869,7 @@ class BilinearForm:
                                 torch.cat(vparts),
                                 (self.space_v.ndof, self.space_u.ndof),
                                 device=self.space.device)
+        _t.Stop()
         return self
 
     def AssembleOperator(self, lattice="auto"):
@@ -1058,6 +1062,7 @@ class LinearForm:
         return StandaloneVec(self._vec)
 
     def Assemble(self, heapsize=None):
+        _t = Timer("LinearForm::Assemble", block=False).Start()
         space = self.space
         mesh = space.mesh
         device = space.device
@@ -1117,6 +1122,7 @@ class LinearForm:
             # a sharded mesh's ranks each filled their own rows
             hit[1].add(sum_over_ranks(mesh, torch.cat(contribs)), out)
         self._vec = out
+        _t.Stop()
         return self
 
 

@@ -34,6 +34,20 @@ def _edge_key(u, v):
 def bisect_refine_trig(vertices: np.ndarray, elements: np.ndarray,
                        marks: np.ndarray,
                        bc_edges: dict | None = None):
+    """Refine marked triangles; returns (vertices, elements, bc_edges), as
+    the JAX package does (``_bisect_trig`` adds the parent index)."""
+    return _bisect_trig(vertices, elements, marks, bc_edges)[:3]
+
+
+def bisect_refine_tet(vertices: np.ndarray, elements: np.ndarray,
+                      marks: np.ndarray, bc_faces: dict | None = None):
+    """Rivara bisection of marked tets; returns (vertices, elements, info),
+    as the JAX package does (``_bisect_tet`` adds the parent index)."""
+    return _bisect_tet(vertices, elements, marks, bc_faces)[:3]
+
+
+def _bisect_trig(vertices: np.ndarray, elements: np.ndarray,
+                 marks: np.ndarray, bc_edges: dict | None = None):
     """Refine marked triangles; returns (vertices, elements, bc_edges,
     parent), parent[i] the coarse element child i came from.
 
@@ -135,8 +149,8 @@ def bisect_refine_trig(vertices: np.ndarray, elements: np.ndarray,
     return Vnew, Enew, bc_new, np.asarray(parent)
 
 
-def bisect_refine_tet(vertices: np.ndarray, elements: np.ndarray,
-                      marks: np.ndarray, bc_faces: dict | None = None):
+def _bisect_tet(vertices: np.ndarray, elements: np.ndarray,
+                marks: np.ndarray, bc_faces: dict | None = None):
     """Rivara longest-edge bisection of marked tets with conformity closure.
 
     vertices (nv, 3) float64, elements (ne, 4) int, marks (ne,) bool.
@@ -386,7 +400,7 @@ def refine_mesh(mesh, marks=None):
             u, v = mesh.facets_np[fi]
             bc_edges[_edge_key(int(u), int(v))] = int(mesh.bc_of_facet_np[fi])
 
-        Vn, En, bc_new, parent = bisect_refine_trig(
+        Vn, En, bc_new, parent = _bisect_trig(
             mesh.vertices_np, mesh.elements_np, marks, bc_edges)
 
         mesh.vertices_np = np.asarray(Vn, dtype=np.float64)
@@ -405,7 +419,7 @@ def refine_mesh(mesh, marks=None):
             int(mesh.bc_of_facet_np[fi])
             for fi in mesh.boundary_facets_np
         }
-        Vn, En, info, parent = bisect_refine_tet(
+        Vn, En, info, parent = _bisect_tet(
             mesh.vertices_np, mesh.elements_np, marks, bc_faces)
         mesh.vertices_np = np.asarray(Vn, dtype=np.float64)
         mesh.elements_np = np.asarray(En, dtype=np.int32)

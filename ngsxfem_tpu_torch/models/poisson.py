@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import resolve_device
+from ..config import resolve_device, torch_dtype
 from ..ops.gauss import ET_DIM, reference_rule
 from ..ops.scatter import ScatterPlan
 from ..fem.basis import ndof_el, lagrange_element, shapes, dshapes
@@ -535,6 +535,7 @@ class UnfittedPoisson(nn.Module):
         from ..fem.space import H1
 
         device = resolve_device(device)
+        dtype = torch_dtype(dtype)
         self.dim, self.order, self.dtype = dim, order, dtype
         self.nx = nx
         self.lam_nitsche, self.gamma_gp = lam_nitsche, gamma_gp

@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, resolve_device
 from .cuttables import simplex_cut_tables, ET_SPLIT, REF_VERTS, NSUB, NIF
 from .gauss import reference_rule, SIMPLEX_OF_DIM, ET_DIM
 from ..mesh.mesh import small_matmul
@@ -265,15 +265,23 @@ def simplex_split_rule(et: str, vals, order: int):
                      for a in r))
 
 
-def cut_rule_element(et: str, elem_vals, order: int, policy: str = "OPTIMAL"):
+def cut_rule_element(et: str, elem_vals, order: int, policy: str = "OPTIMAL",
+                     *, device=None):
     """Cut rule for a batch of elements of type `et` in *element-reference*
-    coordinates.
+    coordinates (the exported ``CreateCutIntegrationRule``).
 
-    elem_vals (E, nvel): level-set values at element vertices.
+    elem_vals (E, nvel): level-set values at element vertices, a tensor, or
+    a numpy array that becomes one on ``device`` (the card unless the caller
+    asks for the CPU; ``config.dtype`` unless it is a floating array).
     QUAD/HEX get the genuine multilinear iterated-integral rule
     (ops/multilinear.py) under `policy` in {"FIRST", "OPTIMAL", "FALLBACK"}
     (reference SWAP_DIMENSIONS_POLICY); simplices ignore the policy.
     """
+    if not torch.is_tensor(elem_vals):
+        host = np.asarray(elem_vals)
+        elem_vals = torch.as_tensor(
+            host, device=resolve_device(device),
+            dtype=None if host.dtype.kind == "f" else config.dtype)
     vals = eps_guard(elem_vals)
     if et in ("quad", "hex"):
         from .multilinear import quad_cut_rule, hex_cut_rule

@@ -291,7 +291,7 @@ class CGSolver:
         mat = self.mat
         if hasattr(mat, "ell"):
             mat = mat.ell()
-        b = _as_array(rhs)
+        b = _as_array(rhs, mat)
         if isinstance(mat, ELLMatrix) and self.pre is None:
             fm = (_free_mask(self.freedofs, b.device)
                   if self.freedofs is not None
@@ -335,10 +335,10 @@ class MinResSolver:
     def __mul__(self, rhs):
         from .sparse import _as_array
 
-        b = _as_array(rhs)
         mat = self.mat
         if hasattr(mat, "ell"):
             mat = mat.ell()
+        b = _as_array(rhs, mat)
         mv = mat.matvec if hasattr(mat, "matvec") else mat
         fm = (None if self.freedofs is None
               else _free_mask(self.freedofs, b.device))

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import config, resolve_device
+from ..config import config, resolve_device, torch_dtype
 from .krylov import cg
 from .sparse import dia_matvec
 
@@ -100,7 +100,7 @@ class LatticeDIAMG:
         """Dict of tensors on ``device`` (the card unless the caller asks
         for the CPU): the tables at ``dtype``, the active masks as bool and
         the interface masks as 0/1 at ``dtype``."""
-        dtype = dtype or config.dtype
+        dtype = torch_dtype(dtype) or config.dtype
         device = resolve_device(device)
 
         def t(a, dt):

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import config, resolve_device
+from ..config import config, resolve_device, torch_dtype
 from ..fem.space import _arr as _bits
 from ..ops.scatter import ScatterPlan
 from .krylov import cg, masked_matvec
@@ -103,7 +103,7 @@ def prolongation_matrix(coarse_space, fine_space, dtype=None, *,
     analog of P1Prolongation/P2Prolongation
     (utils/xprolongation.hpp:13-101)."""
     rows, cols, vals, shape = _prolongation_coo(coarse_space, fine_space)
-    dtype = dtype or config.dtype
+    dtype = torch_dtype(dtype) or config.dtype
     return SparseMatrix(rows, cols, torch.as_tensor(vals, dtype=dtype), shape,
                         device=device)
 
@@ -336,6 +336,7 @@ class CutFemSmoother:
                     fill=0.0)
 
     def smooth(self, x, b, steps=2):
+        x, b = _as_array(x, self.E), _as_array(b, self.E)
         for _ in range(steps):
             r = b - self.E.matvec(x)
             if self.blockdata is not None:
@@ -410,7 +411,7 @@ class MultiGridCL:
         return x
 
     def __call__(self, b):
-        return self._cycle(len(self.mats) - 1, _as_array(b))
+        return self._cycle(len(self.mats) - 1, _as_array(b, self.ops[-1]))
 
     def matvec(self, b):
         return self(b)
@@ -440,12 +441,15 @@ class P1Prolongation:
         self.spaces.append(fes)
 
     def Prolongate(self, level, vec):
-        """Transfer a level-(level-1) vector up to ``level`` (1-based)."""
-        return _ell_view(self.mats[level - 1]).matvec(_as_array(vec))
+        """Transfer a level-(level-1) vector up to ``level`` (1-based); a
+        numpy ``vec`` becomes a tensor on the transfer's device first."""
+        P = _ell_view(self.mats[level - 1])
+        return P.matvec(_as_array(vec, P))
 
     def Restrict(self, level, vec):
         """Transpose-transfer a level vector down to level-1."""
-        return _ell_view_T(self.mats[level - 1]).matvec(_as_array(vec))
+        R = _ell_view_T(self.mats[level - 1])
+        return R.matvec(_as_array(vec, R))
 
     # finest-level matrix protocol so instances slot into MultiGridCL
     def matvec(self, x):
@@ -504,7 +508,7 @@ class CompoundProlongation:
         return torch.cat(outs)
 
     def Prolongate(self, level, vec):
-        vec = _as_array(vec)
+        vec = _as_array(vec, _ell_view(self.ps[0].mats[level - 1]))
         outs, off = [], 0
         for p in self.ps:
             nc = p.mats[level - 1].shape[1]
@@ -513,7 +517,7 @@ class CompoundProlongation:
         return torch.cat(outs)
 
     def Restrict(self, level, vec):
-        vec = _as_array(vec)
+        vec = _as_array(vec, _ell_view(self.ps[0].mats[level - 1]))
         outs, off = [], 0
         for p in self.ps:
             nr = p.mats[level - 1].shape[0]
@@ -784,7 +788,7 @@ class FunctionalELLMG:
         e.g. the JAX package's, or tensors) into a dictionary of tensors of
         ``dtype`` (default ``config.dtype``) on ``device`` (the card unless
         the caller asks for the CPU)."""
-        dtype = dtype or config.dtype
+        dtype = torch_dtype(dtype) or config.dtype
         dev = resolve_device(device)
 
         def t(a, dt=None):
@@ -941,8 +945,9 @@ class LinearMGIterator:
         self.tol = tol
 
     def __mul__(self, rhs):
-        b = _as_array(rhs)
-        mv = _ell_view(self.mat).matvec
+        A = _ell_view(self.mat)
+        b = _as_array(rhs, A)
+        mv = A.matvec
         M = self.mg
         if self.freedofs is not None:
             fm = torch.as_tensor(_bits(self.freedofs), device=b.device)

@@ -29,12 +29,30 @@ from . import ell_spmv
 from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
 
 
-def _as_array(x):
+def _as_array(x, op=None):
     """The tensor behind a dof-vector shim (``gf.vec``, ``f.vec``), or
-    ``x`` itself."""
+    ``x`` itself when it is a tensor.  Anything else (a numpy array, as the
+    JAX package's ``jnp.asarray`` takes it) becomes a tensor on the device
+    and in the dtype of the operator ``op`` it is meant for (its ``vals``,
+    or its ``device``/``dtype``), once, here; without such an ``op`` it is
+    returned as it is."""
+    if torch.is_tensor(x):
+        return x
     from ..fem.gridfunction import VecShim, StandaloneVec
 
-    return x.data if isinstance(x, (VecShim, StandaloneVec)) else x
+    if isinstance(x, (VecShim, StandaloneVec)):
+        return x.data
+    if op is None:
+        return x
+    vals = getattr(op, "vals", None)
+    if torch.is_tensor(vals):
+        device, dtype = vals.device, vals.dtype
+    else:
+        device, dtype = getattr(op, "device", None), getattr(op, "dtype", None)
+        if not (isinstance(device, torch.device)
+                and isinstance(dtype, torch.dtype)):
+            return x
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 class SparseMatrix:
@@ -65,8 +83,9 @@ class SparseMatrix:
         return self._rows_plan.add(terms, y)
 
     def matvec(self, x):
-        """A @ x for a tensor or a dof-vector shim (``gf.vec``)."""
-        return self._row_sums(self.vals * _as_array(x)[self.cols])
+        """A @ x for a tensor, a dof-vector shim (``gf.vec``) or a numpy
+        array."""
+        return self._row_sums(self.vals * _as_array(x, self)[self.cols])
 
     __mul__ = matvec
     __matmul__ = matvec
@@ -206,9 +225,11 @@ class ELLMatrix:
         return tr[2]
 
     def matvec(self, x):
-        """A @ x.  Under autograd (``ell_spmv.EllMatvec``) the backward's
-        ``A^T g`` is the product of ``transposed()``."""
-        return ell_matvec(self.vals, self.cols, x, self.layout(),
+        """A @ x (x a tensor, or a numpy array made a tensor here).  Under
+        autograd (``ell_spmv.EllMatvec``) the backward's ``A^T g`` is the
+        product of ``transposed()``."""
+        return ell_matvec(self.vals, self.cols, _as_array(x, self),
+                          self.layout(),
                           lambda g: self.transposed().matvec(g))
 
     __mul__ = matvec
@@ -261,7 +282,7 @@ class DIAMatrix:
                                             device=resolve_device(device)))
 
     def matvec(self, x):
-        return dia_matvec(self.offsets, self.vals, x)
+        return dia_matvec(self.offsets, self.vals, _as_array(x, self))
 
     __mul__ = matvec
     __matmul__ = matvec
@@ -362,7 +383,7 @@ class InverseMatrix:
         return self._factor
 
     def solve(self, rhs):
-        rhs = _as_array(rhs)
+        rhs = _as_array(rhs, self.mat)
         if self.path == "device_cg":  # no host round trip
             from .krylov import _cg_ell
 

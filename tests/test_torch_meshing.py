@@ -197,9 +197,10 @@ def test_mark_for_refinement_matches_reference():
 
 def test_tet_bisection_conformity():
     """tests/test_refine.py::test_tet_bisection_conformity on the port's
-    ``bisect_refine_tet``, equal to the JAX package's output."""
+    ``bisect_refine_tet``, equal to the JAX package's output (three values,
+    as there); the children's parents from ``_bisect_tet``."""
     from ngsxfem_tpu.mesh.refine import bisect_refine_tet as jax_bisect
-    from ngsxfem_tpu_torch.mesh.refine import bisect_refine_tet
+    from ngsxfem_tpu_torch.mesh.refine import _bisect_tet, bisect_refine_tet
 
     def violations(V, E):
         bad = 0
@@ -231,7 +232,8 @@ def test_tet_bisection_conformity():
     V, E = mesh.vertices_np.astype(np.float64), mesh.elements_np
     for _ in range(4):
         marks = rng.random(len(E)) < 0.1
-        Vn, En, _, parent = bisect_refine_tet(V, E, marks)
+        Vn, En, _ = bisect_refine_tet(V, E, marks)
+        parent = _bisect_tet(V, E, marks)[3]
         Vj, Ej, _ = jax_bisect(V, E, marks)
         assert np.array_equal(Vn, Vj) and np.array_equal(En, Ej)
         assert violations(Vn, En) == 0

@@ -166,8 +166,11 @@ def test_set_default_dtype_round_trip():
         T.set_default_dtype(torch.float64)
         assert T.GridFunction(T.H1(mesh, device=CPU)).vec.data.dtype == \
             torch.float64
+        # a dtype numpy names is taken as the JAX package takes it
+        T.set_default_dtype(np.float32)
+        assert config.dtype is torch.float32
         with pytest.raises(TypeError):
-            T.set_default_dtype(np.float64)
+            T.set_default_dtype(np.int32)
     finally:
         config.dtype = before
 
