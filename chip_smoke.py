@@ -1584,7 +1584,6 @@ def card_size(name, build, device, lift=None, minres_pre=None):
     Returns the numbers and what phase 17 profiles."""
     from ngsxfem_tpu_torch import CGSolver, GridFunction, MinResSolver
     from ngsxfem_tpu_torch.solvers import ell_spmv
-    from ngsxfem_tpu_torch.solvers.sparse import _as_array
 
     out = {"name": name, "nx": BIG_NX[name]}
     t0 = time.perf_counter()
@@ -1633,7 +1632,7 @@ def card_size(name, build, device, lift=None, minres_pre=None):
               f"{name}: {out['launches']} ell_spmv launches, "
               f"{cnt.products} products, {cnt.iters} iterations")
     fm = torch.as_tensor(free_np, device=device)
-    r = torch.where(fm, _as_array(rhs) - a.mat * x, 0.0)
+    r = torch.where(fm, rhs - a.mat * x, 0.0)
     out["true_rel"] = float(torch.linalg.vector_norm(r)
                             / torch.linalg.vector_norm(torch.where(fm, rhs, 0.0)))
     gfu = GridFunction(V)
@@ -4991,6 +4990,245 @@ def phase_30(dev, system, t_start):
     return out
 
 
+P31_REPS = 7          # interleaved numpy / tensor pairs timed per case
+P31_SEED = 3131       # seeded numpy vectors of the kernel-free cases
+P31_LAT_NX = 24       # the lattice transfers: nx 24 -> 48 (25^3 -> 49^3)
+
+
+class counted_ell_products:
+    """While active, counts the calls of ``ELLMatrix.matvec``: every product
+    of a Krylov solve on an ``ELLMatrix``, called through its bound method
+    as a user passes it."""
+
+    def __enter__(self):
+        from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix
+
+        self.cls, self.orig, self.products = ELLMatrix, ELLMatrix.matvec, 0
+
+        def matvec(mat, x):
+            self.products += 1
+            return self.orig(mat, x)
+
+        ELLMatrix.matvec = matvec
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.matvec = self.orig
+
+
+def p31_pair(fns):
+    """Each of ``fns`` ({kind: fn}) called once, then ``P31_REPS`` times
+    more in turns whose order flips each round (numpy, tensor, tensor,
+    numpy, ...); returns ({kind: first result}, {kind: (median, min) ms})
+    by CUDA events (host clock without a card)."""
+    first = {k: fn() for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    kinds = list(fns)
+    for i in range(P31_REPS):
+        for k in (kinds if i % 2 == 0 else kinds[::-1]):
+            times[k].append(event_ms(fns[k])[1])
+    return first, {k: (float(np.median(v)), min(v)) for k, v in times.items()}
+
+
+def p31_ms(ms):
+    """'numpy m (min) / tensor m (min)' of ``p31_pair``'s times."""
+    return " / ".join(f"{k} {ms[k][0]:.3f} ({ms[k][1]:.3f})"
+                      for k in ("numpy", "tensor"))
+
+
+def phase_31_system(nx, dev):
+    """Phase 31's inputs built as the whole script builds them (phase 4's
+    flagship DIA table, b and dinv; phase 7's ELL table of the same model
+    and its indicator rhs), for running the phase alone."""
+    from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix
+
+    model, struct, V, _, b, dinv, _ = flagship(nx, dev)
+    lv = ell_level(nx, dev, model)
+    A = ELLMatrix(torch.as_tensor(lv["struct"]["ell_cols"], device=dev),
+                  lv["V"], (model.ndof, model.ndof))
+    b_ell = torch.as_tensor(np.where(model.active_dofs, 1.0, 0.0),
+                            dtype=torch.float32, device=dev)
+    return struct["offsets"], V, b, dinv, A, b_ell
+
+
+def phase_31(dev, offs, V, b, dinv, A, b_ell, t_start):
+    """Phase 31: the functional layer from numpy inputs on ``dev``.  Kernel
+    B1 (``dia_cg_fused`` with the reference's ``plane``) on numpy copies of
+    phase 4's f32 DIA table ``V``, ``b`` and ``dinv``; kernel B2 through
+    ``krylov.cg``, ``minres`` and ``cg_ir`` on phase 7's flagship f32 ELL
+    table ``A`` (and its f64 copy) with the numpy right-hand side
+    ``b_ell``; ``dia_matvec`` and the lattice transfers without a kernel.
+    Each numpy call is bitwise its tensor call, lies on ``dev``, and
+    launches the same kernels as many times (B2: once per product).
+    Returns the cases' numbers and the B1 (``dia_cg``) and B2
+    (``ell_spmv``) launches of its counted calls."""
+    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv, krylov
+    from ngsxfem_tpu_torch.solvers.latticemg import (_interp_axis,
+                                                     _restrict_axis)
+    from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix, dia_matvec
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    where = card() if on_card else "CPU"
+    clock = "CUDA events" if on_card else "host clock"
+    rng = np.random.default_rng(P31_SEED)
+    out = {"dia_cg": 0, "ell_spmv": 0, "cases": []}
+
+    def same(what, res):
+        """Every tensor of the numpy call's result on ``dev`` and equal to
+        the tensor call's."""
+        rn, rt = res["numpy"], res["tensor"]
+        rn, rt = ((rn,), (rt,)) if torch.is_tensor(rn) else (rn, rt)
+        for a, c in zip(rn, rt):
+            if torch.is_tensor(a):
+                check(a.device == dev, f"{what}: the numpy call's result is "
+                                       f"on {a.device}, not {dev}")
+                check(torch.equal(a, c), f"{what}: numpy input != tensor "
+                                         f"input")
+            else:
+                check(a == c, f"{what}: {a} != {c}")
+
+    def record(what, ms, launches, products=None, copy_ms=None):
+        out["cases"].append({"call": what, "ms_numpy": ms["numpy"][0],
+                             "ms_tensor": ms["tensor"][0],
+                             "min_ms_numpy": ms["numpy"][1],
+                             "min_ms_tensor": ms["tensor"][1],
+                             "launches": launches, "products": products,
+                             "copy_ms": copy_ms})
+        for k, v in launches.items():
+            out[k] += v
+
+    # (a) kernel B1 from numpy, with the reference's plane
+    n = V.shape[1]
+    plane = round(n ** (2 / 3))
+    check(plane ** 3 == n ** 2, f"n={n} is not a cube: no plane size")
+    V_np, b_np, dinv_np = (t.cpu().numpy() for t in (V, b, dinv))
+    try:
+        dia_cg.dia_cg_fused(offs, V_np, b_np, dinv_np, 1, plane + 1)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError(f"check failed: plane {plane + 1} not dividing "
+                           f"n={n} did not raise")
+    calls = {"numpy": lambda: dia_cg.dia_cg_fused(offs, V_np, b_np, dinv_np,
+                                                  CG_ITERS, plane),
+             "tensor": lambda: dia_cg.dia_cg_fused(offs, V, b, dinv,
+                                                   CG_ITERS, plane)}
+    b1 = {}
+    for kind, fn in calls.items():
+        before = dia_cg.launches
+        fn()
+        b1[kind] = dia_cg.launches - before
+        check(b1[kind] == (1 if on_card else 0),
+              f"dia_cg_fused {kind}: {b1[kind]} B1 launches")
+    res, ms = p31_pair(calls)
+    same("dia_cg_fused", res)
+    _, copy_ms = event_ms(lambda: [torch.as_tensor(a, device=dev)
+                                   for a in (V_np, b_np, dinv_np)])
+    record("dia_cg_fused(offsets, vals_np, b_np, dinv_np, "
+           f"{CG_ITERS}, plane={plane})", ms, {"dia_cg": b1["numpy"]},
+           copy_ms=copy_ms)
+    print(f"[31 B1] {where} | dia_cg_fused PCG-{CG_ITERS} on numpy copies of "
+          f"the flagship f32 DIA table {tuple(V.shape)}, b, dinv with plane="
+          f"{plane} (plane {plane + 1} raises ValueError): x bitwise the "
+          f"tensor call's, on {dev}, {b1['numpy']} B1 launch per call (tensor "
+          f"{b1['tensor']}); median (min) ms ({clock}, {P31_REPS} "
+          f"interleaved pairs) {p31_ms(ms)}, the three host-to-device "
+          f"copies alone {copy_ms:.3f}", flush=True)
+
+    # (b) kernel B2 through the Krylov functions, numpy right-hand side
+    A64 = ELLMatrix(A.cols, A.vals.double(), A.shape)
+    A64.layout()  # built once, outside the counts and the timings
+    A.layout()
+    bt = b_ell
+    bt_np = bt.cpu().numpy()
+    diag = A.diagonal()
+    diag_np = diag.cpu().numpy()
+    solves = {
+        f"krylov.cg(A.matvec, b, M=jacobi_preconditioner(diag), tol=0, "
+        f"maxiter={CG_ITERS})": lambda rhs, d: krylov.cg(
+            A.matvec, rhs, M=krylov.jacobi_preconditioner(d),
+            maxiter=CG_ITERS, tol=0.0),
+        f"krylov.minres(A.matvec, b, M=jacobi_preconditioner(diag), tol=0, "
+        f"maxiter={CG_ITERS})": lambda rhs, d: krylov.minres(
+            A.matvec, rhs, M=krylov.jacobi_preconditioner(d),
+            maxiter=CG_ITERS, tol=0.0),
+        f"krylov.cg_ir(A32.matvec, A64.matvec, b, M=jacobi_preconditioner("
+        f"diag), outer={IR_OUTER}, inner={IR_INNER})": lambda rhs, d:
+            krylov.cg_ir(A.matvec, A64.matvec, rhs,
+                         M=krylov.jacobi_preconditioner(d), outer=IR_OUTER,
+                         inner=IR_INNER),
+    }
+    lines = []
+    for name, solve in solves.items():
+        calls = {"numpy": lambda s=solve: s(bt_np, diag_np),
+                 "tensor": lambda s=solve: s(bt, diag)}
+        counts = {}
+        for kind, fn in calls.items():
+            ell_spmv.launches = 0
+            with counted_ell_products() as cnt:
+                fn()
+            counts[kind] = (ell_spmv.launches, cnt.products)
+            check(cnt.products > 0 and ell_spmv.launches
+                  == (cnt.products if on_card else 0),
+                  f"{name} {kind}: {ell_spmv.launches} B2 launches for "
+                  f"{cnt.products} products")
+        check(counts["numpy"] == counts["tensor"],
+              f"{name}: numpy (launches, products) {counts['numpy']} != "
+              f"tensor {counts['tensor']}")
+        res, ms = p31_pair(calls)
+        same(name, res)
+        _, copy_ms = event_ms(lambda: [torch.as_tensor(a, device=dev)
+                                       for a in (bt_np, diag_np)])
+        launches, products = counts["numpy"]
+        record(name, ms, {"ell_spmv": launches}, products, copy_ms)
+        lines.append(f"{name.split('(')[0]}: bitwise, {launches} B2 launches "
+                     f"= {products} products (tensor call the same), ms "
+                     f"{p31_ms(ms)} / copies {copy_ms:.3f}")
+    print(f"[31 B2] {where} | flagship f32 ELL nx={NX} {tuple(A.vals.shape)} "
+          f"(and its f64 copy for cg_ir), numpy b and diag, results on {dev}, "
+          f"median (min) ms ({clock}, {P31_REPS} interleaved pairs): "
+          + "; ".join(lines), flush=True)
+
+    # (c) without a kernel: dia_matvec and the lattice transfers
+    x_np = rng.standard_normal(n).astype(np.float32)
+    nc = P31_LAT_NX + 1
+    c_np = rng.standard_normal((nc,) * 3)
+    f_np = rng.standard_normal(((2 * nc - 1),) * 3)
+    xt, ct, ft = (torch.as_tensor(a, device=dev) for a in (x_np, c_np, f_np))
+
+    def transfer(fn, a):
+        for ax in range(3):
+            a = fn(a, ax)
+        return a
+
+    plain = {
+        "dia_matvec(offsets, vals, x)": {
+            "numpy": lambda: dia_matvec(offs, V_np, x_np),
+            "tensor": lambda: dia_matvec(offs, V, xt)},
+        f"_interp_axis x3 ({nc}^3 -> {2 * nc - 1}^3)": {
+            "numpy": lambda: transfer(_interp_axis, c_np),
+            "tensor": lambda: transfer(_interp_axis, ct)},
+        f"_restrict_axis x3 ({2 * nc - 1}^3 -> {nc}^3)": {
+            "numpy": lambda: transfer(_restrict_axis, f_np),
+            "tensor": lambda: transfer(_restrict_axis, ft)},
+    }
+    lines = []
+    for name, calls in plain.items():
+        res, ms = p31_pair(calls)
+        same(name, res)
+        record(name, ms, {})
+        lines.append(f"{name}: bitwise, ms {p31_ms(ms)}")
+    print(f"[31 no kernel] {where} | numpy inputs, results on {dev}, median "
+          f"(min) ms ({clock}, {P31_REPS} interleaved pairs): "
+          + "; ".join(lines), flush=True)
+    print(f"[31 whole] launches of phase 31's counted calls: B1 "
+          f"{out['dia_cg']}, B2 {out['ell_spmv']}; wall of phase 31 "
+          f"{time.perf_counter() - t0:.2f} s, of the whole run "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    return out
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -5547,6 +5785,7 @@ def main():
                        torch.float64: (f64["model"], f64["struct"],
                                        f64["V"])}, st48)
     sl15 = phase_30(dev, one14.pop("system"), t_start)
+    sl16 = phase_31(dev, offs, V, b, dinv, A, b_ell, t_start)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -5601,6 +5840,7 @@ def main():
         "slice13_tables": [dict(b2_record(sl13_b2), launches=sl13_launches)],
         "launches_slice14": sl14["launches"],
         "launches_slice15": sl15["launches"],
+        "launches_slice16": sl16["ell_spmv"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

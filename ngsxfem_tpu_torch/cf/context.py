@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import as_input
 from ..mesh.mesh import (geom_shapes, map_jacobian, pointwise_pow,
                          small_matmul, _det, _inv)
 from . import coefficient as C
@@ -38,6 +39,10 @@ class EvalCtx:
     broadcastable to (E, Q), or None outside a space-time integral: it is
     what ``tref``, space-time proxies and GridFunctions, and a space-time
     deformation are evaluated at.
+
+    Each array argument may be numpy, as the reference's ``jnp`` ops take
+    it: it becomes a tensor here, on the device of the tensors among them
+    (else the current card), the normals and times in the points' dtype.
     """
 
     def __init__(self, mesh, ref_pts, elem_ids=None, nref=None, normal=None,
@@ -45,6 +50,14 @@ class EvalCtx:
         self.mesh = mesh
         self.deformation = (mesh.deformation if isinstance(deformation, str)
                             and deformation == "inherit" else deformation)
+        ref_pts = as_input(ref_pts, next(
+            (t for t in (nref, normal, time, elem_ids, facet_ids)
+             if torch.is_tensor(t)), None))
+        nref, normal, time = (None if t is None else as_input(t, ref_pts)
+                              for t in (nref, normal, time))
+        elem_ids, facet_ids = (
+            None if t is None else as_input(t, device=ref_pts.device)
+            for t in (elem_ids, facet_ids))
         self.ref_pts = ref_pts
         self.elem_ids = elem_ids
         self._nref = nref

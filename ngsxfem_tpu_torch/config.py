@@ -38,6 +38,11 @@ class _Config:
         self.newton_debug = os.environ.get(
             "NGSXFEM_TPU_NEWTON_DEBUG", "0") != "0"
 
+    @property
+    def np_dtype(self):
+        """``dtype`` as numpy names it (``np.dtype("float64")``)."""
+        return torch.empty(0, dtype=self.dtype).numpy().dtype
+
 
 config = _Config()
 
@@ -66,6 +71,47 @@ def torch_dtype(dtype):
         return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
     except TypeError as e:
         raise TypeError(f"not a dtype torch has: {dtype!r}") from e
+
+
+def as_input(x, like=None, dtype=None, device=None):
+    """``x`` as a tensor, converted once at a function's entry, the way the
+    JAX package's ``jnp`` ops take numpy arrays, lists and scalars.
+
+    A tensor comes back as it is, and a dof-vector shim (``gf.vec``,
+    ``f.vec``) as the tensor behind it.  Anything else becomes a tensor on
+    ``device``, else on the device of ``like``, else on
+    ``resolve_device(None)`` (the current card; without one that raises, as
+    every entry point does).  ``like`` is a tensor or an object holding one
+    (an operator's ``vals``, or its ``device``/``dtype``).  The dtype is
+    ``dtype`` (torch's or numpy's name for it), else that of a floating
+    ``like`` for a numeric value (a bool mask stays bool), else numpy's own
+    through ``torch_dtype``."""
+    if torch.is_tensor(x):
+        return x
+    from .fem.gridfunction import StandaloneVec, VecShim
+
+    if isinstance(x, (VecShim, StandaloneVec)):
+        return x.data
+    arr = np.asarray(x)
+    ldev = ldt = None
+    if like is not None:
+        t = like if torch.is_tensor(like) else getattr(like, "vals", None)
+        if torch.is_tensor(t):
+            ldev, ldt = t.device, t.dtype
+        else:
+            ldev = getattr(like, "device", None)
+            ldt = getattr(like, "dtype", None)
+            ldev = ldev if isinstance(ldev, torch.device) else None
+            ldt = ldt if isinstance(ldt, torch.dtype) else None
+    if dtype is not None:
+        dt = torch_dtype(dtype)
+    elif (ldt is not None and (ldt.is_floating_point or ldt.is_complex)
+          and arr.dtype.kind in "fiuc"):
+        dt = ldt
+    else:
+        dt = torch_dtype(arr.dtype)
+    dev = resolve_device(device if device is not None else ldev)
+    return torch.as_tensor(arr, dtype=dt, device=dev)
 
 
 def set_default_dtype(dtype):

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import config, resolve_device
+from ..config import as_input, config, resolve_device
 from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx, eval_pure
 from ..mesh.mesh import small_matmul
@@ -301,8 +301,18 @@ def _component_dofs(gf: GridFunction, elem_ids):
     return [_elem_dofs(gf, elem_ids, c * sp.nscal) for c in range(vdim)]
 
 
+def _points(gf, elem_ids, ref_pts):
+    """``elem_ids`` and ``ref_pts`` as tensors on the device of ``gf``'s
+    vector, numpy points in its dtype."""
+    return (None if elem_ids is None
+            else as_input(elem_ids, device=gf.device),
+            as_input(ref_pts, gf._arr))
+
+
 def gf_value(gf: GridFunction, elem_ids, ref_pts):
-    """Value of gf at (elem, refpt) batches -> (E,Q) or (E,Q,vdim)."""
+    """Value of gf at (elem, refpt) batches -> (E,Q) or (E,Q,vdim); the ids
+    and points may be numpy."""
+    elem_ids, ref_pts = _points(gf, elem_ids, ref_pts)
     sp = gf.space
     B = shapes(sp.mesh.et, sp.order, ref_pts)  # (E|1,Q,ndl)
     vals = [(B * dofs[:, None, :]).sum(-1)
@@ -316,9 +326,12 @@ def gf_ref_value_and_grad(gf: GridFunction, elem_ids, ref_pts, time=None):
     A space-time GridFunction (the space-time mesh deformation of
     ``LevelSetMeshAdaptation_Spacetime``) is evaluated at each point's
     ``time``, (E, Q) or broadcastable to it, by contracting the time basis
-    with its time-major dof blocks."""
+    with its time-major dof blocks.  The ids, points and times may be
+    numpy."""
     from ..spacetime.space import SpaceTimeFESpace
 
+    elem_ids, ref_pts = _points(gf, elem_ids, ref_pts)
+    time = None if time is None else as_input(time, ref_pts)
     sp = gf.space
     if isinstance(sp, SpaceTimeFESpace):
         return _st_ref_value_and_grad(gf, elem_ids, ref_pts, time)

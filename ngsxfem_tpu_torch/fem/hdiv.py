@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..cf.coefficient import CF
+from ..config import config
 from ..mesh.mesh import FACET_VERTS, small_matmul
 from .space import DeviceViews, BitArray
 
@@ -66,6 +67,13 @@ class HDiv(DeviceViews):
 
     def FreeDofs(self, coupling=False):
         return BitArray(~self.dirichlet_dofs)
+
+    @property
+    def eldof_sign(self):
+        """(ne, nfel) facet orientation signs on the space's device, in
+        ``config.dtype``, as the reference holds them."""
+        return self._view("eldof_sign", self.eldof_sign_np, config.dtype,
+                          self.device)
 
     def TrialFunction(self):
         from ..forms.proxies import make_proxies

@@ -155,7 +155,9 @@ class DeviceViews:
         return self._view("el2dof_valid", valid, torch.bool, device)
 
     def _view(self, name, host, dtype, device):
-        key = (name, str(torch.device(device)))
+        """The host table ``host`` as a tensor of ``dtype`` on ``device``,
+        made once per name, device and dtype."""
+        key = (name, str(torch.device(device)), dtype)
         if key not in self._views:
             self._views[key] = torch.as_tensor(host, dtype=dtype,
                                                device=device)

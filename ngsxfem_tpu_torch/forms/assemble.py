@@ -42,7 +42,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, resolve_device
 from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx
 from ..domaintype import IF, NEG, POS
@@ -592,13 +592,27 @@ def _facet_rows(integral, mesh, order, fverts, row_e, loc_refs, device,
     return pts, w, n, times
 
 
-def _skeleton_ctx(integral: Integral, mesh, order, device):
+def _facet_device(mesh, dyn, device):
+    """The device of a facet context: ``device``, else that of the mesh's
+    device views, else the current card.  ``dyn``, the reference's bundle
+    of traced jit inputs, has no counterpart in eager PyTorch."""
+    if dyn is not None:
+        raise NotImplementedError("dyn (the JAX package's jit inputs) is "
+                                  "not taken: the port runs eagerly")
+    if device is None and mesh._views:
+        device = next(iter(mesh._views))[0]
+    return resolve_device(device)
+
+
+def _skeleton_ctx(integral: Integral, mesh, order, dyn=None, *, device=None):
     """Skeleton quadrature on the selected interior facets, mapped into both
     neighbours (the reference's facet machinery,
     SymbolicFacetBilinearFormIntegrator2, xfem/symboliccutbfi.cpp:948-1102,
     and the cut-facet rule of SymbolicCutFacetBFI, :682-946).  The normal
     points from e1 to e2 and each side sees its own outward normal, so
-    ``dnjump`` works on both.  Returns (ctx, e1, e2, w, mask)."""
+    ``dnjump`` works on both.  Returns (ctx, e1, e2, w, mask).  The
+    reference's signature; ``device`` as in ``_facet_device``."""
+    device = _facet_device(mesh, dyn, device)
     fids = _facet_patch_fids(integral, mesh)
     f2e = mesh.facet2el_np
     loc = torch.as_tensor(_facet_locref_tables(mesh)[:, fids],
@@ -666,12 +680,14 @@ def _bnd_mask_np(integral: Integral, mesh):
         f"elements ({len(bf)}) or volume elements ({mesh.ne})")
 
 
-def _boundary_ctx(integral: Integral, mesh, order, device):
+def _boundary_ctx(integral: Integral, mesh, order, dyn=None, *, device=None):
     """Quadrature on the selected boundary facets ("BND elements", the
     reference's CutInformation BND loop, xfem/cutinfo.cpp:54-188): one row
     per facet, factors on the adjacent volume element, outward boundary
     normal; under a level-set domain a codim-1 cut rule on each facet.
-    Returns (ctx, row_e, w, mask)."""
+    Returns (ctx, row_e, w, mask).  The reference's signature; ``device``
+    as in ``_facet_device``."""
+    device = _facet_device(mesh, dyn, device)
     bf = mesh.boundary_facets_np
     if integral.definedonelements is not None:
         bf = bf[_bnd_mask_np(integral, mesh)]
@@ -974,13 +990,13 @@ class BilinearForm:
                 build = (_facet_patch_ctx if integral.facet_patch
                          else _skeleton_ctx)
                 ctx, e1, e2, w_phys, mask = build(integral, mesh, 2 * order,
-                                                  device)
+                                                  device=device)
                 tiers = [(ctx, _own_weights(sh, e1, w_phys), mask, (e1, e2))]
             elif integral.element_boundary or integral.vb == BND:
                 build = (_element_boundary_ctx if integral.element_boundary
                          else _boundary_ctx)
                 ctx, row_e, w_phys, mask = build(integral, mesh, 2 * order,
-                                                 device)
+                                                 device=device)
                 tiers = [(ctx, _own_weights(sh, row_e, w_phys), mask,
                           (row_e, row_e))]
             else:
@@ -1078,7 +1094,7 @@ class LinearForm:
                     "LinearForm supports volume and BND integrals only")
             if integral.vb == BND:
                 ctx, row_e, w_phys, mask = _boundary_ctx(
-                    integral, mesh, 2 * order + mesh.dim, device)
+                    integral, mesh, 2 * order + mesh.dim, device=device)
                 tiers = [(ctx, _own_weights(mesh_shard(mesh), row_e, w_phys),
                           mask, row_e)]
             else:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import torch_dtype
 from ..ops.gauss import ET_DIM, ET_NVERT
 
 # local facet -> local vertices, per element type (own convention, documented)
@@ -160,8 +161,10 @@ class Mesh:
                      for i in ids if i > 0)
 
     def device_view(self, device, dtype):
-        """(vertices (nv, d) of ``dtype``, elements (ne, nvel) int64) on
-        ``device``, made once per device and dtype."""
+        """(vertices (nv, d) of ``dtype``, torch's or numpy's name for it;
+        elements (ne, nvel) int64) on ``device``, made once per device and
+        dtype."""
+        dtype = torch_dtype(dtype)
         key = (str(torch.device(device)), dtype)
         view = self._views.get(key)
         if view is None:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import resolve_device, torch_dtype
+from ..config import as_input, resolve_device, torch_dtype
 from ..ops.gauss import ET_DIM, reference_rule
 from ..ops.scatter import ScatterPlan
 from ..fem.basis import ndof_el, lagrange_element, shapes, dshapes
@@ -624,9 +624,16 @@ class UnfittedPoisson(nn.Module):
             self._index_cache[key] = hit
         return hit[1]
 
+    def _inputs(self, *arrays):
+        """``arrays`` (vertices, level-set values, vectors; numpy or lists,
+        as the JAX model's methods take them) as tensors on the model's
+        device and in its dtype; a tensor comes back as it is."""
+        return [as_input(a, self.lset) for a in arrays]
+
     def active_dof_mask(self, lset_vertex):
         """Runtime active-dof mask from the CURRENT level set (has_neg
         dilated through el2dof), same raw sign convention as ``__init__``."""
+        lset_vertex = as_input(lset_vertex, self.lset)
         dev = lset_vertex.device
         vals = lset_vertex[self._index(self.elements, dev)]
         has_neg = (vals < 0).any(1).to(torch.int32)
@@ -716,6 +723,7 @@ class UnfittedPoisson(nn.Module):
         quadrature ``ghost_penalty_elmats`` to 1e-12,
         tests/test_model_poisson.py:154-171), higher orders the quadrature,
         in blocks of ``block`` facets when given (``_map_blocks``)."""
+        vertices = as_input(vertices, self.lset)
         if self.order != 1:
             dev = vertices.device
             fn = lambda c1, c2: ghost_penalty_elmats(
@@ -767,6 +775,7 @@ class UnfittedPoisson(nn.Module):
         elements, ``cut_poisson_elmats`` on cut ones, zero on POS ones (the
         reference builds the cut rule on every element; the result is the
         same to rounding)."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         idx = self._index(self.elements, vertices.device)
         return self._elmats_of(vertices[idx], eps_guard(lset_vertex[idx]))
 
@@ -782,6 +791,7 @@ class UnfittedPoisson(nn.Module):
         and ghost-penalty matrices built once, identity rows on the dofs
         inactive under ``lset_vertex``, NaN once the ghost-penalty band of
         ``lset_vertex`` leaves the frozen one (``_band_guard``)."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         dev = vertices.device
         A = self.elmats(vertices, lset_vertex)
         G = self.gp_mats(vertices)
@@ -791,6 +801,7 @@ class UnfittedPoisson(nn.Module):
         guard = self._band_guard(lset_vertex, vertices.dtype)
 
         def matvec(x):
+            x = as_input(x, A)
             y = torch.zeros_like(x)
             # (A * x_e).sum(-1), not a batched matvec: on the card that is
             # a library GEMV over 663,552 4x4 blocks at nx=48, 7x slower
@@ -810,6 +821,7 @@ class UnfittedPoisson(nn.Module):
         """Load vector  int_NEG f v  on the active dofs, in two tiers like
         ``elmats``: the standard rule of degree 2*order + d on uncut NEG
         elements, ``cut_poisson_rhs_elvecs`` on cut ones."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         dev = vertices.device
         coords = vertices[self._index(self.elements, dev)]
         vals, neg, cut = self._tiers(lset_vertex)
@@ -1034,6 +1046,7 @@ class UnfittedPoisson(nn.Module):
         each slot sums its contributions in one fixed order, so the table
         is the same on every run, on the CPU and on the card.
         """
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         from ..ops.straightcut import eps_guard_list
 
         et = self.et
@@ -1086,6 +1099,7 @@ class UnfittedPoisson(nn.Module):
     # -- the reference's other assembly routes (its A4b variants) -----------
     def lset_elem_vals(self, lset_vertex):
         """(ne, nvel) level-set values of the element corners."""
+        lset_vertex = as_input(lset_vertex, self.lset)
         return lset_vertex[self._index(self.elements, lset_vertex.device)]
 
     def elmats_compact(self, vertices, lset_vertex, elements, cut_capacity,
@@ -1100,6 +1114,7 @@ class UnfittedPoisson(nn.Module):
         ``ncut > cut_capacity`` says the capacity overflowed.  With
         ``block`` both tiers run in blocks of that many elements
         (``_map_blocks``)."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         dev = vertices.device
         vals, neg, cut = self._tiers(lset_vertex, elements)
         coords = vertices[self._index(elements, dev)]
@@ -1121,6 +1136,7 @@ class UnfittedPoisson(nn.Module):
         identity rows on the dofs inactive under ``lset_vertex``; NaN when
         the cut tier overflowed its capacity or the ghost-penalty band left
         the frozen one: never silently wrong."""
+        vertices, lset_vertex, x = self._inputs(vertices, lset_vertex, x)
         dev = x.device
         A_std, A_cut, cut_ids, ncut = self.elmats_compact(
             vertices, lset_vertex, self.elements, cut_capacity)
@@ -1145,6 +1161,7 @@ class UnfittedPoisson(nn.Module):
     def gp_flat_soa(self, vertices):
         """Closed-form ghost-penalty values of the frozen band, one flat
         (i, j, f) stream matching ``gp_slots_soa``."""
+        vertices = as_input(vertices, self.lset)
         x1, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e1])
         x2, _ = _soa_corner_arrays(vertices, self.elements[self.gp_e2])
         A = ghost_penalty_flat_soa(self.et, x1, x2, self.gamma_gp)
@@ -1162,6 +1179,7 @@ class UnfittedPoisson(nn.Module):
         (``stencil_groups``); the ghost-penalty (``gp_slots_soa``) and
         identity (``diag_slots``) streams follow through one fixed-order
         ``ScatterPlan``.  Returns (V (n_off, n), ncut)."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         from ..ops.straightcut import eps_guard_list
 
         et = self.et
@@ -1238,6 +1256,7 @@ class UnfittedPoisson(nn.Module):
         """``assemble_ell_vals`` with the element and identity streams
         gathered through ``gtable`` (``ell_gather_structure``) and summed
         per slot; the ghost penalty scattered after."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         dev = vertices.device
         A_all, ncut = self._compact_all(vertices, lset_vertex, cut_capacity,
                                         block)
@@ -1257,6 +1276,7 @@ class UnfittedPoisson(nn.Module):
         ghost-penalty matrices and the identity rows, added through one
         fixed-order ``ScatterPlan`` of ``elm_slots``, ``gp_slots`` and
         ``diag_slots``.  Returns (table, ncut)."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         dev = vertices.device
         A_all, ncut = self._compact_all(vertices, lset_vertex, cut_capacity,
                                         block)
@@ -1278,6 +1298,7 @@ class UnfittedPoisson(nn.Module):
         structures (table (ndof, K)) and DIA structures (table (n_off, n));
         ``struct`` holds ``elm_slots_soa`` beside ``elm_slots``.  Returns
         (table, ncut)."""
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         from ..ops.straightcut import eps_guard_list
 
         et = self.et
@@ -1521,6 +1542,7 @@ class UnfittedPoisson(nn.Module):
         ends, or at the lattice's own end) equal the whole table's rows
         bit for bit; ``ncut`` counts the box's cut elements.
         """
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         et = self.et
         d = ET_DIM[et]
         nv = d + 1

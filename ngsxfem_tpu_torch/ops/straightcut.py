@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import config, resolve_device
+from ..config import as_input, config
 from .cuttables import simplex_cut_tables, ET_SPLIT, REF_VERTS, NSUB, NIF
 from .gauss import reference_rule, SIMPLEX_OF_DIM, ET_DIM
 from ..mesh.mesh import small_matmul
@@ -61,6 +61,7 @@ def eps_guard(vals, eps=None):
     ``config.lset_eps``."""
     if eps is None:
         eps = config.lset_eps
+    vals = as_input(vals)
     return torch.where(vals.abs() < eps,
                        torch.tensor(eps, dtype=vals.dtype, device=vals.device),
                        vals)
@@ -155,8 +156,12 @@ def cut_rule_simplices(coords, vals, d: int, order: int):
 
     coords (M, d+1, d): simplex vertex coordinates (in element-reference space),
     vals (M, d+1): level-set values at those vertices (already eps-guarded).
-    Returns a CutRule with per-simplex padded tensors.
+    Returns a CutRule with per-simplex padded tensors.  Numpy ``coords``
+    and ``vals`` become tensors on the device of the other argument, else on
+    the current card.
     """
+    coords = as_input(coords, vals if torch.is_tensor(vals) else None)
+    vals = as_input(vals, coords)
     M = coords.shape[0]
     nv = d + 1
     dev, dtype = coords.device, coords.dtype
@@ -279,9 +284,8 @@ def cut_rule_element(et: str, elem_vals, order: int, policy: str = "OPTIMAL",
     """
     if not torch.is_tensor(elem_vals):
         host = np.asarray(elem_vals)
-        elem_vals = torch.as_tensor(
-            host, device=resolve_device(device),
-            dtype=None if host.dtype.kind == "f" else config.dtype)
+        elem_vals = as_input(host, device=device, dtype=(
+            None if host.dtype.kind == "f" else config.dtype))
     vals = eps_guard(elem_vals)
     if et in ("quad", "hex"):
         from .multilinear import quad_cut_rule, hex_cut_rule

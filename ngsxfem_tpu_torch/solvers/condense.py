@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import as_input, config
 
 
 def condensed_solve(A, b, local_dofs, freedofs=None, solver=None):
@@ -31,10 +31,8 @@ def condensed_solve(A, b, local_dofs, freedofs=None, solver=None):
     """
     from scipy.sparse.linalg import splu
 
-    from .sparse import _as_array
-
-    b = _as_array(b)
-    device = b.device if torch.is_tensor(b) else A.vals.device
+    b = as_input(b, device=A.vals.device)
+    device = b.device
     n = A.shape[0]
     loc = np.asarray(local_dofs.np if hasattr(local_dofs, "np")
                      else local_dofs)
@@ -43,8 +41,7 @@ def condensed_solve(A, b, local_dofs, freedofs=None, solver=None):
                             else freedofs))
     loc = loc & free
     coup = free & ~loc
-    bn = (b.detach().cpu().numpy() if torch.is_tensor(b)
-          else np.asarray(b)).astype(np.float64)
+    bn = b.detach().cpu().numpy().astype(np.float64)
 
     S = A.to_scipy().tocsr()
     iL = np.nonzero(loc)[0]

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..config import as_input
 from .krylov import _vdot
 
 # calls of `dia_cg_fused` that went to the CUDA kernel (one device kernel per
@@ -295,7 +296,7 @@ def _dia_cg_cuda(offsets, terms, vals, b, dinv, iters, lib=None):
     return x, res
 
 
-def dia_cg_fused(offsets, vals, b, dinv, iters):
+def dia_cg_fused(offsets, vals, b, dinv, iters, plane=None):
     """Fixed-budget Jacobi-PCG with x0 = 0 on a symmetric DIA operator.
 
     offsets : host ints, the symmetric DIA offset set (from
@@ -304,13 +305,17 @@ def dia_cg_fused(offsets, vals, b, dinv, iters):
         and the positive-offset diagonals are read
     b       : (n,) rhs; dinv : (n,) Jacobi inverse diagonal
     iters   : iteration count (matches ``krylov.cg(tol=0)``)
+    plane   : optional, the reference's vertex-lattice plane size L; it
+        must divide n (else ``ValueError``, as in the reference) and is
+        otherwise unused: the kernel indexes flat
 
     Returns (x (n,), res_norm 0-d tensor), the contract of the reference
-    ``pallas_cg.dia_cg_fused`` up to reduction-order roundoff.  The
-    reference's ``plane`` argument, a TPU layout parameter, is gone: the
-    kernel indexes flat.  CUDA tensors must be float32 (the kernel's type)
-    and go to the kernel; CPU tensors run ``dia_cg_fused_plain`` in their
-    own floating dtype.  It has no backward, as the reference's has none:
+    ``pallas_cg.dia_cg_fused`` up to reduction-order roundoff.  ``vals``,
+    ``b`` and ``dinv`` may be numpy: they become tensors on the device and
+    in the dtype of the tensors among them, else on the current card in
+    numpy's dtype.  CUDA tensors must be float32 (the kernel's type) and go
+    to the kernel; CPU tensors run ``dia_cg_fused_plain`` in their own
+    floating dtype.  It has no backward, as the reference's has none:
     with grad mode on, an input that requires a gradient raises
     ``RuntimeError`` (``krylov.cg`` on ``dia_matvec`` is the differentiable
     fixed-budget PCG).
@@ -320,11 +325,16 @@ def dia_cg_fused(offsets, vals, b, dinv, iters):
         raise RuntimeError(
             "dia_cg_fused has no backward (nor has the reference's Pallas "
             "kernel): differentiate krylov.cg on dia_matvec instead")
+    vals = as_input(vals, next((t for t in (b, dinv) if torch.is_tensor(t)),
+                               None))
+    b, dinv = as_input(b, vals), as_input(dinv, vals)
     terms = _terms(offsets)
     n_off = len(terms)
     if vals.dim() != 2 or vals.shape[0] != n_off:
         raise ValueError(f"vals must be ({n_off}, n), got {tuple(vals.shape)}")
     n = vals.shape[1]
+    if plane is not None and (int(plane) <= 0 or n % int(plane)):
+        raise ValueError(f"plane size {plane} does not divide n={n}")
     for name, t in (("b", b), ("dinv", dinv)):
         if tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")

@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from ..config import as_input
+
 # launches of the CUDA kernel (one per `ell_matvec` call on CUDA tensors with
 # at least one row) and layouts made by `prepare_ell`; read and reset by
 # chip_smoke.py
@@ -307,8 +309,10 @@ def ell_matvec(vals, cols, x, layout=None, adjoint=None):
     anything else raises.  With grad mode on and ``vals`` or ``x``
     requiring a gradient the product is ``EllMatvec``, whose backward
     applies ``adjoint`` (default: the product of ``transpose_ell`` of the
-    table, built in the backward).
+    table, built in the backward).  A numpy (or list) ``x`` becomes a
+    tensor on the device and in the dtype of ``vals`` first.
     """
+    x = as_input(x, vals)
     _check(vals, cols, x)
     if torch.is_grad_enabled() and (vals.requires_grad or x.requires_grad):
         if adjoint is None:

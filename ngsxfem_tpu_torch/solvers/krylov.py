@@ -4,11 +4,21 @@ Counterpart of ``ngsxfem_tpu/solvers/krylov.py``.  The reference's
 ``lax.fori_loop``/``lax.while_loop`` become Python loops.  The fixed-budget
 path of ``cg`` (``tol=0``) reads nothing back to the host; the tolerance
 paths of ``cg`` and ``minres`` read one scalar per iteration to test
-convergence.
+convergence.  Every function takes numpy (or a list) where it takes a
+tensor, as the reference's ``jnp`` ops do, and converts it once at its
+entry (``config.as_input``): onto the device and dtype of the operator
+behind a bound ``matvec`` or of ``x0``, else the current card.
 """
 from __future__ import annotations
 
 import torch
+
+from ..config import as_input
+
+
+def _owner(f):
+    """The operator behind a bound ``matvec`` (its matrix), else None."""
+    return getattr(f, "__self__", None)
 
 
 def _vdot(a, b):
@@ -33,8 +43,8 @@ def cg(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10, dot=None):
     inner product (``_vdot``): a sharded vector's all-reduced one
     (``LatticeShard.dot``), so every rank takes the same branches.
     """
-    if x0 is None:
-        x0 = torch.zeros_like(b)
+    b = as_input(b, x0 if torch.is_tensor(x0) else _owner(matvec))
+    x0 = torch.zeros_like(b) if x0 is None else as_input(x0, b)
     if M is None:
         M = lambda r: r
     vdot = dot or _vdot
@@ -134,8 +144,8 @@ def minres(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
     ``M`` must be symmetric positive definite (it defines the Lanczos inner
     product).  Dots go through ``_vdot``; the loop reads the residual
     estimate ``phibar`` once per iteration to stop."""
-    if x0 is None:
-        x0 = torch.zeros_like(b)
+    b = as_input(b, x0 if torch.is_tensor(x0) else _owner(matvec))
+    x0 = torch.zeros_like(b) if x0 is None else as_input(x0, b)
     if M is None:
         M = lambda r: r
     eps = torch.finfo(b.dtype).eps
@@ -202,7 +212,9 @@ def cg_ir(matvec32, matvec64, b, M=None, outer=4, inner=120, dot=None):
         norm = torch.linalg.vector_norm
     else:
         norm = lambda v: torch.sqrt(dot(v, v))
-    b64 = b.to(torch.float64)
+    op = _owner(matvec64)
+    b64 = as_input(b, _owner(matvec32) if op is None else op).to(
+        torch.float64)
     x64 = torch.zeros_like(b64)
     r64 = b64
     rn = norm(r64)
@@ -223,9 +235,14 @@ def cg_ir(matvec32, matvec64, b, M=None, outer=4, inner=120, dot=None):
 
 
 def jacobi_preconditioner(diag, free_mask=None):
+    """``M(r) = r / diag`` where ``|diag| > 1e-30`` and on the free dofs,
+    0 elsewhere."""
+    mask = free_mask if torch.is_tensor(free_mask) else None
+    diag = as_input(diag, mask)
     inv = torch.where(diag.abs() > 1e-30, 1.0 / diag, 0.0)
     if free_mask is not None:
-        inv = torch.where(free_mask, inv, 0.0)
+        inv = torch.where(as_input(free_mask, diag, dtype=torch.bool), inv,
+                          0.0)
 
     def M(r):
         return inv * r
@@ -235,6 +252,7 @@ def jacobi_preconditioner(diag, free_mask=None):
 
 def masked_matvec(matvec, free_mask):
     """Project a matvec onto the free dofs: A' = P A P + (I - P)."""
+    free_mask = as_input(free_mask, _owner(matvec), dtype=torch.bool)
 
     def mv(x):
         xp = torch.where(free_mask, x, 0.0)
@@ -286,12 +304,12 @@ class CGSolver:
         self.freedofs = freedofs
 
     def __mul__(self, rhs):
-        from .sparse import ELLMatrix, _as_array
+        from .sparse import ELLMatrix
 
         mat = self.mat
         if hasattr(mat, "ell"):
             mat = mat.ell()
-        b = _as_array(rhs, mat)
+        b = as_input(rhs, mat)
         if isinstance(mat, ELLMatrix) and self.pre is None:
             fm = (_free_mask(self.freedofs, b.device)
                   if self.freedofs is not None
@@ -333,12 +351,10 @@ class MinResSolver:
         self.freedofs = freedofs
 
     def __mul__(self, rhs):
-        from .sparse import _as_array
-
         mat = self.mat
         if hasattr(mat, "ell"):
             mat = mat.ell()
-        b = _as_array(rhs, mat)
+        b = as_input(rhs, mat)
         mv = mat.matvec if hasattr(mat, "matvec") else mat
         fm = (None if self.freedofs is None
               else _free_mask(self.freedofs, b.device))

@@ -29,14 +29,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import config, resolve_device, torch_dtype
+from ..config import as_input, config, resolve_device, torch_dtype
 from .krylov import cg
 from .sparse import dia_matvec
 
 
 def _interp_axis(a, axis):
     """1D linear interpolation along ``axis``: size nc -> 2*nc - 1."""
-    a = a.movedim(axis, 0)
+    a = as_input(a).movedim(axis, 0)
     mid = 0.5 * (a[:-1] + a[1:])
     body = torch.stack([a[:-1], mid], dim=1)
     body = body.reshape((2 * (a.shape[0] - 1),) + tuple(a.shape[1:]))
@@ -49,7 +49,7 @@ def _restrict_axis(a, axis):
 
     Out of place: the halved odd entries are padded by one zero at either
     end and added to the even entries from the left and from the right."""
-    a = a.movedim(axis, 0)
+    a = as_input(a).movedim(axis, 0)
     ev = a[0::2]
     half = 0.5 * a[1::2]
     pad = (0, 0) * (a.dim() - 1)
@@ -237,4 +237,5 @@ class LatticeDIAMG:
 
     def apply(self, params, b):
         """One V-cycle: z ~ A^{-1} b (CG preconditioner)."""
-        return self._cycle(params, self.nlevels - 1, b)
+        return self._cycle(params, self.nlevels - 1,
+                           as_input(b, params["vals"][-1]))

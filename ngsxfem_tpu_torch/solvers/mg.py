@@ -26,11 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import config, resolve_device, torch_dtype
+from ..config import as_input, config, resolve_device, torch_dtype
 from ..fem.space import _arr as _bits
 from ..ops.scatter import ScatterPlan
 from .krylov import cg, masked_matvec
-from .sparse import ELLMatrix, SparseMatrix, _as_array
+from .sparse import ELLMatrix, SparseMatrix
 
 
 def mesh_hierarchy(make_mesh, nx0: int, levels: int):
@@ -336,7 +336,7 @@ class CutFemSmoother:
                     fill=0.0)
 
     def smooth(self, x, b, steps=2):
-        x, b = _as_array(x, self.E), _as_array(b, self.E)
+        x, b = as_input(x, self.E), as_input(b, self.E)
         for _ in range(steps):
             r = b - self.E.matvec(x)
             if self.blockdata is not None:
@@ -411,7 +411,7 @@ class MultiGridCL:
         return x
 
     def __call__(self, b):
-        return self._cycle(len(self.mats) - 1, _as_array(b, self.ops[-1]))
+        return self._cycle(len(self.mats) - 1, as_input(b, self.ops[-1]))
 
     def matvec(self, b):
         return self(b)
@@ -444,12 +444,12 @@ class P1Prolongation:
         """Transfer a level-(level-1) vector up to ``level`` (1-based); a
         numpy ``vec`` becomes a tensor on the transfer's device first."""
         P = _ell_view(self.mats[level - 1])
-        return P.matvec(_as_array(vec, P))
+        return P.matvec(vec)
 
     def Restrict(self, level, vec):
         """Transpose-transfer a level vector down to level-1."""
         R = _ell_view_T(self.mats[level - 1])
-        return R.matvec(_as_array(vec, R))
+        return R.matvec(vec)
 
     # finest-level matrix protocol so instances slot into MultiGridCL
     def matvec(self, x):
@@ -508,7 +508,7 @@ class CompoundProlongation:
         return torch.cat(outs)
 
     def Prolongate(self, level, vec):
-        vec = _as_array(vec, _ell_view(self.ps[0].mats[level - 1]))
+        vec = as_input(vec, _ell_view(self.ps[0].mats[level - 1]))
         outs, off = [], 0
         for p in self.ps:
             nc = p.mats[level - 1].shape[1]
@@ -517,7 +517,7 @@ class CompoundProlongation:
         return torch.cat(outs)
 
     def Restrict(self, level, vec):
-        vec = _as_array(vec, _ell_view(self.ps[0].mats[level - 1]))
+        vec = as_input(vec, _ell_view(self.ps[0].mats[level - 1]))
         outs, off = [], 0
         for p in self.ps:
             nr = p.mats[level - 1].shape[0]
@@ -605,7 +605,7 @@ class P2TwoGridCL:
             zc = self.linmgiter(rc)
         else:
             zc = self.linmgiter * rc
-        return self.P_op.matvec(_as_array(zc))
+        return self.P_op.matvec(zc)
 
     def Mult(self, rhs, usol=None):
         """Iterate to tolerance; returns the solution.  ``usol`` follows the
@@ -613,24 +613,24 @@ class P2TwoGridCL:
         tensor, numpy array or vector shim passed as ``usol`` receives the
         solution in place (its incoming values also serve as the initial
         iterate)."""
-        dev, dt = self.E.vals.device, self.E.vals.dtype
-        b = torch.where(self.free, torch.as_tensor(_as_array(rhs), dtype=dt,
-                                                   device=dev), 0.0)
+        E = self.E.vals
+        free = as_input(self.free, E, dtype=torch.bool)
+        b = torch.where(free, as_input(rhs, E).to(E.device, E.dtype), 0.0)
         if usol is not None:
-            x0 = torch.as_tensor(_as_array(usol), dtype=dt, device=dev)
-            x = torch.where(self.free, x0, 0.0)
+            x0 = as_input(usol, E).to(E.device, E.dtype)
+            x = torch.where(free, x0, 0.0)
         else:
             x = torch.zeros_like(b)
         normb = float(torch.linalg.vector_norm(b))
         for it in range(self.maxit):
             x = self.smoother.smooth(x, b, self.nu)
-            r = torch.where(self.free, b - self.E.matvec(x), 0.0)
+            r = torch.where(free, b - self.E.matvec(x), 0.0)
             # mask the prolongated correction: unmasked it deposits values
             # at non-free (Dirichlet/inactive) dofs that no free-masked
             # smoother or residual ever cleans up
-            x = x + torch.where(self.free, self._coarse_correct(r), 0.0)
+            x = x + torch.where(free, self._coarse_correct(r), 0.0)
             x = self.smoother.smooth(x, b, self.nu)
-            r = torch.where(self.free, b - self.E.matvec(x), 0.0)
+            r = torch.where(free, b - self.E.matvec(x), 0.0)
             res = float(torch.linalg.vector_norm(r)) / max(normb, 1e-300)
             self.iterations = it + 1
             if self.printinfo:
@@ -946,7 +946,7 @@ class LinearMGIterator:
 
     def __mul__(self, rhs):
         A = _ell_view(self.mat)
-        b = _as_array(rhs, A)
+        b = as_input(rhs, A)
         mv = A.matvec
         M = self.mg
         if self.freedofs is not None:

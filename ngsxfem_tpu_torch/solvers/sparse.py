@@ -23,36 +23,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import config, resolve_device
+from ..config import as_input, config, resolve_device
 from ..ops.scatter import ScatterPlan
 from . import ell_spmv
 from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
-
-
-def _as_array(x, op=None):
-    """The tensor behind a dof-vector shim (``gf.vec``, ``f.vec``), or
-    ``x`` itself when it is a tensor.  Anything else (a numpy array, as the
-    JAX package's ``jnp.asarray`` takes it) becomes a tensor on the device
-    and in the dtype of the operator ``op`` it is meant for (its ``vals``,
-    or its ``device``/``dtype``), once, here; without such an ``op`` it is
-    returned as it is."""
-    if torch.is_tensor(x):
-        return x
-    from ..fem.gridfunction import VecShim, StandaloneVec
-
-    if isinstance(x, (VecShim, StandaloneVec)):
-        return x.data
-    if op is None:
-        return x
-    vals = getattr(op, "vals", None)
-    if torch.is_tensor(vals):
-        device, dtype = vals.device, vals.dtype
-    else:
-        device, dtype = getattr(op, "device", None), getattr(op, "dtype", None)
-        if not (isinstance(device, torch.device)
-                and isinstance(dtype, torch.dtype)):
-            return x
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 class SparseMatrix:
@@ -85,7 +59,7 @@ class SparseMatrix:
     def matvec(self, x):
         """A @ x for a tensor, a dof-vector shim (``gf.vec``) or a numpy
         array."""
-        return self._row_sums(self.vals * _as_array(x, self)[self.cols])
+        return self._row_sums(self.vals * as_input(x, self)[self.cols])
 
     __mul__ = matvec
     __matmul__ = matvec
@@ -228,8 +202,7 @@ class ELLMatrix:
         """A @ x (x a tensor, or a numpy array made a tensor here).  Under
         autograd (``ell_spmv.EllMatvec``) the backward's ``A^T g`` is the
         product of ``transposed()``."""
-        return ell_matvec(self.vals, self.cols, _as_array(x, self),
-                          self.layout(),
+        return ell_matvec(self.vals, self.cols, x, self.layout(),
                           lambda g: self.transposed().matvec(g))
 
     __mul__ = matvec
@@ -246,7 +219,11 @@ def dia_matvec(offsets, vals, x):
     `offsets` are host ints; each diagonal contributes one static shifted
     slice of x and an elementwise multiply-add.  Entries off the right/left
     end of a diagonal read zero padding, so boundary rows need no masking.
+    ``vals`` and ``x`` may be numpy (``x`` then goes to the device and
+    dtype of ``vals``).
     """
+    vals = as_input(vals, x if torch.is_tensor(x) else None)
+    x = as_input(x, vals)
     offs = [int(o) for o in np.asarray(offsets).tolist()]
     n = x.shape[0]
     mneg = max(-min(offs), 0)
@@ -282,7 +259,7 @@ class DIAMatrix:
                                             device=resolve_device(device)))
 
     def matvec(self, x):
-        return dia_matvec(self.offsets, self.vals, _as_array(x, self))
+        return dia_matvec(self.offsets, self.vals, x)
 
     __mul__ = matvec
     __matmul__ = matvec
@@ -383,7 +360,7 @@ class InverseMatrix:
         return self._factor
 
     def solve(self, rhs):
-        rhs = _as_array(rhs, self.mat)
+        rhs = as_input(rhs, self.mat)
         if self.path == "device_cg":  # no host round trip
             from .krylov import _cg_ell
 

@@ -19,12 +19,18 @@ class NewtonNonConvergenceWarning(UserWarning):
     and the documented low-order fallback was used for those points."""
 
 
-def emit_nonconverged(label, fallback, nonconv_count, total):
-    """Warn iff the count of non-converged points (an int or a 0-d tensor,
-    read back to the host here) is positive."""
-    n = int(nonconv_count)
+def warn_nonconverged(label, fallback, n, total=None):
+    """Warn iff the count ``n`` of non-converged points is positive."""
+    n = int(n)
     if n > 0:
+        tot = f"/{int(total)}" if total is not None else ""
         warnings.warn(
-            f"{label}: {n}/{int(total)} Newton points non-converged; "
+            f"{label}: {n}{tot} Newton points non-converged; "
             f"falling back to {fallback} there",
             NewtonNonConvergenceWarning, stacklevel=2)
+
+
+def emit_nonconverged(label, fallback, nonconv_count, total):
+    """``warn_nonconverged`` of the count of non-converged points (an int
+    or a 0-d tensor, read back to the host here)."""
+    warn_nonconverged(label, fallback, nonconv_count, total=total)

@@ -186,7 +186,7 @@ def test_dn_exactness():
     gf.Set(T.x**3 + T.x * T.y * T.y)
     ctx, e1, e2, w, mask = _skeleton_ctx(Integral(form=wrap(0.0),
                                                   skeleton=True),
-                                         mesh, 2 * order, "cpu")
+                                         mesh, 2 * order, device="cpu")
     n = ctx.normal
     xs = torch.broadcast_to(eval_pure(wrap(T.x), ctx), w.shape)
     ys = torch.broadcast_to(eval_pure(wrap(T.y), ctx), w.shape)

@@ -160,7 +160,7 @@ def test_dn_hdiv_exact_and_equal():
     mesh = T.MakeStructured2DMesh(quads=False, nx=2, ny=2)
     V = T.HDiv(mesh, order=0, **CPU)
     ctx, e1, _, _, _ = _skeleton_ctx(Integral(form=0.0, skeleton=True), mesh,
-                                     2, torch.device("cpu"))
+                                     2, device=torch.device("cpu"))
     arr = _np(V._dnk(ctx, 1))  # (F,Q,nfel,d)
     n, detJ = _np(ctx.normal), _np(ctx.detJ)
     sign = V.eldof_sign_np[_np(e1)]

@@ -635,3 +635,41 @@ def test_chip_smoke_phase_30_on_cpu(monkeypatch, capsys):
     for tag in ("[30 numpy rhs]", "[30 prolongation]",
                 "[30 compressed facet space]", "[30 whole]"):
         assert tag in text
+
+
+@pytest.mark.parametrize("numpy_mode", [False, True])
+def test_parity_rewrite_modes(numpy_mode):
+    """``tools/torch_parity.py``'s ``rewrite``: the JAX package's imports go
+    to the port in both modes; ``--numpy`` also turns ``import jax.numpy as
+    jnp`` (at any indent) into ``import numpy as jnp`` and touches nothing
+    else."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_parity", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "torch_parity.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = ("import jax\n"
+           "import jax.numpy as jnp\n"
+           "from ngsxfem_tpu import H1\n"
+           "import ngsxfem_tpu.solvers.krylov as K\n"
+           "from examples import cutfem\n"
+           "import examples\n"
+           "def f():\n"
+           "    import jax.numpy as jnp\n"
+           "    return jnp.asarray(jax.numpy.ones(2))\n"
+           "import jax.numpy as jnpx\n")
+    got = tool.rewrite(src, numpy_mode=numpy_mode)
+    jnp_line = "import numpy as jnp" if numpy_mode else "import jax.numpy as jnp"
+    assert got == ("import jax\n"
+                   f"{jnp_line}\n"
+                   "from ngsxfem_tpu_torch import H1\n"
+                   "import ngsxfem_tpu_torch.solvers.krylov as K\n"
+                   "from ngsxfem_tpu_torch.examples import cutfem\n"
+                   "import ngsxfem_tpu_torch.examples as examples\n"
+                   "def f():\n"
+                   f"    {jnp_line}\n"
+                   "    return jnp.asarray(jax.numpy.ones(2))\n"
+                   "import jax.numpy as jnpx\n")
+    assert tool.rewrite(src) == tool.rewrite(src, numpy_mode=False)

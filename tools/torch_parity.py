@@ -3,13 +3,17 @@
 Usage (from the repo root):
 
     python3 tools/torch_parity.py [-n WORKERS] [--keep DIR] [--timeout S]
-                                  [FILE_OR_TEST_ID ...]
+                                  [--numpy] [FILE_OR_TEST_ID ...]
 
 Each ``tests/test_*.py`` that is not a ``test_torch_*`` file (or only the
 named ones: ``test_misc.py`` or ``test_misc.py::test_timers``) is copied into
 a temporary directory with ``ngsxfem_tpu`` rewritten to ``ngsxfem_tpu_torch``
-and the ``examples`` imports to ``ngsxfem_tpu_torch.examples``.  A conftest
-beside the copies
+and the ``examples`` imports to ``ngsxfem_tpu_torch.examples``.  With
+``--numpy`` the copies also read ``import numpy as jnp`` where the tests say
+``import jax.numpy as jnp``, and nothing else changes: the tests then hand
+the port numpy arrays and numpy dtypes where they made jnp ones, which is
+what a caller of the port passes (the JAX functions take numpy too).  A
+conftest beside the copies
 
 - sends the port's entry points that are called without a device to the CPU
   (``config.resolve_device(None)`` becomes ``torch.device("cpu")`` in every
@@ -92,14 +96,18 @@ def pytest_configure(config):
 _PKG = re.compile(r"\bngsxfem_tpu\b")
 _FROM_EX = re.compile(r"^(\s*)from examples(?=[.\s])", re.M)
 _IMPORT_EX = re.compile(r"^(\s*)import examples\b", re.M)
+_JNP = re.compile(r"^(\s*)import jax\.numpy as jnp\b", re.M)
 
 
-def rewrite(src):
-    """The test source with the JAX package's imports sent to the port."""
+def rewrite(src, numpy_mode=False):
+    """The test source with the JAX package's imports sent to the port;
+    with ``numpy_mode`` also ``import jax.numpy as jnp`` -> ``import numpy
+    as jnp``."""
     src = _PKG.sub("ngsxfem_tpu_torch", src)
     src = _FROM_EX.sub(r"\1from ngsxfem_tpu_torch.examples", src)
-    return _IMPORT_EX.sub(r"\1import ngsxfem_tpu_torch.examples as examples",
-                          src)
+    src = _IMPORT_EX.sub(r"\1import ngsxfem_tpu_torch.examples as examples",
+                         src)
+    return _JNP.sub(r"\1import numpy as jnp", src) if numpy_mode else src
 
 
 def jax_test_files():
@@ -168,6 +176,9 @@ def main(argv=None):
                     "directory (made if missing) and keep it")
     ap.add_argument("--timeout", type=float, default=3600.0,
                     help="seconds before the pytest run is stopped")
+    ap.add_argument("--numpy", action="store_true",
+                    help="rewrite 'import jax.numpy as jnp' to 'import numpy "
+                    "as jnp' in the copies (the tests pass numpy values)")
     args = ap.parse_args(argv)
 
     files = jax_test_files()
@@ -192,7 +203,7 @@ def main(argv=None):
             with open(p) as f:
                 src = f.read()
             with open(os.path.join(work, os.path.basename(p)), "w") as f:
-                f.write(rewrite(src))
+                f.write(rewrite(src, args.numpy))
         with open(os.path.join(work, "conftest.py"), "w") as f:
             f.write(CONFTEST.format(repo=REPO))
         junit = os.path.join(work, "junit.xml")
