@@ -1,0 +1,21 @@
+"""Mean per call of the program's span ``spd_free_block``: the default
+``Inverse()``'s check on the card that the free block is symmetric with a
+positive diagonal, and its read-back (layer sparse)
+(the program's own record, ``ngsxfem_tpu_torch.utils.timing.spans``:
+``time.time_ns`` at its ends, the card not waited for), over the profiled
+sub-window of a traced run, ms.  None where the program keeps no such
+record."""
+
+SPAN = "spd_free_block"
+
+
+def read(ctx):
+    try:
+        from ngsxfem_tpu_torch.utils.timing import spans
+    except ImportError:  # a program without the span store
+        return None
+    d = [r["end_ns"] - r["start_ns"] for r in spans()
+         if r["name"] == SPAN and r["end_ns"] is not None]
+    if not d:
+        return None
+    return 1e-6 * sum(d) / len(d)

@@ -23,6 +23,7 @@ from ..config import as_input, config, resolve_device
 from ..cf.coefficient import CF, wrap
 from ..cf.context import EvalCtx, eval_pure
 from ..mesh.mesh import small_matmul
+from ..utils.timing import traced
 from .basis import shapes, dshapes
 from .space import (CompoundFESpace, FESpace, H1, GetDofsOfElements,
                     VectorFESpace)
@@ -390,6 +391,7 @@ def grad(obj):
     raise TypeError(f"grad() not supported for {type(obj)}")
 
 
+@traced("InterpolateToP1")
 def InterpolateToP1(levelset, gf_p1: GridFunction, eps_perturbation=None):
     """Vertex interpolation of a level set into a P1 GridFunction
     (cf. utils/p1interpol.hpp:25-37).  The epsilon-guard against exact zeros

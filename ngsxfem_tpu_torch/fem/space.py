@@ -23,6 +23,7 @@ import torch
 from ..config import resolve_device
 from ..mesh.mesh import Mesh, geom_shapes
 from ..ops.gauss import ET_NVERT
+from ..utils.timing import traced
 from .basis import facet_local_nodes, lagrange_element, ndof_el
 
 
@@ -449,6 +450,7 @@ def Compress(space: FESpace, active_dofs=None):
     return CompressedFESpace(space, active_dofs)
 
 
+@traced("GetDofsOfElements")
 def GetDofsOfElements(space, elem_mask) -> BitArray:
     """Dofs touched by marked elements (cf. xfem/cutinfo.cpp:281-329); of
     every component for a vector space."""

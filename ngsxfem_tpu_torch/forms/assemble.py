@@ -60,7 +60,7 @@ from ..ops.spacetimecut import time_tensorize
 from ..ops.straightcut import _gram_measure, cut_rule_simplices, eps_guard
 from ..fem.space import CompoundFESpace, VectorFESpace, _arr
 from ..solvers.sparse import SparseMatrix
-from ..utils.timing import Timer
+from ..utils.timing import traced
 from .evaluate import eval_form
 from .proxies import ProxyFunction
 
@@ -870,11 +870,10 @@ class BilinearForm:
         self.integrals.append(integral)
         return self
 
+    @traced("BilinearForm::Assemble")
     def Assemble(self, reallocate=False, heapsize=None):
         if not self.integrals:
             raise ValueError("no integrals to assemble")
-        # host clock only: the card is not waited for
-        _t = Timer("BilinearForm::Assemble", block=False).Start()
         vparts, rparts, cparts = [], [], []
         for m, rows, cols in map(_triplets, self._summed_batches()):
             vparts.append(m)
@@ -885,7 +884,6 @@ class BilinearForm:
                                 torch.cat(vparts),
                                 (self.space_v.ndof, self.space_u.ndof),
                                 device=self.space.device)
-        _t.Stop()
         return self
 
     def AssembleOperator(self, lattice="auto"):
@@ -1077,8 +1075,8 @@ class LinearForm:
 
         return StandaloneVec(self._vec)
 
+    @traced("LinearForm::Assemble")
     def Assemble(self, heapsize=None):
-        _t = Timer("LinearForm::Assemble", block=False).Start()
         space = self.space
         mesh = space.mesh
         device = space.device
@@ -1138,7 +1136,6 @@ class LinearForm:
             # a sharded mesh's ranks each filled their own rows
             hit[1].add(sum_over_ranks(mesh, torch.cat(contribs)), out)
         self._vec = out
-        _t.Stop()
         return self
 
 

@@ -22,6 +22,7 @@ from ..cf.coefficient import ElementValuesCF, FacetValuesCF
 from ..ops.straightcut import cut_rule_element, eps_guard
 from ..integrate import (ensure_p1_levelset, lset_st_vertex_values,
                          lset_vertex_values, _p1_vertex_dofs)
+from ..utils.timing import Timer, traced
 
 VOL = "VOL"
 BND = "BND"
@@ -62,6 +63,7 @@ class CutInfo:
         if levelset is not None:
             self.Update(levelset, time_order=time_order)
 
+    @traced("CutInfo::Update")
     def Update(self, levelset, time_order=-1, heapsize=None):
         from ..spacetime.space import SpaceTimeFESpace
 
@@ -72,31 +74,36 @@ class CutInfo:
         levelset = ensure_p1_levelset(levelset, mesh, self.device,
                                       cache_on=self)
         self._lset_gf = levelset
-        has_neg, has_pos, ratio, vg = _classify(mesh.et,
-                                                lset_vertex_values(levelset))
-        self.dt_of_elem = _dt(has_neg, has_pos)
-        self.cut_ratio = ratio.cpu().numpy()
+        with Timer("CutInfo::Update::classify", block=False):
+            has_neg, has_pos, ratio, vg = _classify(
+                mesh.et, lset_vertex_values(levelset))
+            # vertex domain classification (dom_of_node analog,
+            # cutinfo.cpp:151-186)
+            els = mesh.device_view(vg.device, vg.dtype)[1].reshape(-1)
+            vneg = torch.zeros(mesh.nv, dtype=torch.int32, device=vg.device)
+            vpos = torch.zeros(mesh.nv, dtype=torch.int32, device=vg.device)
+            vneg.index_add_(0, els, (vg < 0).to(torch.int32).reshape(-1))
+            vpos.index_add_(0, els, (vg > 0).to(torch.int32).reshape(-1))
+        with Timer("CutInfo::Update::marks", block=False):
+            self.dt_of_elem = _dt(has_neg, has_pos)
+            self.cut_ratio = ratio.cpu().numpy()
+            self.dt_of_vertex = _dt(vneg > 0, vpos > 0)
 
-        # vertex domain classification (dom_of_node analog, cutinfo.cpp:151-186)
-        els = mesh.device_view(vg.device, vg.dtype)[1].reshape(-1)
-        vneg = torch.zeros(mesh.nv, dtype=torch.int32, device=vg.device)
-        vpos = torch.zeros(mesh.nv, dtype=torch.int32, device=vg.device)
-        vneg.index_add_(0, els, (vg < 0).to(torch.int32).reshape(-1))
-        vpos.index_add_(0, els, (vg > 0).to(torch.int32).reshape(-1))
-        self.dt_of_vertex = _dt(vneg > 0, vpos > 0)
+            # facet classification from its elements (used by facet set
+            # queries)
+            f2e = mesh.facet2el_np
+            dtl = self.dt_of_elem[f2e[:, 0]]
+            dtr = np.where(f2e[:, 1] >= 0,
+                           self.dt_of_elem[np.maximum(f2e[:, 1], 0)], dtl)
+            bits_l = np.left_shift(1, dtl.astype(np.int32))
+            bits_r = np.left_shift(1, dtr.astype(np.int32))
+            self.cdt_of_facet = (bits_l | bits_r).astype(np.int8)
 
-        # facet classification from its elements (used by facet set queries)
-        f2e = mesh.facet2el_np
-        dtl = self.dt_of_elem[f2e[:, 0]]
-        dtr = np.where(f2e[:, 1] >= 0, self.dt_of_elem[np.maximum(f2e[:, 1], 0)], dtl)
-        bits_l = np.left_shift(1, dtl.astype(np.int32))
-        bits_r = np.left_shift(1, dtr.astype(np.int32))
-        self.cdt_of_facet = (bits_l | bits_r).astype(np.int8)
-
-        # boundary ("BND") element classification + ratios: the reference
-        # Update loops VOL and BND (xfem/cutinfo.cpp:54-188); BND elements are
-        # the boundary facets, classified by the codim-1 cut rule
-        self._update_bnd(levelset)
+            # boundary ("BND") element classification + ratios: the
+            # reference Update loops VOL and BND (xfem/cutinfo.cpp:54-188);
+            # BND elements are the boundary facets, classified by the
+            # codim-1 cut rule
+            self._update_bnd(levelset)
 
     def _update_bnd(self, levelset):
         from ..mesh.mesh import FACET_ET
@@ -158,6 +165,7 @@ class CutInfo:
         self.cut_ratio_bnd = None
 
     # -- queries -------------------------------------------------------------
+    @traced("GetElementsOfType")
     def GetElementsOfType(self, dt=IF, VOL_or_BND=VOL) -> BitArray:
         cdt = int(as_cdt(dt))
         if VOL_or_BND != VOL and self.dt_of_belem is None:
@@ -188,6 +196,7 @@ class CutInfo:
 # -- facet / element set algebra (cf. xfem/cutinfo.cpp:191-329) -------------
 
 
+@traced("GetFacetsWithNeighborTypes")
 def GetFacetsWithNeighborTypes(mesh, a, b=None, bnd_val_a=True, bnd_val_b=True,
                                use_and=True, ngsxfemcompat=True) -> BitArray:
     """Facets whose neighbor elements satisfy (a_left & b_right)|(b_left & a_right)

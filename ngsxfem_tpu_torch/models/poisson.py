@@ -34,6 +34,7 @@ from ..fem.basis import ndof_el, lagrange_element, shapes, dshapes
 from ..integrate import vertex_local_ids
 from ..mesh.mesh import map_points, det_and_inv, pointwise_pow, small_matmul
 from ..ops.straightcut import cut_rule_element, eps_guard, eps_guard_list
+from ..utils.timing import Timer, traced
 
 
 def cut_poisson_elmats(et: str, order: int, coords, vals, lam_nitsche=20.0):
@@ -630,6 +631,7 @@ class UnfittedPoisson(nn.Module):
         device and in its dtype; a tensor comes back as it is."""
         return [as_input(a, self.lset) for a in arrays]
 
+    @traced("UnfittedPoisson::active_dof_mask")
     def active_dof_mask(self, lset_vertex):
         """Runtime active-dof mask from the CURRENT level set (has_neg
         dilated through el2dof), same raw sign convention as ``__init__``."""
@@ -1522,6 +1524,7 @@ class UnfittedPoisson(nn.Module):
             types.append((ta, tb, dlt, groups))
         return types
 
+    @traced("UnfittedPoisson::assemble_vals_lattice")
     def assemble_vals_lattice(self, vertices, lset_vertex, struct,
                               planes=None):
         """Gather-free lattice assembly of the DIA table.
@@ -1573,89 +1576,98 @@ class UnfittedPoisson(nn.Module):
         def sl(dsp):
             return tuple(slice(dz, dz + c) for dz, c in zip(dsp, cshape))
 
-        x = []
-        lv = []
-        for c in range(nv):
-            node = int(vperm[c])
-            dsps = [_disp(int(D[t, node]), d, nv1) for t in range(S)]
-            x.append([torch.stack([vlat[sl(dsps[t]) + (a,)].reshape(-1)
-                                   for t in range(S)]) for a in range(d)])
-            lv.append(torch.stack([llat[sl(dsps[t])].reshape(-1)
-                                   for t in range(S)]))
-        # raw-sign element activity BEFORE the eps guard — the identity-row
-        # weights follow the same raw sign convention as __init__
-        raw_neg = lv[0] < 0
-        for v in lv[1:]:
-            raw_neg = raw_neg | (v < 0)
-        lv = eps_guard_list(lv)
-        has_neg = lv[0] < 0
-        has_pos = lv[0] > 0
-        for v in lv[1:]:
-            has_neg = has_neg | (v < 0)
-            has_pos = has_pos | (v > 0)
-        ncut = (has_neg & has_pos).sum()
-
-        det, Jinv = _soa_jacobian(x, d)
-        A = cut_poisson_flat_soa(et, lv, det, Jinv, self.lam_nitsche)
-
-        # the reference's functional `V.at[idx].add(lat)` becomes an in-place
-        # `V[idx] += lat` on a view of the lattice-shaped table
-        V = torch.zeros((n_off,) + vshape, dtype=vertices.dtype,
-                        device=vertices.device)
-        for (k, dsp), combos in sorted(groups.items()):
-            s = None
-            for (t, i, j) in combos:
-                term = A[i][j][t]
-                s = term if s is None else s + term
-            V[(k,) + sl(dsp)] += s.reshape(cshape)
-
-        # ghost penalty: lattice facet-type sweep — corner coords are window
-        # slices, the band mask is computed from the current lset, and the
-        # contributions are windowed adds (no gathers, no scatters)
-        if not hasattr(self, "_gp_lattice_cache"):
-            self._gp_lattice_cache = self.gp_lattice_types(offsets)
-        cut_e = has_neg & has_pos          # (S, nc)
-        cutL = [cut_e[t].reshape(cshape) for t in range(S)]
-        negL = [has_neg[t].reshape(cshape) for t in range(S)]
-
-        def cdisp(t, c):
-            return _disp(int(D[t, int(vperm[c])]), d, nv1)
-
-        for (ta, tb, dlt, ggroups) in self._gp_lattice_cache:
-            win = tuple(max(cshape[ax] - dlt[ax], 0) for ax in range(d))
-
-            def wsl(extra):
-                return tuple(slice(extra[ax], extra[ax] + win[ax])
-                             for ax in range(d))
-
-            x1 = [[vlat[wsl(cdisp(ta, c)) + (a,)] for a in range(d)]
-                  for c in range(nv)]
-            x2 = [[vlat[wsl(tuple(cdisp(tb, c)[ax] + dlt[ax]
-                                  for ax in range(d))) + (a,)]
-                   for a in range(d)] for c in range(nv)]
-            Agp = ghost_penalty_flat_soa(et, x1, x2, self.gamma_gp)
-            w0 = tuple(slice(0, win[ax]) for ax in range(d))
-            wd = tuple(slice(dlt[ax], dlt[ax] + win[ax]) for ax in range(d))
-            mask = ((cutL[ta][w0] & negL[tb][wd])
-                    | (cutL[tb][wd] & negL[ta][w0])).to(vertices.dtype)
-            for (k, dsp), ijs in sorted(ggroups.items()):
-                s = None
-                for (i, j) in ijs:
-                    s = Agp[i][j] if s is None else s + Agp[i][j]
-                tgt = (k,) + tuple(slice(dsp[ax], dsp[ax] + win[ax])
-                                   for ax in range(d))
-                V[tgt] += s * mask
-
-        # identity rows for inactive dofs: a vertex dof is active iff some
-        # incident element has a negative vertex, i.e. the dilation of the
-        # per-type raw has_neg element lattices through the corner
-        # displacements (the reference pads and ORs; here each element
-        # lattice is OR-ed into its window of one vertex lattice in place)
-        act = torch.zeros(vshape, dtype=torch.bool, device=vertices.device)
-        for t in range(S):
-            nl = raw_neg[t].reshape(cshape)
+        with Timer("UnfittedPoisson::assemble_vals_lattice::elements",
+                   block=False):
+            x = []
+            lv = []
             for c in range(nv):
-                act[sl(cdisp(t, c))] |= nl
-        idx0 = int(np.searchsorted(offsets, 0))
-        V[idx0] += 1.0 - act.to(vertices.dtype)
+                node = int(vperm[c])
+                dsps = [_disp(int(D[t, node]), d, nv1) for t in range(S)]
+                x.append([torch.stack([vlat[sl(dsps[t]) + (a,)].reshape(-1)
+                                       for t in range(S)]) for a in range(d)])
+                lv.append(torch.stack([llat[sl(dsps[t])].reshape(-1)
+                                       for t in range(S)]))
+            # raw-sign element activity BEFORE the eps guard — the
+            # identity-row weights follow the same raw sign convention as
+            # __init__
+            raw_neg = lv[0] < 0
+            for v in lv[1:]:
+                raw_neg = raw_neg | (v < 0)
+            lv = eps_guard_list(lv)
+            has_neg = lv[0] < 0
+            has_pos = lv[0] > 0
+            for v in lv[1:]:
+                has_neg = has_neg | (v < 0)
+                has_pos = has_pos | (v > 0)
+            ncut = (has_neg & has_pos).sum()
+
+            det, Jinv = _soa_jacobian(x, d)
+            A = cut_poisson_flat_soa(et, lv, det, Jinv, self.lam_nitsche)
+
+            # the reference's functional `V.at[idx].add(lat)` becomes an
+            # in-place `V[idx] += lat` on a view of the lattice-shaped table
+            V = torch.zeros((n_off,) + vshape, dtype=vertices.dtype,
+                            device=vertices.device)
+            for (k, dsp), combos in sorted(groups.items()):
+                s = None
+                for (t, i, j) in combos:
+                    term = A[i][j][t]
+                    s = term if s is None else s + term
+                V[(k,) + sl(dsp)] += s.reshape(cshape)
+
+        with Timer("UnfittedPoisson::assemble_vals_lattice::ghost_penalty",
+                   block=False):
+            # ghost penalty: lattice facet-type sweep — corner coords are
+            # window slices, the band mask is computed from the current lset,
+            # and the contributions are windowed adds (no gathers, no
+            # scatters)
+            if not hasattr(self, "_gp_lattice_cache"):
+                self._gp_lattice_cache = self.gp_lattice_types(offsets)
+            cut_e = has_neg & has_pos          # (S, nc)
+            cutL = [cut_e[t].reshape(cshape) for t in range(S)]
+            negL = [has_neg[t].reshape(cshape) for t in range(S)]
+
+            def cdisp(t, c):
+                return _disp(int(D[t, int(vperm[c])]), d, nv1)
+
+            for (ta, tb, dlt, ggroups) in self._gp_lattice_cache:
+                win = tuple(max(cshape[ax] - dlt[ax], 0) for ax in range(d))
+
+                def wsl(extra):
+                    return tuple(slice(extra[ax], extra[ax] + win[ax])
+                                 for ax in range(d))
+
+                x1 = [[vlat[wsl(cdisp(ta, c)) + (a,)] for a in range(d)]
+                      for c in range(nv)]
+                x2 = [[vlat[wsl(tuple(cdisp(tb, c)[ax] + dlt[ax]
+                                      for ax in range(d))) + (a,)]
+                       for a in range(d)] for c in range(nv)]
+                Agp = ghost_penalty_flat_soa(et, x1, x2, self.gamma_gp)
+                w0 = tuple(slice(0, win[ax]) for ax in range(d))
+                wd = tuple(slice(dlt[ax], dlt[ax] + win[ax])
+                           for ax in range(d))
+                mask = ((cutL[ta][w0] & negL[tb][wd])
+                        | (cutL[tb][wd] & negL[ta][w0])).to(vertices.dtype)
+                for (k, dsp), ijs in sorted(ggroups.items()):
+                    s = None
+                    for (i, j) in ijs:
+                        s = Agp[i][j] if s is None else s + Agp[i][j]
+                    tgt = (k,) + tuple(slice(dsp[ax], dsp[ax] + win[ax])
+                                       for ax in range(d))
+                    V[tgt] += s * mask
+
+        with Timer("UnfittedPoisson::assemble_vals_lattice::identity_rows",
+                   block=False):
+            # identity rows for inactive dofs: a vertex dof is active iff some
+            # incident element has a negative vertex, i.e. the dilation of the
+            # per-type raw has_neg element lattices through the corner
+            # displacements (the reference pads and ORs; here each element
+            # lattice is OR-ed into its window of one vertex lattice in place)
+            act = torch.zeros(vshape, dtype=torch.bool, device=vertices.device)
+            for t in range(S):
+                nl = raw_neg[t].reshape(cshape)
+                for c in range(nv):
+                    act[sl(cdisp(t, c))] |= nl
+            idx0 = int(np.searchsorted(offsets, 0))
+            V[idx0] += 1.0 - act.to(vertices.dtype)
         return V.reshape(n_off, -1), ncut

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from ..config import as_input
+from ..utils.timing import traced
 
 # launches of the CUDA kernel (one per `ell_matvec` call on CUDA tensors with
 # at least one row) and layouts made by `prepare_ell`; read and reset by
@@ -167,6 +168,7 @@ def _check(vals, cols, x):
         raise ValueError("x must be contiguous")
 
 
+@traced("prepare_ell")
 def prepare_ell(vals, cols, ncols=None):
     """The SELL-32-1024 layout of the ELL table (vals, cols) (n, K), for x
     of length ``ncols`` (default n), built with torch ops on the table's

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..config import as_input
+from ..utils.timing import count, traced
 
 
 def _owner(f):
@@ -35,6 +36,7 @@ def _vdot(a, b):
     return torch.dot(a.double(), b.double()).to(a.dtype)
 
 
+@traced("cg")
 def cg(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10, dot=None):
     """Preconditioned conjugate gradients; returns (x, iters, res_norm).
 
@@ -72,6 +74,7 @@ def cg(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10, dot=None):
         p = z + beta * p
         rz = rz_new
         k += 1
+    count("cg::iterations", k)
     return x, k, torch.sqrt(vdot(r, r))
 
 
@@ -191,6 +194,7 @@ def minres(matvec, b, x0=None, M=None, maxiter=500, tol=1e-10):
     return x, k, phibar / beta1.clamp_min(1e-30)
 
 
+@traced("cg_ir")
 def cg_ir(matvec32, matvec64, b, M=None, outer=4, inner=120, dot=None):
     """Mixed-precision iterative refinement: f32 inner PCG, f64 outer
     residual.

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..config import as_input, config, resolve_device
 from ..ops.scatter import ScatterPlan
+from ..utils.timing import traced
 from . import ell_spmv
 from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
 
@@ -83,6 +84,7 @@ class SparseMatrix:
         return self._row_sums(torch.where(self.rows == self.cols, self.vals,
                                           0.0))
 
+    @traced("SparseMatrix::to_ell")
     def to_ell(self):
         """Padded ELL copy (host conversion, as the reference's): duplicate
         (row, col) entries summed in f64 through the native open-addressing
@@ -286,6 +288,7 @@ def _on_card(mat):
     return mat.vals.is_cuda
 
 
+@traced("spd_free_block")
 def spd_free_block(ell, free):
     """Whether the free block of the ELL matrix is symmetric to
     ``SPD_SYM_TOL`` of its largest entry with a positive diagonal: the
@@ -324,6 +327,7 @@ class InverseMatrix:
 
     _DIRECT = ("", "sparsecholesky", "umfpack", "pardiso", "masterinverse")
 
+    @traced("InverseMatrix::InverseMatrix")
     def __init__(self, mat: SparseMatrix, freedofs=None, method=""):
         if mat.shape[0] != mat.shape[1]:
             raise ValueError(
@@ -359,6 +363,7 @@ class InverseMatrix:
             self._factor = (splu(Af), idx)
         return self._factor
 
+    @traced("InverseMatrix::Solve")
     def solve(self, rhs):
         rhs = as_input(rhs, self.mat)
         if self.path == "device_cg":  # no host round trip
