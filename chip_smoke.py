@@ -19,7 +19,10 @@ the matrix-free operators and the solve on a sharded mesh, in phase 28,
 the reference's other assembly routes of the flagship in phase 29, and the
 public-API paths the parity run with the JAX package's own tests repaired
 (numpy vectors at the solvers and transfers, ``Compress`` of a facet space,
-the assembly timers) in phase 30:
+the assembly timers) in phase 30, and the card's ELL conversion of
+``SparseMatrix.to_ell`` (every table built on the card in phases 3-31 held
+to its plain version and the host conversion between phases, then timed on
+the nx=48 forms table) in phase 32:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -189,7 +192,7 @@ Phases, one line each:
    sizes';
 17. the card-size calls of phase 16: ``Assemble`` by CUDA events and under
    ``torch.profiler`` (device kernels, busy, idle share, host seconds),
-   ``to_ell`` (host), each solve over a window of 100 iterations, peak
+   ``to_ell`` (on the card), each solve over a window of 100 iterations, peak
    memory;
 18. the isoparametric path at the JAX package's test sizes, launch counters
    reset before it (with phase 19), card against this host's CPU to 1e-8,
@@ -204,7 +207,7 @@ Phases, one line each:
    (663,552 tets) and order 3 nx=24, and ``tracefem3d`` order 2 at nx=32,
    each built once through its ``system()``: ``CalcDeformation`` and
    ``CalcMaxDistance`` by CUDA events, ``Assemble`` by events and under
-   ``torch.profiler``, ``to_ell`` (host), ``a.mat`` symmetric to 1e-12, B2
+   ``torch.profiler``, ``to_ell`` (card), ``a.mat`` symmetric to 1e-12, B2
    == both plain versions bitwise on each table (a seeded x, the masked
    load) with its times, bounds, cuSPARSE and slice fill as in phase 8, the
    default ``Inverse()`` on path ``device_cg`` with ell_spmv launches ==
@@ -373,11 +376,21 @@ Phases, one line each:
    default ``Inverse()`` (Jacobi-CG through B2, launches == products);
    ``GetTimers()`` after that card ``Assemble`` and a ``LinearForm``'s has
    both ``::Assemble`` keys, once each; ms by CUDA events (the record's
-   ``launches_slice15``).
+   ``launches_slice15``);
+32. ``SparseMatrix.to_ell`` on the card: every table that ``coo_ell``
+   built on the card in phases 3-31 (``to_ell_audit``, checked between
+   phases: ``[to_ell audit]`` lines) equals, bit for bit, the plain
+   version's on the card and the host conversion's of its triplets, and
+   ``coo_ell.launches`` then equals the number of those with an entry; on
+   phase 14's nx=48 forms ``a.mat``, launch counter reset just before, one
+   ``to_ell`` is one launch and its table equals phase 14's view, with the
+   call's and the kernel's times, the kernel's bound, the plain version and
+   ``coalesce`` (the record's ``coo_ell_place`` entry).
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
-``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` (B1, B2 and ``coo_ell_place``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -534,6 +547,11 @@ def time_ms(fn, reps=5):
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def ran_on(device):
+    """Where ``SparseMatrix.to_ell`` runs for tensors on ``device``."""
+    return "card" if device.type == "cuda" else "host"
 
 
 def per_call_ms(fn, calls):
@@ -1576,7 +1594,7 @@ def b2_on_table(label, ell, free, load, device):
 def card_size(name, build, device, lift=None, minres_pre=None):
     """One workload at its card size, built once through its module's
     ``system()`` (``build()`` returns its tuple): ``Assemble`` (seconds by
-    the host clock), ``to_ell`` (host numpy), B2 on the table, the device
+    the host clock), ``to_ell`` (host clock), B2 on the table, the device
     solve (``Inverse(free, inverse="cg")``, or ``MinResSolver`` with the
     preconditioner ``minres_pre(a, parts)``) with its ell_spmv launches
     against the solver's products, the true residual and the L2 error.
@@ -1598,7 +1616,7 @@ def card_size(name, build, device, lift=None, minres_pre=None):
     out["assemble_s"] = time.perf_counter() - t0
     out["ntriplets"] = int(a.mat.vals.shape[0])
     t0 = time.perf_counter()
-    ell = a.mat.ell()  # the cached ELL view: to_ell on the host, once
+    ell = a.mat.ell()  # the cached ELL view: to_ell, once
     sync(device)
     out["to_ell_s"] = time.perf_counter() - t0
     lift = None if lift is None else lift(parts)
@@ -1828,7 +1846,7 @@ def phases_16_17(T, dev, t_start):
               f"dofs, {b['ntriplets']} COO triplets, ELL {b2['n']} x "
               f"{b2['K']} {b2['dtype']}; system() {b['system_s']:.2f} s, "
               f"Assemble (a and f) {b['assemble_s']:.2f} s, to_ell "
-              f"{b['to_ell_s']:.2f} s (host); {b['kind']} solve "
+              f"{b['to_ell_s']:.2f} s ({ran_on(dev)}); {b['kind']} solve "
               f"{b['iters']} iterations = {b['products']} products = "
               f"{b['launches']} ell_spmv launches, {b['layouts']} layout "
               f"built, {b['solve_ms']:.1f} ms, true rel res "
@@ -1864,7 +1882,7 @@ def phases_16_17(T, dev, t_start):
               f"a {WINDOW}-iteration window {wms:.3f} ms, {nk} device kernels "
               f"({nk / WINDOW:.1f} per iteration), device busy {busy:.3f} ms, "
               f"idle share {1 - busy / wall:.3f}; to_ell {b['to_ell_s']:.3f} s "
-              f"(host numpy); peak memory {b['peak_gib']:.2f} GiB", flush=True)
+              f"({ran_on(dev)}); peak memory {b['peak_gib']:.2f} GiB", flush=True)
     print(f"[17 times] peak memory {peak_gib(dev):.2f} GiB | wall of phase 17 "
           f"{time.perf_counter() - t0:.2f} s, of the whole run "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
@@ -1922,7 +1940,7 @@ def no_shift_warning(fn):
 def iso_solve(label, parts, device, detail=True, keep=False):
     """One assembled isoparametric system, built once through an example's
     ``system()`` (``parts``; the mesh holds the deformation): ``Assemble``
-    by CUDA events and under ``torch.profiler``, ``to_ell`` (host), the
+    by CUDA events and under ``torch.profiler``, ``to_ell`` (host clock), the
     symmetry of ``a.mat``, B2 on its table (with ``detail``), the default
     ``Inverse()`` solve on the card (path ``device_cg``, ell_spmv launches
     == products == iterations + 1, the true residual) and the L2 error.
@@ -1949,7 +1967,7 @@ def iso_solve(label, parts, device, detail=True, keep=False):
                                 for k, (c, us) in top))
         out["ntriplets"] = int(a.mat.vals.shape[0])
         t0 = time.perf_counter()
-        ell = a.mat.ell()  # the cached ELL view: to_ell on the host, once
+        ell = a.mat.ell()  # the cached ELL view: to_ell, once
         sync(device)
         out["to_ell_s"] = time.perf_counter() - t0
         out["n"], out["K"] = (int(s) for s in ell.vals.shape)
@@ -2167,7 +2185,8 @@ def phases_18_19(T, dev, t_start):
               f"{pa[4]}), LinearForm.Assemble {b['asm_f_ms']:.1f} ms "
               f"({pf[0]} kernels, busy {pf[1]:.1f} ms, idle {pf[2]:.3f}); "
               f"{b['ntriplets']} COO triplets, to_ell {b['to_ell_s']:.2f} s "
-              f"(host), ELL {b['n']} x {b['K']} ({b['nnz']} nonzeros), a.mat "
+              f"({ran_on(dev)}), ELL {b['n']} x {b['K']} ({b['nnz']} "
+              f"nonzeros), a.mat "
               f"asymmetry {b['asym']:.2e}; default Inverse() {b['path']}: "
               f"{b['iters']} iterations = {b['products']} products = "
               f"{b['launches']} ell_spmv launches, {b['solve_ms']:.1f} ms, "
@@ -2969,7 +2988,7 @@ def subdiv_card(T, device):
 
 def hdg_card(T, device, small_err):
     """Phase 23, ``tracefem_hdg`` order 2 at ``HDG_BIG_NX``, each built once
-    through ``system()``: ``Assemble`` by CUDA events, ``to_ell`` (host),
+    through ``system()``: ``Assemble`` by CUDA events, ``to_ell`` (host clock),
     the default ``Inverse()`` (its path; on ``device_cg`` ell_spmv launches
     == products == iterations + 1), the L2 error below nx=16's."""
     from ngsxfem_tpu_torch import GridFunction
@@ -3117,7 +3136,8 @@ def phases_22_23(T, dev, t_start, iso):
         print(f"[23 hdg] {card()} | tracefem_hdg P2 nx={r['nx']} "
               f"({r['ndof']} dofs, {r['nfree']} free): BilinearForm.Assemble "
               f"{r['asm_a_ms']:.1f} ms, LinearForm.Assemble "
-              f"{r['asm_f_ms']:.1f} ms, to_ell {r['to_ell_s']:.3f} s (host), "
+              f"{r['asm_f_ms']:.1f} ms, to_ell {r['to_ell_s']:.3f} s "
+              f"({ran_on(dev)}), "
               f"default Inverse() {r['path']}: {r['iters']} iterations, "
               f"{r['products']} products, {r['launches']} ell_spmv launches, "
               f"{r['solve_ms']:.1f} ms; L2 {r['err']:.10e}; peak memory "
@@ -3734,7 +3754,8 @@ def phases_24_25(T, dev, t_start):
           f"{UNSTR_NPTS} points) {u['ne0']} trigs in {u['delaunay_s']:.2f} s, "
           f"Refine() -> {u['ne']} trigs ({u['nv']} vertices) in "
           f"{u['refine_s']:.2f} s (host); examples.cutfem on it: L2 "
-          f"{u['err']:.6e}, to_ell {u['to_ell_s']:.2f} s (host), default "
+          f"{u['err']:.6e}, to_ell {u['to_ell_s']:.2f} s ({ran_on(dev)}), "
+          f"default "
           f"Inverse() {u['path']}: {u['iters']} iterations, {u['products']} "
           f"products, {u['launches']} ell_spmv launches, solve "
           f"{u['solve_s'] * 1e3:.1f} ms (events); wall {u['wall_s']:.2f} s; peak "
@@ -5036,6 +5057,178 @@ def p31_ms(ms):
                       for k in ("numpy", "tensor"))
 
 
+# --- to_ell on the card: every table held to the plain version and the host
+# conversion, and phase 32 -----------------------------------------------
+
+AUDIT_CAP_BYTES = 16 << 30  # triplets held before the audit checks at once
+
+
+def _same_ell(c1, v1, c2, v2):
+    """Two ELL tables equal bit for bit: shapes, int32 columns, the bits of
+    the values."""
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return (c1.shape == c2.shape and c1.dtype == c2.dtype == torch.int32
+            and v1.dtype == v2.dtype and torch.equal(c1.cpu(), c2.cpu())
+            and torch.equal(v1.cpu().view(bits[v1.dtype]),
+                            v2.cpu().view(bits[v2.dtype])))
+
+
+class to_ell_audit:
+    """While active, holds every table that ``SparseMatrix.to_ell`` builds on
+    the card (``coo_ell.coo_to_ell`` on CUDA tensors) with its triplets;
+    ``check(label)`` holds each against the plain version
+    (``coo_ell.place_plain``) on the card and against the host conversion
+    (``to_ell`` on CPU copies), bit for bit, prints one line and lets them
+    go.  ``main`` checks between phases, so that no phase's times include
+    the checks, unless the held triplets pass ``AUDIT_CAP_BYTES``: then the
+    check runs at once, and its line says so.  Conversions inside the
+    spawned ranks of phase 28 run in other processes and are not held."""
+
+    def __init__(self):
+        self.held, self.bytes = [], 0
+        self.tables = self.launching = self.triplets = 0
+        self.largest = None
+        self.seconds = 0.0
+
+    def __enter__(self):
+        from ngsxfem_tpu_torch.solvers import sparse
+
+        self.sparse, self.orig = sparse, sparse.coo_to_ell
+
+        def run(rows, cols, vals, shape):
+            out = self.orig(rows, cols, vals, shape)
+            if vals.is_cuda:
+                self.held.append((rows, cols, vals, tuple(shape), out))
+                self.bytes += rows.nbytes + cols.nbytes + vals.nbytes
+                if self.bytes > AUDIT_CAP_BYTES:
+                    self.check("held triplets over the cap, checked at once")
+            return out
+
+        sparse.coo_to_ell = run
+        return self
+
+    def __exit__(self, *exc):
+        self.sparse.coo_to_ell = self.orig
+
+    def check(self, label):
+        from ngsxfem_tpu_torch.solvers import coo_ell
+
+        t0 = time.perf_counter()
+        held, self.held, self.bytes = self.held, [], 0
+        triplets = 0
+        kernel = coo_ell._place_kernel
+        for rows, cols, vals, shape, (c, v, nu) in held:
+            T = int(vals.shape[0])
+            coo_ell._place_kernel = coo_ell.place_plain
+            try:
+                pc, pv, pnu = self.orig(rows, cols, vals, shape)
+            finally:
+                coo_ell._place_kernel = kernel
+            what = f"to_ell of {T} triplets, shape {shape}, {vals.dtype}"
+            check(pnu == nu and _same_ell(c, v, pc, pv),
+                  f"{what}: the kernel's table != place_plain's on the card")
+            host = self.sparse.SparseMatrix(
+                rows.cpu(), cols.cpu(), vals.cpu(), shape,
+                device="cpu").to_ell()
+            check(_same_ell(c, v, host.cols, host.vals),
+                  f"{what}: the card's table != the host conversion's")
+            triplets += T
+            self.launching += nu > 0
+            if self.largest is None or T > self.largest["triplets"]:
+                self.largest = {"triplets": T, "entries": nu,
+                                "n": int(c.shape[0]), "K": int(c.shape[1]),
+                                "dtype": str(vals.dtype)[6:]}
+            del pc, pv, host
+        self.tables += len(held)
+        self.triplets += triplets
+        dt = time.perf_counter() - t0
+        self.seconds += dt
+        print(f"[to_ell audit] {label}: {len(held)} tables built on the card "
+              f"({triplets} triplets) == place_plain on the card == the host "
+              f"conversion, bit for bit; {self.tables} tables so far; check "
+              f"{dt:.2f} s", flush=True)
+
+
+def phase_32(dev, S, t_start):
+    """Phase 32: ``SparseMatrix.to_ell`` on the card on the main path's
+    table, phase 14's ``examples.fictdom3d`` P1 f64 nx=48 ``a.mat`` (the
+    benchmark's fictdom3d-p1-forms matrix at the fixed sphere),
+    ``coo_ell.launches`` reset just before: one call is one launch of the
+    kernel ``csrc/coo_ell.cu``, and its table equals phase 14's cached view,
+    the plain version's (``place_plain``) on the card and the host
+    conversion's bit for bit.  Then the whole call (median of 20 by CUDA
+    events), the kernel's device time per launch (``torch.profiler`` over 20
+    calls), its bound from this table's counts (the bytes of
+    ``tools/torch_to_ell_before_after.kernel_bytes``, one f64 add per
+    triplet), the plain version on the card and ``coalesce`` (the dedup and
+    sum alone, no placement) as yardsticks.  Returns the kernel record."""
+    if TOOLS not in sys.path:
+        sys.path.insert(0, TOOLS)
+    import torch_to_ell_before_after as before_after
+    from ngsxfem_tpu_torch.solvers import coo_ell, sparse
+
+    t0 = time.perf_counter()
+    before = coo_ell.launches
+    torch.cuda.synchronize()
+    coo_ell.launches = 0
+    E = S.to_ell()
+    torch.cuda.synchronize()
+    launches = coo_ell.launches
+    check(launches == 1, f"to_ell launched coo_ell {launches} times, not 1")
+    check(_same_ell(E.cols, E.vals, S.ell().cols, S.ell().vals),
+          "to_ell != phase 14's cached ELL view")
+    T = int(S.vals.shape[0])
+    n, K = (int(x) for x in E.vals.shape)
+    kernel = coo_ell._place_kernel
+    coo_ell._place_kernel = coo_ell.place_plain
+    try:
+        pc, pv, nu = coo_ell.coo_to_ell(S.rows, S.cols, S.vals, S.shape)
+        plain_ms = time_ms(S.to_ell, reps=3)
+    finally:
+        coo_ell._place_kernel = kernel
+    check(_same_ell(E.cols, E.vals, pc, pv),
+          "to_ell on the card != place_plain on the card")
+    host = sparse.SparseMatrix(S.rows.cpu(), S.cols.cpu(), S.vals.cpu(),
+                               S.shape, device="cpu").to_ell()
+    check(_same_ell(E.cols, E.vals, host.cols, host.vals),
+          "to_ell on the card != the host conversion")
+    del pc, pv, host
+    path_ms = time_ms(S.to_ell, reps=20)
+    l0 = coo_ell.launches
+    kern, _ = device_kernels(S.to_ell, 20)
+    check(coo_ell.launches - l0 == 21, f"{coo_ell.launches - l0} coo_ell "
+          f"launches in 21 to_ell calls")
+    # the profiler may drop an event of a window: per launch it records
+    mine = [v for name, v in kern.items() if before_after.KERNEL in name]
+    check(len(mine) == 1, f"profiled coo_ell kernels {mine}")
+    dev_us = mine[0][1] / mine[0][0]
+    vb = E.vals.element_size()
+    bound_ms, bound_by = bound(before_after.kernel_bytes(T, nu, n, vb), T,
+                               F64_FLOP_PER_S)
+    idx = torch.stack([S.rows.long(), S.cols.long()])
+    with warnings.catch_warnings():  # "beta state" notices of torch.sparse
+        warnings.simplefilter("ignore")
+        lib_ms = time_ms(lambda: torch.sparse_coo_tensor(
+            idx, S.vals, S.shape).coalesce(), reps=5)
+    print(f"[32 coo_ell] {card()} | examples.fictdom3d nx={NX} a.mat: {T} "
+          f"triplets, {nu} entries, ELL {n} x {K} {str(E.vals.dtype)[6:]}; "
+          f"launches {launches} (counter reset just before; {before} in "
+          f"phases 3-31); table == phase 14's view == place_plain on the "
+          f"card == the host conversion, bit for bit; to_ell {path_ms:.3f} ms "
+          f"(events, median of 20), the kernel {dev_us:.3f} us device per "
+          f"launch, bound {bound_ms * 1e3:.3f} us ({bound_by}); place_plain "
+          f"on the card {plain_ms:.3f} ms; coalesce (dedup and sum only) "
+          f"{lib_ms:.3f} ms; peak memory {peak_gib(dev):.2f} GiB; wall "
+          f"{time.perf_counter() - t0:.2f} s, of the whole run "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    return {"launches": launches, "launches_before": before,
+            "table": {"n": n, "K": K, "triplets": T, "entries": nu,
+                      "dtype": str(E.vals.dtype)[6:]},
+            "ms": dev_us / 1e3, "device_us": dev_us, "path_ms": path_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
 def phase_31_system(nx, dev):
     """Phase 31's inputs built as the whole script builds them (phase 4's
     flagship DIA table, b and dinv; phase 7's ELL table of the same model
@@ -5246,12 +5439,13 @@ def main():
     print(f"[1 env] {gpu} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| devices {torch.cuda.device_count()}", flush=True)
 
-    # 2. build, one nvcc per source, all started together: the two kernels
-    # and the row-major ELL kernel that B2 replaced (the "before" of its
-    # timings)
+    # 2. build, one nvcc per source, all started together: the three
+    # kernels and the row-major ELL kernel that B2 replaced (the "before" of
+    # its timings)
     t0 = time.perf_counter()
     rowmajor = os.path.join(TOOLS, "torch_ell_spmv_rowmajor.cu")
-    built = build.build_all(["dia_cg", "ell_spmv", "ell_spmv_rowmajor"],
+    built = build.build_all(["dia_cg", "ell_spmv", "coo_ell",
+                             "ell_spmv_rowmajor"],
                             {"ell_spmv_rowmajor": rowmajor})
     parts = []
     for name, (so, build_s, log) in built.items():
@@ -5274,6 +5468,10 @@ def main():
           f" B local memory per thread; {info['sm_count']} SMs, "
           f"{info['smem_bytes']} B dynamic shared memory per block, "
           f"cooperative launch {bool(info['cooperative'])}", flush=True)
+
+    # every ELL table built on the card from here to phase 31 is held to the
+    # plain version and the host conversion, between phases
+    audit = to_ell_audit().__enter__()
 
     # 3. kernel against its plain version on the card
     t0 = time.perf_counter()
@@ -5553,6 +5751,7 @@ def main():
           f"{1 - mg_busy / mg_wall:.3f}); top kernels by device time: "
           + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for k, (c, us) in mg_top)
           + f"; wall of phase 8 {time.perf_counter() - t0:.2f} s", flush=True)
+    audit.check("phases 3-8")
 
     # 9. general cut quadrature and Integrate on the card (f64)
     import ngsxfem_tpu_torch as T
@@ -5648,6 +5847,7 @@ def main():
               f"{idle:.3f}; top: {top}", flush=True)
     print(f"[11 times] peak memory {peak_gib(dev):.2f} GiB; wall "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    audit.check("phases 9-11")
 
     # 12. lattice multigrid on the DIA path (plain PyTorch: the reference has
     # no TPU kernel on it), f32 and f64, then the larger hierarchy once
@@ -5772,20 +5972,39 @@ def main():
           f"{time.perf_counter() - t0:.2f} s, of the whole run "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
 
+    audit.check("phases 12-15")
+    forms48 = a_form.mat  # phase 32's table
     del api, a_form, f_form, inv_cg
     sk, sk_launches = phases_16_17(T, dev, t_start)
+    audit.check("phases 16-17")
     iso, iso_launches = phases_18_19(T, dev, t_start)
+    audit.check("phases 18-19")
     st_launches = phases_20_21(T, dev, t_start)
+    audit.check("phases 20-21")
     mf_launches, mf_tables = phases_22_23(T, dev, t_start, iso)
+    audit.check("phases 22-23")
     mg_launches, mesh_launches, mg_tables = phases_24_25(T, dev, t_start)
+    audit.check("phases 24-25")
     ad_launches, per_launches, ad_tables = phases_26_27(
         T, dev, t_start, f64["model"], f64["struct"], st48)
+    audit.check("phases 26-27")
     sl13_launches, sl13_b2, _, _, (one14, sl14) = phases_28_29(
         dev, t_start, {torch.float32: (model, struct, V),
                        torch.float64: (f64["model"], f64["struct"],
                                        f64["V"])}, st48)
+    audit.check("phases 28-29")
     sl15 = phase_30(dev, one14.pop("system"), t_start)
     sl16 = phase_31(dev, offs, V, b, dinv, A, b_ell, t_start)
+    audit.check("phases 30-31")
+    audit.__exit__()
+    sl17 = phase_32(dev, forms48, t_start)
+    check(sl17["launches_before"] == audit.launching,
+          f"coo_ell launched {sl17['launches_before']} times in phases 3-31, "
+          f"for {audit.launching} tables with an entry")
+    print(f"[to_ell audit] phases 3-31: {audit.tables} tables built on the "
+          f"card ({audit.triplets} triplets, the longest stream "
+          f"{audit.largest}), {audit.launching} coo_ell launches, all bit "
+          f"for bit; checks {audit.seconds:.2f} s", flush=True)
 
     dia_bound_ms, dia_bound_by = dia_cg_bound(offs, model.ndof, CG_ITERS)
     print(json.dumps({"kernels": [{
@@ -5841,6 +6060,26 @@ def main():
         "launches_slice14": sl14["launches"],
         "launches_slice15": sl15["launches"],
         "launches_slice16": sl16["ell_spmv"],
+    }, {
+        "name": "coo_ell_place",
+        "route": "cuda",
+        "source": "ngsxfem_tpu_torch/csrc/coo_ell.cu",
+        "replaces": "ngsxfem_tpu/solvers/sparse.py:55 (host numpy; no TPU "
+                    "kernel)",
+        "launches": sl17["launches"],
+        "max_abs_err": 0.0,
+        "ms": sl17["ms"],
+        "device_us": sl17["device_us"],
+        "path_ms": sl17["path_ms"],
+        "plain_ms": sl17["plain_ms"],
+        "bound_ms": sl17["bound_ms"],
+        "bound_by": sl17["bound_by"],
+        "library_ms": sl17["library_ms"],
+        "table": sl17["table"],
+        "launches_whole_run": sl17["launches_before"],
+        "audited_tables": audit.tables,
+        "audited_triplets": audit.triplets,
+        "audited_longest": audit.largest,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

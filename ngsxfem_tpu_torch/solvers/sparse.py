@@ -5,6 +5,9 @@ Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-306``.
 by a fixed-order ``ScatterPlan`` on the card, ``todense``, ``to_scipy``,
 ``Inverse``, ``CreateTranspose``) and the DIA operator are plain PyTorch:
 the reference has no Pallas kernel behind them either.
+``SparseMatrix.to_ell`` builds the ELL table on the card through
+``coo_ell.coo_to_ell`` (its sum and placement the hand-written kernel
+``csrc/coo_ell.cu``) and on the CPU on the host, as the reference does.
 ``ELLMatrix.matvec`` is ``ell_spmv.ell_matvec`` on the matrix's cached
 sliced layout (on the card; the CPU sums the table itself), which on CUDA
 tensors is the hand-written kernel
@@ -25,8 +28,9 @@ import torch.nn.functional as F
 
 from ..config import as_input, config, resolve_device
 from ..ops.scatter import ScatterPlan
-from ..utils.timing import traced
+from ..utils.timing import count, traced
 from . import ell_spmv
+from .coo_ell import coo_to_ell
 from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
 
 
@@ -86,10 +90,19 @@ class SparseMatrix:
 
     @traced("SparseMatrix::to_ell")
     def to_ell(self):
-        """Padded ELL copy (host conversion, as the reference's): duplicate
-        (row, col) entries summed in f64 through the native open-addressing
-        dedup, each row's entries in first-appearance order, padding col 0,
-        val 0."""
+        """Padded ELL copy: duplicate (row, col) entries summed in f64 in
+        stream order, each row's entries in first-appearance order, padding
+        col 0, val 0.  On the card (``_on_card``) ``coo_ell.coo_to_ell``
+        builds it where the triplets lie; on the CPU the host conversion of
+        the reference, through the native open-addressing dedup, which runs
+        there faster than the card's steps in PyTorch.  Both give the same
+        table, bit for bit."""
+        if _on_card(self):
+            cols, vals, nu = coo_to_ell(self.rows, self.cols, self.vals,
+                                        self.shape)
+            count("SparseMatrix::to_ell::triplets", self.vals.shape[0])
+            count("SparseMatrix::to_ell::entries", nu)
+            return ELLMatrix(cols, vals, self.shape)
         from ..mesh.native import unique_i64
 
         rows = self.rows.cpu().numpy()
@@ -284,7 +297,8 @@ SPD_SYM_TOL = 1e-12
 
 def _on_card(mat):
     """Whether the matrix lies on a CUDA card (the tests patch this to run
-    the card's branch of ``InverseMatrix`` on CPU tensors)."""
+    the card's branches of ``InverseMatrix``, ``to_ell`` and the product on
+    CPU tensors)."""
     return mat.vals.is_cuda
 
 
