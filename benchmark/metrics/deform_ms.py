@@ -1,0 +1,21 @@
+"""Mean per call of the program's span
+``LevelSetMeshAdaptation::CalcDeformation``: the order-2 interpolation of
+the level set, its P1 interpolant and the nodal Newton shift with its one
+read-back (layer geometry) (the program's own record,
+``ngsxfem_tpu_torch.utils.timing.spans``: ``time.time_ns`` at its ends,
+the card not waited for), over the profiled sub-window of a traced run,
+ms.  None where the program keeps no such record."""
+
+SPAN = "LevelSetMeshAdaptation::CalcDeformation"
+
+
+def read(ctx):
+    try:
+        from ngsxfem_tpu_torch.utils.timing import spans
+    except ImportError:  # a program without the span store
+        return None
+    d = [r["end_ns"] - r["start_ns"] for r in spans()
+         if r["name"] == SPAN and r["end_ns"] is not None]
+    if not d:
+        return None
+    return 1e-6 * sum(d) / len(d)

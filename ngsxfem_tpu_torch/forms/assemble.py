@@ -60,7 +60,7 @@ from ..ops.spacetimecut import time_tensorize
 from ..ops.straightcut import _gram_measure, cut_rule_simplices, eps_guard
 from ..fem.space import CompoundFESpace, VectorFESpace, _arr
 from ..solvers.sparse import SparseMatrix
-from ..utils.timing import traced
+from ..utils.timing import Timer, count, traced
 from .evaluate import eval_form
 from .proxies import ProxyFunction
 
@@ -445,8 +445,11 @@ def _facet_patch_ctx(integral: Integral, mesh, order, device, fids=None):
                               conv.numel())
         return torch.where(conv[..., None], xr, xr0)
 
-    pts1_in_2 = other_refpts(coords1, e1, coords2, e2)
-    pts2_in_1 = other_refpts(coords2, e2, coords1, e1)
+    with Timer("FacetPatch::map", block=False):
+        # each rule point of either side, each Newton step
+        count("FacetPatch::points", 2 * F * base.shape[1] * niter)
+        pts1_in_2 = other_refpts(coords1, e1, coords2, e2)
+        pts2_in_1 = other_refpts(coords2, e2, coords1, e1)
     basef = base.expand(F, -1, -1)
     self_pts = torch.cat([basef, pts2_in_1], dim=1)  # on e1
     other_pts = torch.cat([pts1_in_2, basef], dim=1)  # on e2

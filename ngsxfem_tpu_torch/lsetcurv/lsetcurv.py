@@ -27,6 +27,7 @@ from ..integrate import lset_vertex_values, two_tier_tiers, vertex_local_ids
 from ..mesh.mesh import det_and_inv, geom_shapes, map_points
 from ..ops.straightcut import eps_guard
 from ..utils.diagnostics import NewtonNonConvergenceWarning
+from ..utils.timing import Timer, count, traced
 
 _NEWTON_TOL = 1e-6  # max |phi - goal| / h on the band before a warning
 
@@ -135,6 +136,7 @@ class LevelSetMeshAdaptation:
         self.deform = GridFunction(self.deform_space, "deform")
         self.levelset = None
 
+    @traced("LevelSetMeshAdaptation::CalcDeformation")
     def CalcDeformation(self, levelset, blending=None, **kw):
         """Compute lset_ho, lset_p1 and the isoparametric deformation."""
         self.levelset = levelset
@@ -189,17 +191,20 @@ class LevelSetMeshAdaptation:
         alpha = self._blending_alpha(lset_p1, blending)
         dscal = self.deform_space.scalar
         i64 = dict(dtype=torch.int64, device=dev)
-        vec, res = _project_shift(
-            self.mesh, self.order, self.threshold,
-            lset_ho.vec.data.to(dev, deform.dtype),
-            self.ho_space.el2dof_on(dev),
-            lset_p1.vec.data.to(dev, deform.dtype),
-            self.p1_space.el2dof_on(dev),
-            torch.as_tensor(dscal.dof_rep_elem, **i64),
-            torch.as_tensor(dscal.dof_rep_ref, dtype=deform.dtype,
-                            device=dev),
-            dscal.el2dof_on(dev), band, alpha)
-        res = float(res)
+        with Timer("ProjectShift", block=False):
+            # every node of the deformation space takes the Newton search
+            count("ProjectShift::nodes", len(dscal.dof_rep_elem))
+            vec, res = _project_shift(
+                self.mesh, self.order, self.threshold,
+                lset_ho.vec.data.to(dev, deform.dtype),
+                self.ho_space.el2dof_on(dev),
+                lset_p1.vec.data.to(dev, deform.dtype),
+                self.p1_space.el2dof_on(dev),
+                torch.as_tensor(dscal.dof_rep_elem, **i64),
+                torch.as_tensor(dscal.dof_rep_ref, dtype=deform.dtype,
+                                device=dev),
+                dscal.el2dof_on(dev), band, alpha)
+            res = float(res)
         if res > _NEWTON_TOL:
             warnings.warn(
                 f"isoparametric shift Newton did not fully converge "

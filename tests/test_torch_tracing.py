@@ -213,7 +213,7 @@ def test_forms_step_records_every_span(monkeypatch):
     once = ["InterpolateToP1", "CutInfo::Update", "CutInfo::Update::classify",
             "CutInfo::Update::marks", "GetFacetsWithNeighborTypes",
             "GetDofsOfElements", "BilinearForm::Assemble",
-            "LinearForm::Assemble", "InverseMatrix::InverseMatrix",
+            "FacetPatch::map", "LinearForm::Assemble", "InverseMatrix::InverseMatrix",
             "SparseMatrix::to_ell", "spd_free_block", "InverseMatrix::Solve",
             "cg", "prepare_ell"]
     for name in once:
@@ -224,6 +224,7 @@ def test_forms_step_records_every_span(monkeypatch):
                           else None) for r in recs}
     assert parent["CutInfo::Update::classify"] == "CutInfo::Update"
     assert parent["CutInfo::Update::marks"] == "CutInfo::Update"
+    assert parent["FacetPatch::map"] == "BilinearForm::Assemble"
     assert parent["SparseMatrix::to_ell"] == "InverseMatrix::InverseMatrix"
     assert parent["spd_free_block"] == "InverseMatrix::InverseMatrix"
     assert parent["cg"] == "InverseMatrix::Solve"
