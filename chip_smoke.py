@@ -22,7 +22,8 @@ public-API paths the parity run with the JAX package's own tests repaired
 the assembly timers) in phase 30, and the card's ELL conversion of
 ``SparseMatrix.to_ell`` (every table built on the card in phases 3-31 held
 to its plain version and the host conversion between phases, then timed on
-the nx=48 forms table) in phase 32:
+the nx=48 forms table) in phase 32, and the DIA product ``dia_matvec`` as one
+launch of its kernel on the nx=48 lattice table in phase 33:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -299,7 +300,8 @@ Phases, one line each:
    bounds and cuSPARSE on each transposed table (the record's
    ``autograd_tables``); tests/test_ad_fastpath.py's compliance J(r) =
    b^T x at nx=48 through PCG-120 both ways (the lattice assembly +
-   ``dia_matvec`` + unrolled ``krylov.cg``; ``assemble_vals_soa1`` + B2
+   ``dia_matvec`` under autograd, ``DiaMatvec``: dia_spmv launches = 2 x
+   120 + 1, + unrolled ``krylov.cg``; ``assemble_vals_soa1`` + B2
    products under autograd + the same PCG, ELL products = B2 launches =
    2 x 120 + 1), r0 midway between two vertex distances: dJ/dr against a
    central difference on the card (1e-5; the step 1e-6 x 8 / nx) and the
@@ -385,11 +387,24 @@ Phases, one line each:
    phase 14's nx=48 forms ``a.mat``, launch counter reset just before, one
    ``to_ell`` is one launch and its table equals phase 14's view, with the
    call's and the kernel's times, the kernel's bound, the plain version and
-   ``coalesce`` (the record's ``coo_ell_place`` entry).
+   ``coalesce`` (the record's ``coo_ell_place`` entry);
+33. ``dia_matvec`` on the card (``phase_33``): phase 4's nx=48 f32 lattice
+   table and its f64 copy, one launch of ``csrc/dia_spmv.cu`` a call, bit
+   for bit ``dia_matvec_plain`` (with +-0, +-inf and NaN at the boundary
+   rows; NaNs equal whatever their payload), the kernel's device us warm
+   and cold in L2 beside its bytes bound, the call's and the host's time,
+   and the eager path's (the record's ``dia_spmv`` entry, whose
+   ``launches`` are phase 4's ``cg_ir``: one a product, checked there;
+   phase 26 checks one a product and one a transposed product under
+   autograd).  Alone: ``python3 -c "import time,
+   torch, chip_smoke as c; d = torch.device('cuda', 0); _, s, V, *_ =
+   c.flagship(48, d); c.phase_33(d, s['offsets'], V,
+   time.perf_counter())"``.
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
-``{"kernels": [...]}`` (B1, B2 and ``coo_ell_place``); the last line is
+``{"kernels": [...]}`` (B1, B2, ``coo_ell_place`` and ``dia_spmv``); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3969,7 +3984,7 @@ def ad_compliance(T, dev, model, dst, st):
     not checked) and at AD_CG_ITERS (the general path within AD_PATH_TOL
     of itself): both paths, and the general path with its ELL rows' slots
     in a seeded order and with r moved by one ulp."""
-    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers import dia_spmv, ell_spmv
 
     r0, gap = ad_r0(model)
     lattice, general = compliance_fns(model, dst, st, AD_CG_ITERS, dev)
@@ -3977,7 +3992,7 @@ def ad_compliance(T, dev, model, dst, st):
     for name, fn in (("lattice", lattice), ("general", general)):
         sync(dev)
         peak_gib(dev)
-        l0 = ell_spmv.launches
+        l0, d0 = ell_spmv.launches, dia_spmv.launches
         r = torch.tensor(r0, dtype=torch.float64, device=dev,
                          requires_grad=True)
         with counted_ell() as c:
@@ -3986,7 +4001,8 @@ def ad_compliance(T, dev, model, dst, st):
         out[name] = {"J": float(J.detach()), "grad": float(g),
                      "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
                      "peak_gib": peak_gib(dev), "products": c.calls,
-                     "launches": ell_spmv.launches - l0}
+                     "launches": ell_spmv.launches - l0,
+                     "dia_launches": dia_spmv.launches - d0}
         check(math.isfinite(float(g)) and float(g) != 0.0,
               f"AD {name}: gradient {float(g)}")
         check(out[name]["launches"] == (c.calls if dev.type == "cuda"
@@ -3998,6 +4014,12 @@ def ad_compliance(T, dev, model, dst, st):
     check(out["general"]["products"] == 2 * AD_CG_ITERS + 1,
           f"AD general: {out['general']['products']} ELL products, not one "
           f"forward and one transposed per CG product")
+    # the lattice path's DIA products likewise, each a launch of dia_spmv
+    # (sparse.DiaMatvec) on the card
+    want = 2 * AD_CG_ITERS + 1 if dev.type == "cuda" else 0
+    check(out["lattice"]["dia_launches"] == want,
+          f"AD lattice: {out['lattice']['dia_launches']} dia_spmv launches, "
+          f"not {want}")
     # the central difference errs by its eps^2 J'''(r) / 6 term, and J'''
     # grows with the resolution of the cut (at nx=48 the JAX test's step
     # 1e-6 leaves 6e-6 of it, a quarter at half the step,
@@ -4186,8 +4208,8 @@ def phase_26(T, dev, model64, dst64, st64):
               f"{ad['gap']:.3e}): J {p['J']:.12e}, dJ/dr {p['grad']:.12e}; "
               f"forward {p['fwd_ms']:.1f} ms, backward {p['bwd_ms']:.1f} ms "
               f"(events); peak memory {p['peak_gib']:.2f} GiB; ELL products "
-              f"{p['products']} = ell_spmv launches {p['launches']}",
-              flush=True)
+              f"{p['products']} = ell_spmv launches {p['launches']}; "
+              f"dia_spmv launches {p['dia_launches']}", flush=True)
     print(f"[26 AD check] dJ/dr lattice vs central difference (eps "
           f"{ad['fd_eps']:.4g}, {ad['fd_s']:.2f} s) {ad['fd']:.12e}: rel "
           f"{ad['rel_fd']:.3e} <= {AD_FD_TOL:g}; lattice vs general rel "
@@ -5229,6 +5251,117 @@ def phase_32(dev, S, t_start):
             "library_ms": lib_ms}
 
 
+DIA_SPMV_CALLS = 200   # calls per timing of phase 33's kernel
+L2_FLUSH_BYTES = 128 << 20  # more than the H100's 50 MB L2
+
+
+def phase_33(dev, offs, V32, t_start):
+    """Phase 33: ``dia_matvec`` on the card as one launch of the kernel
+    ``csrc/dia_spmv.cu``, on phase 4's nx=48 f32 lattice table and its f64
+    copy (the lattice cell's two products).  Per dtype: one call is one
+    launch; the result equals ``dia_matvec_plain``'s bit for bit (NaNs
+    equal whatever their payload) on a seeded x and on it with signed
+    zeros, infinities and a NaN at the boundary rows; the kernel's device us per launch (``torch.profiler``,
+    back to back, the table warm in L2 as in a CG loop, and with a 128 MB
+    write between launches, cold) beside its bytes bound (the table, x and
+    y once over 3.35 TB/s); the call's ms (CUDA events, mean of
+    ``DIA_SPMV_CALLS`` back to back, host-bound) and the host's enqueue us
+    per call; the eager path's call ms, device us per call and kernels per
+    call.  Returns the numbers per dtype, the phase's launches and the
+    largest |kernel - plain| of its comparisons (0 where both are the same
+    infinity or both NaN)."""
+    from ngsxfem_tpu_torch.solvers import dia_spmv
+    from ngsxfem_tpu_torch.solvers.sparse import dia_matvec, dia_matvec_plain
+
+    t0 = time.perf_counter()
+    before = dia_spmv.launches
+    offs = np.asarray(offs)
+    n = int(V32.shape[1])
+    rng = np.random.default_rng(33)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    out = {}
+    max_err = 0.0
+    for dtype, V in ((torch.float32, V32), (torch.float64, V32.double())):
+        name = str(dtype)[6:]
+        bits = torch.int32 if dtype == torch.float32 else torch.int64
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        xs = x.clone()
+        xs[0], xs[1], xs[2] = -0.0, float("inf"), 0.0
+        xs[-1], xs[-2], xs[-3] = float("nan"), -float("inf"), -0.0
+        for label, v in (("seeded x", x), ("specials", xs)):
+            l0 = dia_spmv.launches
+            y = dia_matvec(offs, V, v)
+            torch.cuda.synchronize()
+            check(dia_spmv.launches == l0 + 1,
+                  f"dia_matvec {name} {label}: {dia_spmv.launches - l0} "
+                  f"launches, not 1")
+            yp = dia_matvec_plain(offs, V, v)
+            nan = y.isnan()
+            same = (y == yp) | (nan & yp.isnan())
+            err = float(torch.where(same, 0.0, (y - yp).abs()).max())
+            max_err = err if math.isnan(err) else max(max_err, err)
+            check(torch.equal(nan, yp.isnan())
+                  and torch.equal(y.view(bits)[~nan], yp.view(bits)[~nan]),
+                  f"dia_spmv {name} {label} != dia_matvec_plain bit for bit "
+                  f"(max |diff| {err})")
+
+        def kernel_call():
+            return dia_matvec(offs, V, x)
+
+        def plain_call():
+            return dia_matvec_plain(offs, V, x)
+
+        def cold_call():
+            flush.zero_()
+            return dia_matvec(offs, V, x)
+
+        call_ms = per_call_ms(kernel_call, DIA_SPMV_CALLS)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(DIA_SPMV_CALLS):
+            kernel_call()
+        host_us = (time.perf_counter() - h0) * 1e6 / DIA_SPMV_CALLS
+        torch.cuda.synchronize()
+        # the profiler may drop events of a window: per launch it recorded
+        kern, _ = device_kernels(kernel_call, DIA_SPMV_CALLS)
+        mine = [v for k, v in kern.items() if "dia_spmv" in k]
+        check(len(mine) == 1, f"profiled dia_spmv kernels {kern}")
+        warm_us = mine[0][1] / mine[0][0]
+        kern, _ = device_kernels(cold_call, DIA_SPMV_CALLS)
+        mine = [v for k, v in kern.items() if "dia_spmv" in k]
+        check(len(mine) == 1, f"profiled dia_spmv kernels {kern}")
+        cold_us = mine[0][1] / mine[0][0]
+        plain_ms = per_call_ms(plain_call, DIA_SPMV_CALLS // 4)
+        kern, _ = device_kernels(plain_call, DIA_SPMV_CALLS // 4)
+        plain_kernels = sum(c for c, _ in kern.values()) / (DIA_SPMV_CALLS // 4)
+        plain_us = sum(us for _, us in kern.values()) / (DIA_SPMV_CALLS // 4)
+        item = V.element_size()
+        bound_ms, bound_by = bound((V.numel() + 2 * n) * item, 2 * V.numel(),
+                                   F32_FLOP_PER_S if item == 4
+                                   else F64_FLOP_PER_S)
+        out[name] = {"device_us": warm_us, "device_cold_us": cold_us,
+                     "call_ms": call_ms, "host_us": host_us,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "plain_ms": plain_ms, "plain_device_us": plain_us,
+                     "plain_kernels": plain_kernels}
+        print(f"[33 dia_spmv] {card()} | nx=48 lattice table "
+              f"{tuple(V.shape)} {name}: == dia_matvec_plain bit for bit "
+              f"(seeded x; +-0, +-inf, NaN at the boundary rows), 1 launch "
+              f"a call; kernel {warm_us:.3f} us device per launch warm in L2, "
+              f"{cold_us:.3f} us cold (L2 flushed), bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}); call {call_ms * 1e3:.3f}"
+              f" us (events, mean of {DIA_SPMV_CALLS}), host enqueue "
+              f"{host_us:.3f} us a call; eager path {plain_ms * 1e3:.3f} us a "
+              f"call, {plain_us:.3f} us device in {plain_kernels:.1f} kernels",
+              flush=True)
+    del flush
+    launches = dia_spmv.launches - before
+    print(f"[33 dia_spmv] launches {launches} in this phase, max |kernel - "
+          f"plain| {max_err} | wall {time.perf_counter() - t0:.2f} s, of the "
+          f"whole run {time.perf_counter() - t_start:.2f} s", flush=True)
+    return {"launches": launches, "max_abs_err": max_err, **out}
+
+
 def phase_31_system(nx, dev):
     """Phase 31's inputs built as the whole script builds them (phase 4's
     flagship DIA table, b and dinv; phase 7's ELL table of the same model
@@ -5250,7 +5383,8 @@ def phase_31(dev, offs, V, b, dinv, A, b_ell, t_start):
     phase 4's f32 DIA table ``V``, ``b`` and ``dinv``; kernel B2 through
     ``krylov.cg``, ``minres`` and ``cg_ir`` on phase 7's flagship f32 ELL
     table ``A`` (and its f64 copy) with the numpy right-hand side
-    ``b_ell``; ``dia_matvec`` and the lattice transfers without a kernel.
+    ``b_ell``; ``dia_matvec`` (one launch of ``csrc/dia_spmv.cu``) and the
+    lattice transfers (no kernel; the ``[31 no kernel]`` line).
     Each numpy call is bitwise its tensor call, lies on ``dev``, and
     launches the same kernels as many times (B2: once per product).
     Returns the cases' numbers and the B1 (``dia_cg``) and B2
@@ -5383,7 +5517,7 @@ def phase_31(dev, offs, V, b, dinv, A, b_ell, t_start):
           f"median (min) ms ({clock}, {P31_REPS} interleaved pairs): "
           + "; ".join(lines), flush=True)
 
-    # (c) without a kernel: dia_matvec and the lattice transfers
+    # (c) dia_matvec (its own kernel) and the lattice transfers (none)
     x_np = rng.standard_normal(n).astype(np.float32)
     nc = P31_LAT_NX + 1
     c_np = rng.standard_normal((nc,) * 3)
@@ -5429,7 +5563,7 @@ def main():
               file=sys.stderr)
         return 1
     from ngsxfem_tpu_torch.kernels import build
-    from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+    from ngsxfem_tpu_torch.solvers import dia_cg, dia_spmv, ell_spmv
     from ngsxfem_tpu_torch.solvers.krylov import cg, cg_ir
     from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
 
@@ -5439,12 +5573,12 @@ def main():
     print(f"[1 env] {gpu} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| devices {torch.cuda.device_count()}", flush=True)
 
-    # 2. build, one nvcc per source, all started together: the three
+    # 2. build, one nvcc per source, all started together: the four
     # kernels and the row-major ELL kernel that B2 replaced (the "before" of
     # its timings)
     t0 = time.perf_counter()
     rowmajor = os.path.join(TOOLS, "torch_ell_spmv_rowmajor.cu")
-    built = build.build_all(["dia_cg", "ell_spmv", "coo_ell",
+    built = build.build_all(["dia_cg", "ell_spmv", "coo_ell", "dia_spmv",
                              "ell_spmv_rowmajor"],
                             {"ell_spmv_rowmajor": rowmajor})
     parts = []
@@ -5528,6 +5662,7 @@ def main():
     # 4. the DIA path, launch counters reset just before it
     dia_cg.launches = 0
     ell_spmv.launches = 0
+    dia_spmv.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, struct, V, ncut, b, dinv, setup_s = flagship(NX, dev)
@@ -5542,6 +5677,13 @@ def main():
     main_s = time.perf_counter() - t0
     launches = dia_cg.launches
     check(launches > 0, "the DIA path launched the dia_cg kernel no time")
+    # cg_ir's products: per outer step the inner PCG's initial residual and
+    # one a step, then the f64 residual
+    dia_spmv_launches = dia_spmv.launches
+    ir_products = IR_OUTER * (IR_INNER + 1) + IR_OUTER
+    check(dia_spmv_launches == ir_products,
+          f"cg_ir launched dia_spmv {dia_spmv_launches} times for "
+          f"{ir_products} DIA products")
 
     check(model.mesh.ne == 663_552 and model.ndof == 117_649,
           f"mesh size ne={model.mesh.ne} ndof={model.ndof}")
@@ -5567,7 +5709,9 @@ def main():
           f"(host {ncut_host}), DIA {tuple(V.shape)} exactly symmetric, "
           f"PCG-{CG_ITERS} rel res {rel50:.4e} (1 iter {rel1:.4e}), kernel vs "
           f"krylov.cg rel {rel_cg:.3e}, cg_ir true f64 rel res {ir_rel:.3e}, "
-          f"dia_cg launches {launches}, wall {main_s:.2f} s", flush=True)
+          f"dia_cg launches {launches}, dia_spmv launches "
+          f"{dia_spmv_launches} == cg_ir's products, wall {main_s:.2f} s",
+          flush=True)
 
     # 5. times on the card
     t0 = time.perf_counter()
@@ -5998,6 +6142,7 @@ def main():
     audit.check("phases 30-31")
     audit.__exit__()
     sl17 = phase_32(dev, forms48, t_start)
+    sl18 = phase_33(dev, offs, V, t_start)
     check(sl17["launches_before"] == audit.launching,
           f"coo_ell launched {sl17['launches_before']} times in phases 3-31, "
           f"for {audit.launching} tables with an entry")
@@ -6080,6 +6225,22 @@ def main():
         "audited_tables": audit.tables,
         "audited_triplets": audit.triplets,
         "audited_longest": audit.largest,
+    }, {
+        "name": "dia_spmv",
+        "route": "cuda",
+        "source": "ngsxfem_tpu_torch/csrc/dia_spmv.cu",
+        "replaces": "ngsxfem_tpu/solvers/sparse.py dia_matvec (jnp code "
+                    "that XLA fuses; no TPU kernel)",
+        "launches": dia_spmv_launches,
+        "max_abs_err": sl18["max_abs_err"],
+        "ms": sl18["float32"]["device_us"] / 1e3,
+        "device_us": sl18["float32"]["device_us"],
+        "plain_ms": sl18["float32"]["plain_ms"],
+        "bound_ms": sl18["float32"]["bound_ms"],
+        "bound_by": sl18["float32"]["bound_by"],
+        "library_ms": None,
+        "float32": sl18["float32"],
+        "float64": sl18["float64"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

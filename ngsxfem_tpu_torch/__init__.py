@@ -53,8 +53,8 @@ level set (``torch.autograd`` through the cut quadrature, the assemblies,
 ``set_default_dtype``).  ``from ngsxfem_tpu_torch import *`` runs the
 README's Quick start and the workloads in ``ngsxfem_tpu_torch/examples``.
 What is not ported raises ``NotImplementedError`` naming its item in
-ROADMAP.md.  ``dia_cg_fused`` and ``ell_matvec`` run hand-written CUDA
-kernels for Hopper on CUDA tensors.
+ROADMAP.md.  ``dia_cg_fused``, ``ell_matvec`` and ``dia_matvec`` run
+hand-written CUDA kernels for Hopper on CUDA tensors.
 """
 from .config import config, set_default_dtype
 from .domaintype import (DOMAIN_TYPE, COMBINED_DOMAIN_TYPE, NEG, POS, IF,
@@ -108,7 +108,7 @@ from .geom.cutinfo import (CutInfo, GetFacetsWithNeighborTypes,
                            IndicatorCF, CutRatioGF, BitArrayCF)
 from .models.poisson import UnfittedPoisson
 from .solvers.sparse import (DIAMatrix, ELLMatrix, InverseMatrix,
-                             SparseMatrix, dia_matvec)
+                             SparseMatrix, dia_matvec, dia_matvec_plain)
 from .solvers.ell_spmv import ell_matvec, ell_matvec_plain
 from .solvers.krylov import (CGSolver, MinResSolver, cg, cg_ir, cg_implicit,
                              minres, jacobi_preconditioner)
@@ -166,7 +166,8 @@ __all__ = ["config", "DOMAIN_TYPE", "COMBINED_DOMAIN_TYPE", "NEG", "POS",
            "CutInfo", "GetFacetsWithNeighborTypes",
            "GetElementsWithNeighborFacets", "GetDofsOfFacets", "IndicatorCF",
            "CutRatioGF", "BitArrayCF", "UnfittedPoisson", "DIAMatrix", "ELLMatrix",
-           "SparseMatrix", "dia_matvec", "ell_matvec", "ell_matvec_plain",
+           "SparseMatrix", "dia_matvec", "dia_matvec_plain", "ell_matvec",
+           "ell_matvec_plain",
            "CGSolver", "cg", "cg_ir", "jacobi_preconditioner", "dia_cg_fused",
            "dia_cg_fused_plain", "FunctionalELLMG", "ScalarTimeFE",
            "SpaceTimeFESpace", "CSpaceTimeFESpace", "ReferenceTimeVariable",

@@ -3,8 +3,11 @@
 Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-306``.
 ``SparseMatrix`` (COO, its product summed by ``index_add_`` on the CPU and
 by a fixed-order ``ScatterPlan`` on the card, ``todense``, ``to_scipy``,
-``Inverse``, ``CreateTranspose``) and the DIA operator are plain PyTorch:
-the reference has no Pallas kernel behind them either.
+``Inverse``, ``CreateTranspose``) is plain PyTorch: the reference has no
+Pallas kernel behind it either.  The DIA product ``dia_matvec`` is, on CUDA
+tensors, the hand-written kernel ``csrc/dia_spmv.cu`` (one launch in place
+of a multiply and an add per diagonal; no TPU counterpart, XLA fuses the
+reference's) and ``dia_matvec_plain`` on the CPU.
 ``SparseMatrix.to_ell`` builds the ELL table on the card through
 ``coo_ell.coo_to_ell`` (its sum and placement the hand-written kernel
 ``csrc/coo_ell.cu``) and on the CPU on the host, as the reference does.
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from ..config import as_input, config, resolve_device
 from ..ops.scatter import ScatterPlan
 from ..utils.timing import count, traced
-from . import ell_spmv
+from . import dia_spmv, ell_spmv
 from .coo_ell import coo_to_ell
 from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
 
@@ -231,14 +234,80 @@ class ELLMatrix:
 def dia_matvec(offsets, vals, x):
     """Offset-diagonal (DIA) SpMV: y[r] = sum_k vals[k, r] * x[r + o_k].
 
-    `offsets` are host ints; each diagonal contributes one static shifted
-    slice of x and an elementwise multiply-add.  Entries off the right/left
-    end of a diagonal read zero padding, so boundary rows need no masking.
-    ``vals`` and ``x`` may be numpy (``x`` then goes to the device and
-    dtype of ``vals``).
+    `offsets` are host ints; entries off the right/left end of a diagonal
+    read zero, so boundary rows need no masking.  ``vals`` and ``x`` may be
+    numpy (``x`` then goes to the device and dtype of ``vals``).
+
+    On CUDA tensors this is one launch of the hand-written kernel
+    ``csrc/dia_spmv.cu`` (``dia_spmv.dia_spmv``), which gives the bits of
+    ``dia_matvec_plain`` (a NaN's payload aside): the lattice tables have 27
+    offsets, the kernel takes up to ``dia_spmv.MAX_TERMS`` (32), and it
+    raises ``ValueError`` on more, on mixed or non-float dtypes, on a
+    non-contiguous table or vector and on shapes that do not match.  With
+    grad mode on and ``vals`` or ``x`` requiring a gradient the product is
+    ``DiaMatvec``, whose forward and transposed products are kernel
+    launches too.  CPU tensors run ``dia_matvec_plain``, which autograd
+    differentiates as it is.
     """
     vals = as_input(vals, x if torch.is_tensor(x) else None)
     x = as_input(x, vals)
+    if not (vals.is_cuda or x.is_cuda):
+        count("dia_matvec::eager")
+        return dia_matvec_plain(offsets, vals, x)
+    if torch.is_grad_enabled() and (vals.requires_grad or x.requires_grad):
+        y = DiaMatvec.apply(vals, x, offsets)
+    else:
+        y = dia_spmv.dia_spmv(offsets, vals, x)
+    count("dia_matvec::kernel")
+    return y
+
+
+class DiaMatvec(torch.autograd.Function):
+    """``y = dia_matvec(offsets, vals, x)`` under autograd.
+
+    The forward is the kernel on the card (``dia_matvec_plain`` on the CPU,
+    where ``dia_matvec`` does not come here).  The gradient of ``x`` is
+    itself a DIA product, ``dia_matvec(-offsets, vals_T, g)`` with
+    ``vals_T[k, c] = vals[k, c - o_k]`` (0 off the ends): one more launch.
+    That of ``vals`` is ``g[r] * x[r + o_k]`` (0 off the ends).  Under
+    ``create_graph`` both are differentiable again."""
+
+    @staticmethod
+    def forward(ctx, vals, x, offsets):
+        ctx.save_for_backward(vals, x)
+        ctx.offsets = [int(o) for o in np.asarray(offsets).tolist()]
+        if vals.is_cuda or x.is_cuda:
+            return dia_spmv.dia_spmv(offsets, vals, x)
+        return dia_matvec_plain(offsets, vals, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, x = ctx.saved_tensors
+        offs = ctx.offsets
+        g = g.contiguous()
+        gvals = gx = None
+        if ctx.needs_input_grad[1]:
+            gx = dia_matvec([-o for o in offs], _shifted(vals, offs, -1), g)
+        if ctx.needs_input_grad[0]:
+            gvals = g * _shifted(x, offs, 1)
+        return gvals, gx, None
+
+
+def _shifted(t, offs, sign):
+    """(len(offs), n): row k is ``t[k]`` (``t`` itself if it is a vector)
+    read at ``c + sign * o_k``, 0 off the ends: one pad and one stack."""
+    n = t.shape[-1]
+    m = max(abs(o) for o in offs)
+    tp = F.pad(t, (m, m))
+    rows = [tp if t.dim() == 1 else tp[k] for k in range(len(offs))]
+    return torch.stack([r[m + sign * o:m + sign * o + n]
+                        for r, o in zip(rows, offs)])
+
+
+def dia_matvec_plain(offsets, vals, x):
+    """``dia_matvec`` in PyTorch: each diagonal contributes one static
+    shifted slice of the zero-padded x, a multiply and an add, in table
+    order (the first term is not added to 0)."""
     offs = [int(o) for o in np.asarray(offsets).tolist()]
     n = x.shape[0]
     mneg = max(-min(offs), 0)
