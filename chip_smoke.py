@@ -21,7 +21,7 @@ public-API paths the parity run with the JAX package's own tests repaired
 (numpy vectors at the solvers and transfers, ``Compress`` of a facet space,
 the assembly timers) in phase 30, and the card's ELL conversion of
 ``SparseMatrix.to_ell`` (every table built on the card in phases 3-31 held
-to its plain version and the host conversion between phases, then timed on
+to its plain version and to ``to_ell`` on the CPU between phases, then timed on
 the nx=48 forms table) in phase 32, and the DIA product ``dia_matvec`` as one
 launch of its kernel on the nx=48 lattice table in phase 33:
 
@@ -300,8 +300,8 @@ Phases, one line each:
    bounds and cuSPARSE on each transposed table (the record's
    ``autograd_tables``); tests/test_ad_fastpath.py's compliance J(r) =
    b^T x at nx=48 through PCG-120 both ways (the lattice assembly +
-   ``dia_matvec`` under autograd, ``DiaMatvec``: dia_spmv launches = 2 x
-   120 + 1, + unrolled ``krylov.cg``; ``assemble_vals_soa1`` + B2
+   ``dia_matvec`` under autograd, ``dia_spmv.DiaMatvec``: dia_spmv
+   launches = 2 x 120 + 1, + unrolled ``krylov.cg``; ``assemble_vals_soa1`` + B2
    products under autograd + the same PCG, ELL products = B2 launches =
    2 x 120 + 1), r0 midway between two vertex distances: dJ/dr against a
    central difference on the card (1e-5; the step 1e-6 x 8 / nx) and the
@@ -382,7 +382,7 @@ Phases, one line each:
 32. ``SparseMatrix.to_ell`` on the card: every table that ``coo_ell``
    built on the card in phases 3-31 (``to_ell_audit``, checked between
    phases: ``[to_ell audit]`` lines) equals, bit for bit, the plain
-   version's on the card and the host conversion's of its triplets, and
+   version's on the card and ``to_ell``'s of its triplets on the CPU, and
    ``coo_ell.launches`` then equals the number of those with an entry; on
    phase 14's nx=48 forms ``a.mat``, launch counter reset just before, one
    ``to_ell`` is one launch and its table equals phase 14's view, with the
@@ -783,7 +783,7 @@ def ell_path(device, model48, dia, x_dia):
     """The ELL path: levels MG_NX (the finest reuses the DIA path's model),
     operator and Jacobi-CG-50 checks against the DIA path, FunctionalELLMG
     with prepare_host, MG-CG to MG_TOL.  Returns what phase 8 times."""
-    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers import ell_spmv, sparse
     from ngsxfem_tpu_torch.solvers import mg as mgmod
     from ngsxfem_tpu_torch.solvers.krylov import CGSolver, cg
     from ngsxfem_tpu_torch.solvers.ell_spmv import ell_matvec
@@ -861,7 +861,7 @@ def ell_path(device, model48, dia, x_dia):
     sync(device)
     mgcg_wall_s = time.perf_counter() - t0
     layouts = ell_spmv.layouts_built - layouts_before
-    want = ntables if ell_spmv.uses_layout(b) else 0  # none on the CPU
+    want = ntables if sparse._on_card(b) else 0  # none on the CPU
     check(layouts == want, f"MG-CG: {layouts} layouts built for "
                            f"{ntables} tables, {want} expected")
     return {"levels": levels, "A": A, "xr": xr, "b": b, "x": x,
@@ -1350,7 +1350,7 @@ def public_api(T, device, model64, struct64, V64):
     """Phase 14: the examples through BilinearForm/LinearForm.  Returns the
     numbers of the phase and the closures that phase 15 times."""
     from ngsxfem_tpu_torch.examples import cutfem, fictdom3d, fictdom_ghostpen
-    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers import ell_spmv, sparse
 
     out = {}
     errs = [fictdom3d.run(nx=nx, verbose=False, device=device)
@@ -1422,7 +1422,7 @@ def public_api(T, device, model64, struct64, V64):
     out["default_launches"] = ell_spmv.launches - before
     out["default_iters"], out["default_products"] = cnt.iters, cnt.products
     out["layouts"] = ell_spmv.layouts_built - layouts_before
-    want = int(ell_spmv.uses_layout(a.mat.vals))  # none on the CPU
+    want = int(sparse._on_card(a.mat.vals))  # none on the CPU
     check(out["layouts"] == want, f"the 'cg' and default solves built "
                                   f"{out['layouts']} layouts for one table, "
                                   f"{want} expected")
@@ -1616,7 +1616,7 @@ def card_size(name, build, device, lift=None, minres_pre=None):
     ``lift(parts)`` gives the GridFunction holding Dirichlet data, if any.
     Returns the numbers and what phase 17 profiles."""
     from ngsxfem_tpu_torch import CGSolver, GridFunction, MinResSolver
-    from ngsxfem_tpu_torch.solvers import ell_spmv
+    from ngsxfem_tpu_torch.solvers import ell_spmv, sparse
 
     out = {"name": name, "nx": BIG_NX[name]}
     t0 = time.perf_counter()
@@ -1656,7 +1656,7 @@ def card_size(name, build, device, lift=None, minres_pre=None):
     out["launches"] = ell_spmv.launches - before
     out["layouts"] = ell_spmv.layouts_built - layouts_before
     out["kind"], out["iters"], out["products"] = kind, cnt.iters, cnt.products
-    want = int(ell_spmv.uses_layout(a.mat.vals))  # none on the CPU
+    want = int(sparse._on_card(a.mat.vals))  # none on the CPU
     check(out["layouts"] == want, f"{name}: the solve built "
                                   f"{out['layouts']} layouts for its one "
                                   f"table, {want} expected")
@@ -4015,7 +4015,7 @@ def ad_compliance(T, dev, model, dst, st):
           f"AD general: {out['general']['products']} ELL products, not one "
           f"forward and one transposed per CG product")
     # the lattice path's DIA products likewise, each a launch of dia_spmv
-    # (sparse.DiaMatvec) on the card
+    # (dia_spmv.DiaMatvec) on the card
     want = 2 * AD_CG_ITERS + 1 if dev.type == "cuda" else 0
     check(out["lattice"]["dia_launches"] == want,
           f"AD lattice: {out['lattice']['dia_launches']} dia_spmv launches, "
@@ -5099,8 +5099,8 @@ class to_ell_audit:
     """While active, holds every table that ``SparseMatrix.to_ell`` builds on
     the card (``coo_ell.coo_to_ell`` on CUDA tensors) with its triplets;
     ``check(label)`` holds each against the plain version
-    (``coo_ell.place_plain``) on the card and against the host conversion
-    (``to_ell`` on CPU copies), bit for bit, prints one line and lets them
+    (``coo_ell.place_plain``) on the card and against ``to_ell`` on CPU
+    copies, bit for bit, prints one line and lets them
     go.  ``main`` checks between phases, so that no phase's times include
     the checks, unless the held triplets pass ``AUDIT_CAP_BYTES``: then the
     check runs at once, and its line says so.  Conversions inside the
@@ -5153,7 +5153,7 @@ class to_ell_audit:
                 rows.cpu(), cols.cpu(), vals.cpu(), shape,
                 device="cpu").to_ell()
             check(_same_ell(c, v, host.cols, host.vals),
-                  f"{what}: the card's table != the host conversion's")
+                  f"{what}: the card's table != the CPU's")
             triplets += T
             self.launching += nu > 0
             if self.largest is None or T > self.largest["triplets"]:
@@ -5166,8 +5166,8 @@ class to_ell_audit:
         dt = time.perf_counter() - t0
         self.seconds += dt
         print(f"[to_ell audit] {label}: {len(held)} tables built on the card "
-              f"({triplets} triplets) == place_plain on the card == the host "
-              f"conversion, bit for bit; {self.tables} tables so far; check "
+              f"({triplets} triplets) == place_plain on the card == to_ell "
+              f"on the CPU, bit for bit; {self.tables} tables so far; check "
               f"{dt:.2f} s", flush=True)
 
 
@@ -5213,7 +5213,7 @@ def phase_32(dev, S, t_start):
     host = sparse.SparseMatrix(S.rows.cpu(), S.cols.cpu(), S.vals.cpu(),
                                S.shape, device="cpu").to_ell()
     check(_same_ell(E.cols, E.vals, host.cols, host.vals),
-          "to_ell on the card != the host conversion")
+          "to_ell on the card != to_ell on the CPU")
     del pc, pv, host
     path_ms = time_ms(S.to_ell, reps=20)
     l0 = coo_ell.launches
@@ -5236,7 +5236,7 @@ def phase_32(dev, S, t_start):
           f"triplets, {nu} entries, ELL {n} x {K} {str(E.vals.dtype)[6:]}; "
           f"launches {launches} (counter reset just before; {before} in "
           f"phases 3-31); table == phase 14's view == place_plain on the "
-          f"card == the host conversion, bit for bit; to_ell {path_ms:.3f} ms "
+          f"card == to_ell on the CPU, bit for bit; to_ell {path_ms:.3f} ms "
           f"(events, median of 20), the kernel {dev_us:.3f} us device per "
           f"launch, bound {bound_ms * 1e3:.3f} us ({bound_by}); place_plain "
           f"on the card {plain_ms:.3f} ms; coalesce (dedup and sum only) "
@@ -5604,7 +5604,7 @@ def main():
           f"cooperative launch {bool(info['cooperative'])}", flush=True)
 
     # every ELL table built on the card from here to phase 31 is held to the
-    # plain version and the host conversion, between phases
+    # plain version and to_ell on the CPU, between phases
     audit = to_ell_audit().__enter__()
 
     # 3. kernel against its plain version on the card

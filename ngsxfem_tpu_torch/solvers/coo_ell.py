@@ -1,12 +1,12 @@
 """COO triplets to the padded ``(n, K)`` ELL table, on the triplets' device.
 
-``coo_to_ell`` gives the table that the host conversion of
-``SparseMatrix.to_ell`` (the JAX package's ``SparseMatrix.to_ell``) gives,
-bit for bit: duplicate (row, col) entries summed in f64 in stream order and
-rounded once to the values' dtype, each row's entries in first-appearance
-order, padding col 0, value 0, K the longest row (0 for a matrix with rows
-and no entry, 1 for one with no row).  It reads the triplet stream where it
-lies and copies none of it to the host:
+``coo_to_ell`` is ``SparseMatrix.to_ell`` on every device.  It gives the
+table of the JAX package's ``SparseMatrix.to_ell``, bit for bit: duplicate
+(row, col) entries summed in f64 in stream order and rounded once to the
+values' dtype, each row's entries in first-appearance order, padding col 0,
+value 0, K the longest row (0 for a matrix with rows and no entry, 1 for one
+with no row).  It reads the triplet stream where it lies and copies none of
+it to the host:
 
 1. ``key = row * ncols + col`` sorted stably (``torch.sort``): each run of
    equal keys, one unique entry, contiguous and in stream order;
@@ -18,32 +18,32 @@ lies and copies none of it to the host:
    it in its row at the slot given by the number of the row's entries that
    appear before it in the stream.
 
-On CUDA tensors step 3 is the hand-written kernel ``csrc/coo_ell.cu`` (see
-the note at its top); on CPU tensors it is ``place_plain``, the same steps
-in PyTorch.  There is no fallback between the two: a CUDA tensor reaches
-the kernel or the call raises.
+On a card (``on_card``) step 3 is the hand-written kernel
+``csrc/coo_ell.cu`` (see the note at its top); elsewhere it is
+``place_plain``, the same step in PyTorch.  There is no fallback between
+the two: a CUDA tensor reaches the kernel or the call raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from ..kernels.launch import I64, INT, PTR, Library, on_card
 
 # launches of the CUDA kernel (one per `coo_to_ell` call on CUDA tensors with
 # at least one entry)
 launches = 0
 
-_LIB = None
-_FN = {torch.float32: "coo_ell_place_f32", torch.float64: "coo_ell_place_f64"}
+_SIG = (PTR,) * 8 + (I64, I64, INT, PTR)
+LIB = Library("coo_ell", {torch.float32: ("coo_ell_place_f32", _SIG),
+                          torch.float64: ("coo_ell_place_f64", _SIG)})
 
 
 def coo_to_ell(rows, cols, vals, shape):
     """``(cols (n, K) int32, vals (n, K), nu)``: the ELL table of the COO
     triplets ``rows``, ``cols`` (integer) and ``vals`` (T,) of a matrix of
     ``shape`` (n, ncols), on their device, and its number of unique
-    entries.  A row outside [0, n) raises ``ValueError``, as in the host
-    conversion, and so do values that require grad (``RuntimeError``): the
-    table has no gradient."""
+    entries.  A row outside [0, n) raises ``ValueError``, and values that
+    require grad raise ``RuntimeError``: the table has no gradient."""
     if vals.requires_grad:
         raise RuntimeError("to_ell on values that require grad: the ELL "
                            "table has no gradient; detach them first")
@@ -72,7 +72,7 @@ def coo_to_ell(rows, cols, vals, shape):
         raise ValueError(f"to_ell: a row index is outside [0, {n})")
     out_cols = torch.zeros((n, K), dtype=torch.int32, device=dev)
     out_vals = torch.zeros((n, K), dtype=vals.dtype, device=dev)
-    place = _place_kernel if vals.is_cuda else place_plain
+    place = _place_kernel if on_card(vals) else place_plain
     place(vals, perm, starts, ukey, first, row_ptr, out_cols, out_vals, ncols)
     return out_cols, out_vals, nu
 
@@ -106,43 +106,19 @@ def place_plain(vals, perm, starts, ukey, first, row_ptr, out_cols, out_vals,
     out_vals.view(-1)[at] = acc.to(out_vals.dtype)
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from ..kernels.build import load
-
-        lib = load("coo_ell")
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in _FN.values():
-            fn = getattr(lib, name)
-            fn.restype = I
-            fn.argtypes = [P, P, P, P, P, P, P, P, L, L, I, P]
-        lib.coo_ell_error_string.restype = ctypes.c_char_p
-        lib.coo_ell_error_string.argtypes = [I]
-        _LIB = lib
-    return _LIB
-
-
 def _place_kernel(vals, perm, starts, ukey, first, row_ptr, out_cols,
                   out_vals, ncols):
     """``place_plain`` as one launch of ``csrc/coo_ell.cu`` on CUDA tensors
     (all int64 but ``out_cols``, contiguous, on one card)."""
     global launches
-    if vals.dtype not in _FN:
+    if vals.dtype not in LIB.entries:
         raise ValueError(f"no coo_ell kernel for {vals.dtype}: vals must be "
                          f"float32 or float64")
     nu = ukey.numel()
     if nu == 0:
         return
-    lib = _lib()
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = getattr(lib, _FN[vals.dtype])(
-            vals.data_ptr(), perm.data_ptr(), starts.data_ptr(),
-            ukey.data_ptr(), first.data_ptr(), row_ptr.data_ptr(),
-            out_cols.data_ptr(), out_vals.data_ptr(), nu, ncols,
-            out_cols.shape[1], stream)
-    if err != 0:
-        raise RuntimeError("coo_ell kernel launch failed: "
-                           f"{lib.coo_ell_error_string(err).decode()}")
+    LIB.launch(vals.dtype, vals, vals.data_ptr(), perm.data_ptr(),
+               starts.data_ptr(), ukey.data_ptr(), first.data_ptr(),
+               row_ptr.data_ptr(), out_cols.data_ptr(), out_vals.data_ptr(),
+               nu, ncols, out_cols.shape[1])
     launches += 1

@@ -1,16 +1,15 @@
 """Fused fixed-budget Jacobi-PCG on the symmetric offset-diagonal operator.
 
-Counterpart of ``ngsxfem_tpu/solvers/pallas_cg.py``.  On a CUDA tensor,
-``dia_cg_fused`` runs the whole loop as one persistent cooperative kernel,
-``csrc/dia_cg.cu`` (see the note at the top of that file for its design and
-what bounds it), launched with the plan of ``_plan``; on a CPU tensor it
-runs ``dia_cg_fused_plain``, the same algorithm in PyTorch.  There is no
-fallback between the two: a CUDA tensor reaches the kernel or the call
-raises.
+Counterpart of ``ngsxfem_tpu/solvers/pallas_cg.py``.  On a card
+(``on_card``), ``dia_cg_fused`` runs the whole loop as one persistent
+cooperative kernel, ``csrc/dia_cg.cu`` (see the note at the top of that file
+for its design and what bounds it), launched with the plan of ``_plan``;
+elsewhere it runs ``dia_cg_fused_plain``, the same algorithm in PyTorch.
+There is no fallback between the two: a CUDA tensor reaches the kernel or
+the call raises.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -18,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import as_input
+from ..kernels.launch import INT, PTR, U32, Library, on_card
 from .krylov import _vdot
 
 # calls of `dia_cg_fused` that went to the CUDA kernel (one device kernel per
@@ -27,7 +27,11 @@ launches = 0
 MAX_TERMS = 32  # offsets the kernel takes (csrc/dia_cg.cu kMaxTerms)
 THREADS = 1024  # threads per block (csrc/dia_cg.cu kThreads)
 
-_LIB = None
+LIB = Library("dia_cg", {
+    "dia_cg_f32": ("dia_cg_f32", (PTR, INT, INT, PTR, PTR, PTR) + (INT,) * 7
+                   + (PTR, PTR, INT, PTR, PTR, PTR, U32, PTR, PTR)),
+    "exchange_words": ("dia_cg_f32_exchange_words", ()),
+    "device_info": ("dia_cg_f32_device_info", (PTR,))}, prefix="dia_cg_f32")
 _INFO = {}  # device index -> dia_cg_f32_device_info
 _XCH = {}   # (device index, stream) -> [exchange words, next tag]
 _LAUNCH = {}  # (device index, offsets, n) -> (plan, rows, offs, slots)
@@ -199,35 +203,6 @@ def _plan(n, offsets, sm_count, smem_bytes, threads=THREADS):
     return Plan(grid, threads, chunk, halo, win, stage_vec, slots, smem, o_max)
 
 
-def _bind(lib):
-    """Set the ctypes signatures of a build of csrc/dia_cg.cu."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.dia_cg_f32.restype = I
-    lib.dia_cg_f32.argtypes = [P, I, I, P, P, P, I, I, I, I, I, I, I,
-                               P, P, I, P, P, P, ctypes.c_uint, P, P]
-    lib.dia_cg_f32_exchange_words.restype = I
-    lib.dia_cg_f32_exchange_words.argtypes = []
-    lib.dia_cg_f32_device_info.restype = I
-    lib.dia_cg_f32_device_info.argtypes = [P]
-    lib.dia_cg_f32_error_string.restype = ctypes.c_char_p
-    lib.dia_cg_f32_error_string.argtypes = [I]
-    return lib
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from ..kernels.build import load
-
-        _LIB = _bind(load("dia_cg"))
-    return _LIB
-
-
-def _raise(lib, what, err):
-    raise RuntimeError(f"{what} failed: "
-                       f"{lib.dia_cg_f32_error_string(err).decode()}")
-
-
 def device_info(device):
     """The kernel's view of a CUDA device: SMs, dynamic shared memory per
     block, cooperative launch, and the kernel's max threads per block,
@@ -235,15 +210,10 @@ def device_info(device):
     device = torch.device(device)
     idx = torch.cuda.current_device() if device.index is None else device.index
     if idx not in _INFO:
-        lib = _lib()
-        buf = (ctypes.c_int * 7)()
-        with torch.cuda.device(idx):
-            err = lib.dia_cg_f32_device_info(ctypes.addressof(buf))
-        if err != 0:
-            _raise(lib, "dia_cg_f32_device_info", err)
         _INFO[idx] = dict(zip(("sm_count", "smem_bytes", "cooperative",
                                "max_threads", "registers", "static_smem",
-                               "local_bytes"), list(buf)))
+                               "local_bytes"),
+                              LIB.ints("device_info", idx, 7)))
     return _INFO[idx]
 
 
@@ -255,9 +225,10 @@ def cuda_plan(offsets, n, device):
 
 
 def _dia_cg_cuda(offsets, terms, vals, b, dinv, iters, lib=None):
-    """Launch the kernel (or `lib`, another build of the same source)."""
+    """Launch the kernel (or `lib`, a ``Library`` of another build of the
+    same source)."""
     global launches
-    lib = lib or _lib()
+    lib = lib or LIB
     n = b.shape[0]
     key = (b.device.index, _key(offsets), n)
     if key not in _LAUNCH:
@@ -270,11 +241,10 @@ def _dia_cg_cuda(offsets, terms, vals, b, dinv, iters, lib=None):
     x = torch.empty_like(b)
     work = torch.empty((5, n), dtype=b.dtype, device=b.device)
     res = torch.empty((), dtype=b.dtype, device=b.device)
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
+    with lib.on(b) as stream:
         xch = _XCH.get((b.device.index, stream))
         if xch is None:
-            words = torch.zeros(lib.dia_cg_f32_exchange_words(),
+            words = torch.zeros(lib.fn("exchange_words")(),
                                 dtype=torch.int64, device=b.device)
             xch = _XCH[(b.device.index, stream)] = [words, 1]
         # each call's exchanges carry tags above the previous call's on this
@@ -284,14 +254,13 @@ def _dia_cg_cuda(offsets, terms, vals, b, dinv, iters, lib=None):
             xch[0].zero_()
             tag0 = 1
         xch[1] = tag0 + 2 * iters + 1
-        err = lib.dia_cg_f32(
+        err = lib.fn("dia_cg_f32")(
             vals.data_ptr(), n, len(terms), rows.ctypes.data, offs.ctypes.data,
             slots.ctypes.data, plan.grid, plan.threads, plan.chunk, plan.halo,
             plan.win, int(plan.stage_vec), plan.staged_terms,
             b.data_ptr(), dinv.data_ptr(), iters, x.data_ptr(), work.data_ptr(),
             xch[0].data_ptr(), tag0, res.data_ptr(), stream)
-    if err != 0:
-        _raise(lib, "dia_cg_f32 cooperative launch", err)
+    lib.check("dia_cg_f32", err)
     launches += 1
     return x, res
 
@@ -313,8 +282,8 @@ def dia_cg_fused(offsets, vals, b, dinv, iters, plane=None):
     ``pallas_cg.dia_cg_fused`` up to reduction-order roundoff.  ``vals``,
     ``b`` and ``dinv`` may be numpy: they become tensors on the device and
     in the dtype of the tensors among them, else on the current card in
-    numpy's dtype.  CUDA tensors must be float32 (the kernel's type) and go
-    to the kernel; CPU tensors run ``dia_cg_fused_plain`` in their own
+    numpy's dtype.  Tensors on a card must be float32 (the kernel's type)
+    and go to the kernel; others run ``dia_cg_fused_plain`` in their own
     floating dtype.  It has no backward, as the reference's has none:
     with grad mode on, an input that requires a gradient raises
     ``RuntimeError`` (``krylov.cg`` on ``dia_matvec`` is the differentiable
@@ -349,10 +318,8 @@ def dia_cg_fused(offsets, vals, b, dinv, iters, plane=None):
     iters = int(iters)
     if iters < 0:
         raise ValueError("iters must be >= 0")
-    if b.device.type == "cpu":
+    if not on_card(b):
         return dia_cg_fused_plain(offsets, vals, b, dinv, iters)
-    if b.device.type != "cuda":
-        raise ValueError(f"no dia_cg_fused kernel for device {b.device}")
     if vals.dtype != torch.float32:
         raise ValueError(f"the CUDA kernel takes float32, got {vals.dtype}")
     return _dia_cg_cuda(offsets, terms, vals, b, dinv, iters)

@@ -1,7 +1,10 @@
-"""The offset-diagonal (DIA) product as one launch of ``csrc/dia_spmv.cu``.
+"""The offset-diagonal (DIA) product: ``y[r] = sum_k vals[k, r] * x[r + o_k]``.
 
-``sparse.dia_matvec`` sends CUDA tensors here (see the note at the top of
-the kernel's source).  ``check`` holds the inputs to what the kernel takes
+``dia_matvec`` (``sparse.dia_matvec``) holds the product's one device
+branch: on a card (``on_card``) one launch of the hand-written kernel
+``csrc/dia_spmv.cu`` (``dia_spmv``; see the note at the top of its source,
+no TPU counterpart: XLA fuses the reference's), elsewhere its plain twin
+``dia_matvec_plain``.  ``check`` holds the inputs to what the kernel takes
 and gives the offsets as the kernel's parameter struct, made once per
 offset tuple and cached: the offsets travel by value in the launch, so a
 call makes no copy to the card, reads nothing back and allocates only y.
@@ -12,6 +15,11 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..config import as_input
+from ..kernels.launch import I64, PTR, Library, on_card
+from ..utils.timing import count
 
 # offsets the kernel takes (csrc/dia_spmv.cu kMaxTerms; B1's
 # dia_cg.MAX_TERMS); the lattice tables have 27
@@ -21,9 +29,6 @@ MAX_TERMS = 32
 # at least one row)
 launches = 0
 
-_LIB = None
-_FN = {torch.float32: "dia_spmv_f32", torch.float64: "dia_spmv_f64"}
-_ENTRY = {}   # dtype -> the C entry, once the library is loaded
 _PARAMS = {}  # the offsets' int64 bytes -> their _Offsets
 
 
@@ -31,6 +36,97 @@ class _Offsets(ctypes.Structure):
     """``DiaOffsets`` of ``csrc/dia_spmv.cu``."""
     _fields_ = [("off", ctypes.c_longlong * MAX_TERMS),
                 ("count", ctypes.c_int)]
+
+
+_SIG = (PTR, PTR, PTR, I64, _Offsets, PTR)
+LIB = Library("dia_spmv", {torch.float32: ("dia_spmv_f32", _SIG),
+                           torch.float64: ("dia_spmv_f64", _SIG)})
+
+
+def dia_matvec(offsets, vals, x):
+    """Offset-diagonal (DIA) SpMV: y[r] = sum_k vals[k, r] * x[r + o_k].
+
+    `offsets` are host ints; entries off the right/left end of a diagonal
+    read zero, so boundary rows need no masking.  ``vals`` and ``x`` may be
+    numpy (``x`` then goes to the device and dtype of ``vals``).
+
+    On a card this is one launch of ``dia_spmv``, which gives the bits of
+    ``dia_matvec_plain`` (a NaN's payload aside) and counts
+    ``dia_matvec::kernel``: the lattice tables have 27 offsets, the kernel
+    takes up to ``MAX_TERMS`` (32), and it raises ``ValueError`` on more,
+    on mixed or non-float dtypes, on a non-contiguous table or vector and
+    on shapes that do not match.  With grad mode on and ``vals`` or ``x``
+    requiring a gradient the product there is ``DiaMatvec``, whose forward
+    and transposed products are kernel launches too.  Other tensors run
+    ``dia_matvec_plain`` and count ``dia_matvec::eager``; autograd
+    differentiates it as it is.
+    """
+    vals = as_input(vals, x if torch.is_tensor(x) else None)
+    x = as_input(x, vals)
+    if not (on_card(vals) or on_card(x)):
+        count("dia_matvec::eager")
+        return dia_matvec_plain(offsets, vals, x)
+    if torch.is_grad_enabled() and (vals.requires_grad or x.requires_grad):
+        y = DiaMatvec.apply(vals, x, offsets)
+    else:
+        y = dia_spmv(offsets, vals, x)
+    count("dia_matvec::kernel")
+    return y
+
+
+def dia_matvec_plain(offsets, vals, x):
+    """``dia_matvec`` in PyTorch: each diagonal contributes one static
+    shifted slice of the zero-padded x, a multiply and an add, in table
+    order (the first term is not added to 0)."""
+    offs = [int(o) for o in np.asarray(offsets).tolist()]
+    n = x.shape[0]
+    mneg = max(-min(offs), 0)
+    mpos = max(max(offs), 0)
+    xp = F.pad(x, (mneg, mpos))
+    y = None
+    for k, o in enumerate(offs):
+        t = vals[k] * xp[mneg + o:mneg + o + n]
+        y = t if y is None else y + t
+    return y
+
+
+class DiaMatvec(torch.autograd.Function):
+    """``y = dia_matvec(offsets, vals, x)`` on a card under autograd.
+
+    The forward is the kernel (``dia_spmv``).  The gradient of ``x`` is
+    itself a DIA product, ``dia_matvec(-offsets, vals_T, g)`` with
+    ``vals_T[k, c] = vals[k, c - o_k]`` (0 off the ends): one more launch.
+    That of ``vals`` is ``g[r] * x[r + o_k]`` (0 off the ends).  Under
+    ``create_graph`` both are differentiable again."""
+
+    @staticmethod
+    def forward(ctx, vals, x, offsets):
+        ctx.save_for_backward(vals, x)
+        ctx.offsets = [int(o) for o in np.asarray(offsets).tolist()]
+        return dia_spmv(offsets, vals, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, x = ctx.saved_tensors
+        offs = ctx.offsets
+        g = g.contiguous()
+        gvals = gx = None
+        if ctx.needs_input_grad[1]:
+            gx = dia_matvec([-o for o in offs], _shifted(vals, offs, -1), g)
+        if ctx.needs_input_grad[0]:
+            gvals = g * _shifted(x, offs, 1)
+        return gvals, gx, None
+
+
+def _shifted(t, offs, sign):
+    """(len(offs), n): row k is ``t[k]`` (``t`` itself if it is a vector)
+    read at ``c + sign * o_k``, 0 off the ends: one pad and one stack."""
+    n = t.shape[-1]
+    m = max(abs(o) for o in offs)
+    tp = F.pad(t, (m, m))
+    rows = [tp if t.dim() == 1 else tp[k] for k in range(len(offs))]
+    return torch.stack([r[m + sign * o:m + sign * o + n]
+                        for r, o in zip(rows, offs)])
 
 
 def check(offsets, vals, x):
@@ -51,7 +147,7 @@ def check(offsets, vals, x):
         params = _Offsets((ctypes.c_longlong * MAX_TERMS)(*offs.tolist()),
                           offs.size)
         _PARAMS[key] = params
-    if vals.dtype not in _FN or x.dtype != vals.dtype:
+    if vals.dtype not in LIB.entries or x.dtype != vals.dtype:
         raise ValueError(f"dia_spmv takes vals and x of one dtype, float32 "
                          f"or float64; got {vals.dtype} and {x.dtype}")
     if vals.device != x.device:
@@ -67,27 +163,10 @@ def check(offsets, vals, x):
     return params
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from ..kernels.build import load
-
-        lib = load("dia_spmv")
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for dtype, name in _FN.items():
-            fn = _ENTRY[dtype] = getattr(lib, name)
-            fn.restype = I
-            fn.argtypes = [P, P, P, L, _Offsets, P]
-        lib.dia_spmv_error_string.restype = ctypes.c_char_p
-        lib.dia_spmv_error_string.argtypes = [I]
-        _LIB = lib
-    return _LIB
-
-
 def dia_spmv(offsets, vals, x):
     """``y[r] = sum_k vals[k, r] * x[r + o_k]`` on CUDA tensors, one launch
-    on the current stream, the bits of ``sparse.dia_matvec_plain`` (a NaN's
-    payload aside).  No autograd (``sparse.DiaMatvec`` adds it).  Raises
+    on the current stream, the bits of ``dia_matvec_plain`` (a NaN's
+    payload aside).  No autograd (``DiaMatvec`` adds it).  Raises
     ``ValueError`` on inputs the kernel does not take (``check``)."""
     global launches
     params = check(offsets, vals, x)
@@ -95,13 +174,7 @@ def dia_spmv(offsets, vals, x):
     n = x.shape[0]
     if n == 0:
         return y
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _ENTRY[x.dtype](vals.data_ptr(), x.data_ptr(), y.data_ptr(), n,
-                              params, stream)
-    if err != 0:
-        raise RuntimeError("dia_spmv kernel launch failed: "
-                           f"{lib.dia_spmv_error_string(err).decode()}")
+    LIB.launch(x.dtype, x, vals.data_ptr(), x.data_ptr(), y.data_ptr(), n,
+               params)
     launches += 1
     return y

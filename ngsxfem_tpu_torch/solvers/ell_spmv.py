@@ -11,11 +11,12 @@ that file for its design and what bounds it).  A solver builds the layout
 once per table and hands it to every product (``ELLMatrix.layout``,
 which every solver's products go through).
 
-On CPU tensors ``ell_matvec`` runs ``ell_matvec_plain`` on the ``(n, K)``
-table, and no solver builds a layout there (``uses_layout``).
-``sell_matvec_plain`` is the kernel's reference: its sum, in plain PyTorch.
-There is no fallback between kernel and plain: a CUDA tensor reaches the
-kernel or the call raises.
+``ell_matvec`` holds the product's one device branch: on a card
+(``on_card``) the kernel, elsewhere ``ell_matvec_plain`` on the ``(n, K)``
+table, where ``ELLMatrix`` builds no layout.  ``sell_matvec_plain`` is the
+kernel's reference: its sum, in plain PyTorch.  There is no fallback
+between kernel and plain: a CUDA tensor reaches the kernel or the call
+raises.
 
 Under autograd (grad mode on and ``vals`` or ``x`` requiring a gradient)
 the product is ``EllMatvec``, the counterpart of ``jax.vjp`` of the
@@ -27,11 +28,10 @@ and a product.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..config import as_input
+from ..kernels.launch import I64, INT, PTR, Library, on_card
 from ..utils.timing import traced
 
 # launches of the CUDA kernel (one per `ell_matvec` call on CUDA tensors with
@@ -43,8 +43,10 @@ layouts_built = 0
 SLICE = 32     # rows per slice: one warp of the kernel
 WINDOW = 1024  # rows sorted by length inside windows of this many rows
 
-_LIB = None
-_FN = {torch.float32: "sell_spmv_f32", torch.float64: "sell_spmv_f64"}
+_SIG = (PTR,) * 7 + (INT, I64, PTR)
+LIB = Library("ell_spmv", {torch.float32: ("sell_spmv_f32", _SIG),
+                           torch.float64: ("sell_spmv_f64", _SIG),
+                           "kernel_info": ("sell_spmv_kernel_info", (PTR,))})
 
 
 class SellLayout:
@@ -103,12 +105,6 @@ class SellLayout:
         return self._plain_idx
 
 
-def uses_layout(t):
-    """Whether products on the device of tensor ``t`` run on a sliced
-    layout: on a CUDA card.  The CPU sums the ``(n, K)`` table itself."""
-    return t.is_cuda
-
-
 def ell_matvec_plain(vals, cols, x):
     """The row-padded sum in PyTorch: ``y = 0; y = y + vals[:, k] *
     x[cols[:, k]]`` for k = 0..K-1, one rounding per product and per sum.
@@ -142,7 +138,7 @@ def _check_table(vals, cols):
     if vals.dim() != 2 or cols.dim() != 2 or tuple(cols.shape) != tuple(vals.shape):
         raise ValueError(f"vals and cols must be (n, K) of one shape, got "
                          f"{tuple(vals.shape)} and {tuple(cols.shape)}")
-    if vals.dtype not in _FN:
+    if vals.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"vals must be float32 or float64, got {vals.dtype}")
     if cols.dtype != torch.int32:
         raise ValueError(f"cols must be int32, got {cols.dtype}")
@@ -212,36 +208,11 @@ def prepare_ell(vals, cols, ncols=None):
     return layout
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from ..kernels.build import load
-
-        lib = load("ell_spmv")
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in _FN.values():
-            fn = getattr(lib, name)
-            fn.restype = I
-            fn.argtypes = [P, P, P, P, P, P, P, I, L, P]
-        lib.ell_spmv_error_string.restype = ctypes.c_char_p
-        lib.ell_spmv_error_string.argtypes = [I]
-        lib.sell_spmv_kernel_info.restype = I
-        lib.sell_spmv_kernel_info.argtypes = [P]
-        _LIB = lib
-    return _LIB
-
-
 def kernel_info(device):
     """{dtype name: (registers per thread, static shared memory bytes, local
     memory bytes per thread)} of the two compiled kernels on ``device``."""
-    lib = _lib()
-    buf = (ctypes.c_int * 6)()
-    with torch.cuda.device(device):
-        err = lib.sell_spmv_kernel_info(ctypes.addressof(buf))
-    if err != 0:
-        raise RuntimeError("sell_spmv_kernel_info failed: "
-                           f"{lib.ell_spmv_error_string(err).decode()}")
-    return {"float32": tuple(buf[0:3]), "float64": tuple(buf[3:6])}
+    info = LIB.ints("kernel_info", device, 6)
+    return {"float32": tuple(info[0:3]), "float64": tuple(info[3:6])}
 
 
 def transpose_ell(vals, cols, ncols):
@@ -306,13 +277,13 @@ def ell_matvec(vals, cols, x, layout=None, adjoint=None):
     in [0, ncols) (``ELLMatrix.from_numpy`` checks that once), all
     contiguous and on one device.  ``layout`` is ``prepare_ell`` of this
     table; without it a CUDA call builds a throwaway one (counted in
-    ``layouts_built``).  CUDA tensors go to the kernel, CPU tensors to
-    ``ell_matvec_plain`` (a layout given there is checked, not used);
-    anything else raises.  With grad mode on and ``vals`` or ``x``
-    requiring a gradient the product is ``EllMatvec``, whose backward
-    applies ``adjoint`` (default: the product of ``transpose_ell`` of the
-    table, built in the backward).  A numpy (or list) ``x`` becomes a
-    tensor on the device and in the dtype of ``vals`` first.
+    ``layouts_built``).  Tensors on a card go to the kernel, others to
+    ``ell_matvec_plain`` (a layout given there is checked, not used).
+    With grad mode on and ``vals`` or ``x`` requiring a gradient the
+    product is ``EllMatvec``, whose backward applies ``adjoint`` (default:
+    the product of ``transpose_ell`` of the table, built in the backward).
+    A numpy (or list) ``x`` becomes a tensor on the device and in the dtype
+    of ``vals`` first.
     """
     x = as_input(x, vals)
     _check(vals, cols, x)
@@ -329,8 +300,8 @@ def ell_matvec(vals, cols, x, layout=None, adjoint=None):
 
 
 def _ell_matvec(vals, cols, x, layout):
-    """``ell_matvec`` on checked inputs, no autograd: the kernel on CUDA
-    tensors, ``ell_matvec_plain`` on CPU tensors."""
+    """``ell_matvec`` on checked inputs, no autograd: the product's one
+    device branch, the kernel on a card, ``ell_matvec_plain`` elsewhere."""
     global launches
     if layout is not None and (layout.n != vals.shape[0]
                                or layout.dtype != vals.dtype
@@ -340,26 +311,17 @@ def _ell_matvec(vals, cols, x, layout):
                          f"{layout.dtype} on {layout.device}) does not fit "
                          f"vals {tuple(vals.shape)} {vals.dtype} on "
                          f"{vals.device} and x of {x.shape[0]}")
-    if x.device.type == "cpu":
+    if not on_card(x):
         return ell_matvec_plain(vals, cols, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ell_matvec kernel for device {x.device}")
     n = vals.shape[0]
     y = torch.empty(n, dtype=vals.dtype, device=vals.device)
     if n == 0:
         return y
     if layout is None:
         layout = prepare_ell(vals, cols, x.shape[0])
-    lib = _lib()
     L = layout
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, _FN[vals.dtype])(
-            L.vals.data_ptr(), L.cols.data_ptr(), L.slice_ptr.data_ptr(),
-            L.slice_K.data_ptr(), L.rows.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n, L.nslices, stream)
-    if err != 0:
-        raise RuntimeError("ell_spmv kernel launch failed: "
-                           f"{lib.ell_spmv_error_string(err).decode()}")
+    LIB.launch(vals.dtype, x, L.vals.data_ptr(), L.cols.data_ptr(),
+               L.slice_ptr.data_ptr(), L.slice_K.data_ptr(), L.rows.data_ptr(),
+               x.data_ptr(), y.data_ptr(), n, L.nslices)
     launches += 1
     return y

@@ -112,18 +112,15 @@ def cg_implicit(matvec, b, params=(), M=None, tol=1e-12, maxiter=10000):
     reads (the values of A): the counterpart of the gradient rule of
     ``jax.scipy.sparse.linalg.cg`` (a symmetric ``custom_linear_solve``).
 
-    ``matvec`` is a callable or an ``ELLMatrix`` (its products, and so both
-    solves, through the ELL kernel on the card); A must be symmetric
-    positive definite.  The
+    ``matvec`` is a callable or a matrix with a ``matvec`` (an
+    ``ELLMatrix``: its products, and so both solves, through the ELL kernel
+    on the card); A must be symmetric positive definite.  The
     backward solves ``A lam = g`` by the same CG and returns ``grad_b =
     lam`` and ``grad_params = -d(lam^T A(params) x)/d(params)`` through
     ``torch.autograd.grad`` of one product.  ``M`` (a callable, taken as
     constant) preconditions both solves.  Raises ``RuntimeError`` when a
     solve misses ``tol`` in ``maxiter`` iterations."""
-    from .sparse import ELLMatrix
-
-    if isinstance(matvec, ELLMatrix):
-        matvec = matvec.matvec
+    matvec = getattr(matvec, "matvec", matvec)
     params = tuple(params)
 
     def solve(rhs):
@@ -243,10 +240,10 @@ def jacobi_preconditioner(diag, free_mask=None):
     0 elsewhere."""
     mask = free_mask if torch.is_tensor(free_mask) else None
     diag = as_input(diag, mask)
-    inv = torch.where(diag.abs() > 1e-30, 1.0 / diag, 0.0)
+    keep = diag.abs() > 1e-30
     if free_mask is not None:
-        inv = torch.where(as_input(free_mask, diag, dtype=torch.bool), inv,
-                          0.0)
+        keep = keep & as_input(free_mask, diag, dtype=torch.bool)
+    inv = torch.where(keep, 1.0 / diag, 0.0)
 
     def M(r):
         return inv * r
@@ -267,19 +264,13 @@ def masked_matvec(matvec, free_mask):
 
 
 def _cg_ell(mat, b, free, maxiter, tol):
-    """Jacobi-preconditioned CG on the free-dof-masked ``ELLMatrix``, every
-    product through its cached layout (the ELL kernel on the card).
-    Returns (x, iters, res_norm)."""
-    diag = mat.diagonal()
-    dinv = torch.where(free & (diag.abs() > 1e-30), 1.0 / diag, 0.0)
-    bm = torch.where(free, b, 0.0)
-
-    def mv(x):
-        xp = torch.where(free, x, 0.0)
-        y = mat.matvec(xp)
-        return torch.where(free, y, x)
-
-    return cg(mv, bm, M=lambda r: dinv * r, maxiter=maxiter, tol=tol)
+    """Jacobi-preconditioned CG on the free-dof block of ``mat`` (an
+    ``ELLMatrix``: every product through its cached layout, the ELL kernel
+    on the card), the bool tensor ``free`` masking the matvec, the
+    preconditioner and ``b``.  Returns (x, iters, res_norm)."""
+    return cg(masked_matvec(mat.matvec, free), torch.where(free, b, 0.0),
+              M=jacobi_preconditioner(mat.diagonal(), free), maxiter=maxiter,
+              tol=tol)
 
 
 def _free_mask(freedofs, device):
@@ -296,9 +287,10 @@ class CGSolver:
     """NGSolve-flavoured wrapper: ``CGSolver(mat, pre) * rhs``.
 
     ``freedofs`` is a BitArray or a bool mask (numpy or tensor); ``rhs`` a
-    tensor or a dof-vector shim (``f.vec``).  An ``ELLMatrix`` (or a
-    ``SparseMatrix``, through its cached ELL view) with no ``pre`` takes
-    ``_cg_ell``; anything else runs ``cg`` on the masked matvec."""
+    tensor or a dof-vector shim (``f.vec``).  A matrix with an ELL view
+    (``.ell()``: an ``ELLMatrix``, or a ``SparseMatrix`` through its cached
+    one) and no ``pre`` takes ``_cg_ell``; anything else runs ``cg`` on the
+    masked matvec."""
 
     def __init__(self, mat, pre=None, maxsteps=500, tol=1e-10, freedofs=None):
         self.mat = mat
@@ -308,13 +300,12 @@ class CGSolver:
         self.freedofs = freedofs
 
     def __mul__(self, rhs):
-        from .sparse import ELLMatrix
-
         mat = self.mat
-        if hasattr(mat, "ell"):
+        has_ell = hasattr(mat, "ell")
+        if has_ell:
             mat = mat.ell()
         b = as_input(rhs, mat)
-        if isinstance(mat, ELLMatrix) and self.pre is None:
+        if has_ell and self.pre is None:
             fm = (_free_mask(self.freedofs, b.device)
                   if self.freedofs is not None
                   else torch.ones(mat.shape[0], dtype=torch.bool,

@@ -1,22 +1,22 @@
 """Sparse matrices: COO triplets, padded ELL rows and offset diagonals.
 
-Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-306``.
+Counterpart of ``ngsxfem_tpu/solvers/sparse.py:18-141,197-306``.  This
+module holds the formats and the policy; each operation lives in its own
+module (``coo_ell``, ``ell_spmv``, ``dia_spmv``) with its hand-written
+kernel, its plain twin and the one device branch between them, on the
+launcher's ``on_card``.
 ``SparseMatrix`` (COO, its product summed by ``index_add_`` on the CPU and
 by a fixed-order ``ScatterPlan`` on the card, ``todense``, ``to_scipy``,
 ``Inverse``, ``CreateTranspose``) is plain PyTorch: the reference has no
-Pallas kernel behind it either.  The DIA product ``dia_matvec`` is, on CUDA
-tensors, the hand-written kernel ``csrc/dia_spmv.cu`` (one launch in place
-of a multiply and an add per diagonal; no TPU counterpart, XLA fuses the
-reference's) and ``dia_matvec_plain`` on the CPU.
-``SparseMatrix.to_ell`` builds the ELL table on the card through
-``coo_ell.coo_to_ell`` (its sum and placement the hand-written kernel
-``csrc/coo_ell.cu``) and on the CPU on the host, as the reference does.
-``ELLMatrix.matvec`` is ``ell_spmv.ell_matvec`` on the matrix's cached
-sliced layout (on the card; the CPU sums the table itself), which on CUDA
-tensors is the hand-written kernel
-``csrc/ell_spmv.cu`` (the reference's ``matvec_pallas`` has no separate
-counterpart); under autograd its transposed product runs the same kernel
-on the cached transposed table (``ELLMatrix.transposed``).
+Pallas kernel behind it either.  ``SparseMatrix.to_ell`` is
+``coo_ell.coo_to_ell`` where the triplets lie (on the card its sum and
+placement are the kernel ``csrc/coo_ell.cu``).  ``ELLMatrix.matvec`` is
+``ell_spmv.ell_matvec`` on the matrix's cached sliced layout (on the card;
+the CPU sums the table itself), on the card the kernel ``csrc/ell_spmv.cu``
+(the reference's ``matvec_pallas`` has no separate counterpart); under
+autograd its transposed product runs the same kernel on the cached
+transposed table (``ELLMatrix.transposed``).  ``dia_matvec`` is
+``dia_spmv.dia_matvec`` (on the card the kernel ``csrc/dia_spmv.cu``).
 ``InverseMatrix`` keeps the reference's dispatch with one change on the
 card: the named direct solvers factorize on the host with
 scipy, ``"cg"`` runs Jacobi-CG on the ELL view of the matrix through that
@@ -27,14 +27,18 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import as_input, config, resolve_device
+# the policy's one test of "on a card": the tests patch ``sparse._on_card``
+# to take the card's policy (the default ``Inverse()``, the ``ScatterPlan``
+# of the rows, the sliced layouts) on CPU tensors, whose products stay plain
+from ..kernels.launch import on_card as _on_card
 from ..ops.scatter import ScatterPlan
 from ..utils.timing import count, traced
-from . import dia_spmv, ell_spmv
 from .coo_ell import coo_to_ell
+from .dia_spmv import dia_matvec, dia_matvec_plain  # noqa: F401 (public)
 from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
+from .krylov import _cg_ell
 
 
 class SparseMatrix:
@@ -58,7 +62,7 @@ class SparseMatrix:
         bit for bit."""
         y = torch.zeros(self.shape[0], dtype=self.vals.dtype,
                         device=self.vals.device)
-        if not _on_card(self):
+        if not _on_card(self.vals):
             return y.index_add_(0, self.rows, terms)
         if not hasattr(self, "_rows_plan"):
             self._rows_plan = ScatterPlan(self.rows, self.shape[0])
@@ -93,44 +97,15 @@ class SparseMatrix:
 
     @traced("SparseMatrix::to_ell")
     def to_ell(self):
-        """Padded ELL copy: duplicate (row, col) entries summed in f64 in
-        stream order, each row's entries in first-appearance order, padding
-        col 0, val 0.  On the card (``_on_card``) ``coo_ell.coo_to_ell``
-        builds it where the triplets lie; on the CPU the host conversion of
-        the reference, through the native open-addressing dedup, which runs
-        there faster than the card's steps in PyTorch.  Both give the same
-        table, bit for bit."""
-        if _on_card(self):
-            cols, vals, nu = coo_to_ell(self.rows, self.cols, self.vals,
-                                        self.shape)
-            count("SparseMatrix::to_ell::triplets", self.vals.shape[0])
-            count("SparseMatrix::to_ell::entries", nu)
-            return ELLMatrix(cols, vals, self.shape)
-        from ..mesh.native import unique_i64
-
-        rows = self.rows.cpu().numpy()
-        cols = self.cols.cpu().numpy()
-        vals = self.vals.cpu().numpy()
-        n = self.shape[0]
-        lin = rows.astype(np.int64) * self.shape[1] + cols
-        uniq, inv = unique_i64(lin)
-        nu = len(uniq)
-        sums = np.bincount(inv, weights=vals, minlength=nu).astype(vals.dtype)
-        urows = (uniq // self.shape[1]).astype(np.int32)
-        ucols = (uniq % self.shape[1]).astype(np.int32)
-        counts = np.bincount(urows, minlength=n)
-        K = int(counts.max()) if len(counts) else 1
-        ell_cols = np.zeros((n, K), dtype=np.int32)
-        ell_vals = np.zeros((n, K), dtype=vals.dtype)
-        row_start = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(counts, out=row_start[1:])
-        order = np.argsort(urows, kind="stable")
-        pos = np.empty(nu, dtype=np.int64)
-        pos[order] = np.arange(nu) - row_start[urows[order]]
-        ell_cols[urows, pos] = ucols
-        ell_vals[urows, pos] = sums
-        return ELLMatrix.from_numpy(ell_cols, ell_vals, self.shape,
-                                    device=self.vals.device)
+        """Padded ELL copy (``coo_ell.coo_to_ell``, where the triplets lie):
+        duplicate (row, col) entries summed in f64 in stream order, each
+        row's entries in first-appearance order, padding col 0, val 0, as
+        the reference's host conversion gives it, bit for bit."""
+        cols, vals, nu = coo_to_ell(self.rows, self.cols, self.vals,
+                                    self.shape)
+        count("SparseMatrix::to_ell::triplets", self.vals.shape[0])
+        count("SparseMatrix::to_ell::entries", nu)
+        return ELLMatrix(cols, vals, self.shape)
 
     def ell(self):
         """Cached ELL view."""
@@ -194,8 +169,8 @@ class ELLMatrix:
         """The sliced layout of the table (``ell_spmv.prepare_ell``) on the
         card, made at the first product and kept while ``vals`` and ``cols``
         are the same tensors; None on the CPU, whose products sum the table
-        itself (``ell_spmv.uses_layout``)."""
-        if not ell_spmv.uses_layout(self.vals):
+        itself."""
+        if not _on_card(self.vals):
             return None
         lay = self._layout
         if lay is None or lay[0] is not self.vals or lay[1] is not self.cols:
@@ -226,98 +201,13 @@ class ELLMatrix:
     __mul__ = matvec
     __matmul__ = matvec
 
+    def ell(self):
+        """The ELL view: the matrix itself."""
+        return self
+
     def diagonal(self):
         rid = torch.arange(self.shape[0], device=self.cols.device)[:, None]
         return torch.where(self.cols == rid, self.vals, 0.0).sum(1)
-
-
-def dia_matvec(offsets, vals, x):
-    """Offset-diagonal (DIA) SpMV: y[r] = sum_k vals[k, r] * x[r + o_k].
-
-    `offsets` are host ints; entries off the right/left end of a diagonal
-    read zero, so boundary rows need no masking.  ``vals`` and ``x`` may be
-    numpy (``x`` then goes to the device and dtype of ``vals``).
-
-    On CUDA tensors this is one launch of the hand-written kernel
-    ``csrc/dia_spmv.cu`` (``dia_spmv.dia_spmv``), which gives the bits of
-    ``dia_matvec_plain`` (a NaN's payload aside): the lattice tables have 27
-    offsets, the kernel takes up to ``dia_spmv.MAX_TERMS`` (32), and it
-    raises ``ValueError`` on more, on mixed or non-float dtypes, on a
-    non-contiguous table or vector and on shapes that do not match.  With
-    grad mode on and ``vals`` or ``x`` requiring a gradient the product is
-    ``DiaMatvec``, whose forward and transposed products are kernel
-    launches too.  CPU tensors run ``dia_matvec_plain``, which autograd
-    differentiates as it is.
-    """
-    vals = as_input(vals, x if torch.is_tensor(x) else None)
-    x = as_input(x, vals)
-    if not (vals.is_cuda or x.is_cuda):
-        count("dia_matvec::eager")
-        return dia_matvec_plain(offsets, vals, x)
-    if torch.is_grad_enabled() and (vals.requires_grad or x.requires_grad):
-        y = DiaMatvec.apply(vals, x, offsets)
-    else:
-        y = dia_spmv.dia_spmv(offsets, vals, x)
-    count("dia_matvec::kernel")
-    return y
-
-
-class DiaMatvec(torch.autograd.Function):
-    """``y = dia_matvec(offsets, vals, x)`` under autograd.
-
-    The forward is the kernel on the card (``dia_matvec_plain`` on the CPU,
-    where ``dia_matvec`` does not come here).  The gradient of ``x`` is
-    itself a DIA product, ``dia_matvec(-offsets, vals_T, g)`` with
-    ``vals_T[k, c] = vals[k, c - o_k]`` (0 off the ends): one more launch.
-    That of ``vals`` is ``g[r] * x[r + o_k]`` (0 off the ends).  Under
-    ``create_graph`` both are differentiable again."""
-
-    @staticmethod
-    def forward(ctx, vals, x, offsets):
-        ctx.save_for_backward(vals, x)
-        ctx.offsets = [int(o) for o in np.asarray(offsets).tolist()]
-        if vals.is_cuda or x.is_cuda:
-            return dia_spmv.dia_spmv(offsets, vals, x)
-        return dia_matvec_plain(offsets, vals, x)
-
-    @staticmethod
-    def backward(ctx, g):
-        vals, x = ctx.saved_tensors
-        offs = ctx.offsets
-        g = g.contiguous()
-        gvals = gx = None
-        if ctx.needs_input_grad[1]:
-            gx = dia_matvec([-o for o in offs], _shifted(vals, offs, -1), g)
-        if ctx.needs_input_grad[0]:
-            gvals = g * _shifted(x, offs, 1)
-        return gvals, gx, None
-
-
-def _shifted(t, offs, sign):
-    """(len(offs), n): row k is ``t[k]`` (``t`` itself if it is a vector)
-    read at ``c + sign * o_k``, 0 off the ends: one pad and one stack."""
-    n = t.shape[-1]
-    m = max(abs(o) for o in offs)
-    tp = F.pad(t, (m, m))
-    rows = [tp if t.dim() == 1 else tp[k] for k in range(len(offs))]
-    return torch.stack([r[m + sign * o:m + sign * o + n]
-                        for r, o in zip(rows, offs)])
-
-
-def dia_matvec_plain(offsets, vals, x):
-    """``dia_matvec`` in PyTorch: each diagonal contributes one static
-    shifted slice of the zero-padded x, a multiply and an add, in table
-    order (the first term is not added to 0)."""
-    offs = [int(o) for o in np.asarray(offsets).tolist()]
-    n = x.shape[0]
-    mneg = max(-min(offs), 0)
-    mpos = max(max(offs), 0)
-    xp = F.pad(x, (mneg, mpos))
-    y = None
-    for k, o in enumerate(offs):
-        t = vals[k] * xp[mneg + o:mneg + o + n]
-        y = t if y is None else y + t
-    return y
 
 
 class DIAMatrix:
@@ -362,13 +252,6 @@ INVERSE_CG_TOL = 1e-12
 # symmetry the default ``Inverse()`` asks of the free block on the card, to
 # this share of its largest entry
 SPD_SYM_TOL = 1e-12
-
-
-def _on_card(mat):
-    """Whether the matrix lies on a CUDA card (the tests patch this to run
-    the card's branches of ``InverseMatrix``, ``to_ell`` and the product on
-    CPU tensors)."""
-    return mat.vals.is_cuda
 
 
 @traced("spd_free_block")
@@ -431,7 +314,7 @@ class InverseMatrix:
             self.free = _arr(freedofs)
         self._factor = None
         self.path = "host_lu"
-        if self.method == "cg" or (self.method == "" and _on_card(mat)):
+        if self.method == "cg" or (self.method == "" and _on_card(mat.vals)):
             self._free_t = torch.as_tensor(self.free, device=mat.vals.device)
             if self.method == "cg" or spd_free_block(mat.ell(), self._free_t):
                 self.path = "device_cg"
@@ -450,8 +333,6 @@ class InverseMatrix:
     def solve(self, rhs):
         rhs = as_input(rhs, self.mat)
         if self.path == "device_cg":  # no host round trip
-            from .krylov import _cg_ell
-
             tol = INVERSE_CG_TOL
             x, iters, res = _cg_ell(self.mat.ell(), rhs, self._free_t,
                                     20 * self.mat.shape[0], tol)

@@ -22,7 +22,7 @@ The same inputs, made with numpy, go through the JAX package and the port
 - ``cg_implicit`` against the unrolled ``cg`` at convergence (1e-9);
 - the repairs: ``dia_cg_fused`` refuses an input that requires a gradient,
   and ``ELLMatrix.matvec`` reaches the autograd Function on the card's
-  branch (``ell_spmv.uses_layout`` patched) instead of a detached product.
+  branch (``sparse._on_card`` patched) instead of a detached product.
 """
 import numpy as np
 import pytest
@@ -37,7 +37,7 @@ from ngsxfem_tpu.solvers.sparse import ELLMatrix as JELLMatrix
 from ngsxfem_tpu.solvers.sparse import dia_matvec as jdia_matvec
 
 from ngsxfem_tpu_torch.models.poisson import UnfittedPoisson
-from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv
+from ngsxfem_tpu_torch.solvers import dia_cg, ell_spmv, sparse
 from ngsxfem_tpu_torch.solvers.krylov import cg, cg_implicit
 from ngsxfem_tpu_torch.solvers.sparse import ELLMatrix, dia_matvec
 
@@ -119,7 +119,7 @@ def test_matvec_on_card_branch_reaches_the_function(monkeypatch):
     requires a gradient still goes through ``EllMatvec``: the product keeps
     its graph, and the backward's transposed table is built once and
     kept beside the forward layout."""
-    monkeypatch.setattr(ell_spmv, "uses_layout", lambda t: True)
+    monkeypatch.setattr(sparse, "_on_card", lambda t: True)
     rng = np.random.default_rng(3)
     cols, vals = _random_ell(rng, 64, 6, 50, False)
     tv = torch.tensor(vals, requires_grad=True)

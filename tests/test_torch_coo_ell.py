@@ -1,17 +1,16 @@
 """The ELL table of a ``SparseMatrix`` built where its triplets lie
-(``solvers/coo_ell.py``) against the host conversion.
+(``solvers/coo_ell.py``), the one ``to_ell`` on every device.
 
-On the CPU ``coo_to_ell`` runs its plain version (``place_plain``); it, the
-card's branch of ``SparseMatrix.to_ell`` and the host conversion (its
-branch on CPU tensors) must each give the table of the JAX package's
+On the CPU ``coo_to_ell`` runs its plain version (``place_plain``); it and
+``SparseMatrix.to_ell`` must each give the table of the JAX package's
 ``SparseMatrix.to_ell`` bit for bit: equal columns and equal bits of the
 values, on streams with long runs of duplicates, empty rows, a rectangular
 shape, float32 values (summed in f64, rounded once), no triplet at all, and
-``a.mat`` of the fictdom3d forms.  A row outside the matrix raises on both
-branches as on the host, and so do values that require grad.  The
-card case (marked ``cuda``, skipped without a card) holds the kernel
-``csrc/coo_ell.cu`` to the plain version and to the host on the nx=24 forms
-matrix, and the Jacobi-CG solve through both tables.  This file imports no
+``a.mat`` of the fictdom3d forms.  A row outside the matrix raises through
+both calls, and so do values that require grad.  The card case (marked
+``cuda``, skipped without a card) holds the kernel ``csrc/coo_ell.cu`` to
+the plain version and to the CPU's table on the nx=24 forms matrix, and the
+Jacobi-CG solve through both tables.  This file imports no
 JAX at top level, so the card case runs where JAX is absent:
 ``python3 -c "import sys; sys.path.insert(0, 'tests'); import
 test_torch_coo_ell as t; t.test_kernel_equals_plain_and_host_on_the_card()"``
@@ -85,9 +84,9 @@ def _jax_table(rows, cols, vals, shape):
 @pytest.mark.parametrize("case", ["coo", "repeat200", "empty_rows",
                                   "rectangular", "float32", "empty",
                                   "fictdom3d_nx6"])
-def test_plain_equals_host_conversion(case, monkeypatch):
-    """The plain version, the card's branch of ``to_ell`` and the host
-    conversion each give the JAX package's table bit for bit."""
+def test_plain_equals_host_conversion(case):
+    """``coo_to_ell`` and ``SparseMatrix.to_ell`` on the CPU (its plain
+    version) each give the JAX package's table bit for bit."""
     rows, cols, vals, shape = _stream(case)
     jc, jv = _jax_table(rows, cols, vals, shape)
     S = sparse.SparseMatrix(rows, cols, vals, shape, device="cpu")
@@ -97,16 +96,13 @@ def test_plain_equals_host_conversion(case, monkeypatch):
     assert _same_table(c, v, jc, jv)
     assert nu == len(set(zip(np.asarray(rows).tolist(),
                              np.asarray(cols).tolist())))
-    monkeypatch.setattr(sparse, "_on_card", lambda mat: True)
-    card = sparse.SparseMatrix(rows, cols, vals, shape, device="cpu").to_ell()
-    assert card.shape == host.shape
-    assert _same_table(card.cols, card.vals, jc, jv)
+    assert host.shape == tuple(shape)
 
 
 @pytest.mark.parametrize("row", [-1, 12])
-def test_row_outside_the_matrix_raises_as_on_the_host(row, monkeypatch):
-    """A row below 0 or from n on: the host conversion, ``coo_to_ell`` and
-    the card's branch raise ``ValueError``."""
+def test_row_outside_the_matrix_raises_as_on_the_host(row):
+    """A row below 0 or from n on: ``SparseMatrix.to_ell`` and
+    ``coo_to_ell`` raise ``ValueError``."""
     error = ValueError
     rows, cols, vals, shape = _stream("repeat200")
     rows = rows.copy()
@@ -116,55 +112,50 @@ def test_row_outside_the_matrix_raises_as_on_the_host(row, monkeypatch):
     with pytest.raises(error):
         coo_ell.coo_to_ell(torch.as_tensor(rows), torch.as_tensor(cols),
                            torch.as_tensor(vals), shape)
-    monkeypatch.setattr(sparse, "_on_card", lambda mat: True)
-    with pytest.raises(error):
-        sparse.SparseMatrix(rows, cols, vals, shape, device="cpu").to_ell()
 
 
-def test_values_that_require_grad_raise(monkeypatch):
-    """The table has no gradient: values that require one raise on the
-    host and on the card's branch, as they did before the card built it."""
+def test_values_that_require_grad_raise():
+    """The table has no gradient: values that require one raise through
+    ``SparseMatrix.to_ell`` and ``coo_to_ell``."""
     rows, cols, vals, shape = _stream("rectangular")
     S = sparse.SparseMatrix(rows, cols, vals, shape, device="cpu")
     S.vals.requires_grad_(True)
     with pytest.raises(RuntimeError):
         S.to_ell()
-    monkeypatch.setattr(sparse, "_on_card", lambda mat: True)
     with pytest.raises(RuntimeError):
-        S.to_ell()
+        coo_ell.coo_to_ell(S.rows, S.cols, S.vals, S.shape)
 
 
-def test_card_branch_counts_triplets_and_entries(monkeypatch):
-    """On the card's branch (``_on_card`` patched) the span
-    ``SparseMatrix::to_ell`` holds the stream's length and its number of
-    unique entries; the host branch counts neither."""
+def test_card_branch_counts_triplets_and_entries():
+    """Each call of ``to_ell`` (one path on every device) holds in its span
+    ``SparseMatrix::to_ell`` the stream's length and its number of unique
+    entries."""
     rows, cols, vals, shape = _stream("repeat200")
     nu = len(set(zip(rows.tolist(), cols.tolist())))
     timing.reset_trace()
     try:
         with profile(activities=[ProfilerActivity.CPU]):
-            sparse.SparseMatrix(rows, cols, vals, shape,
-                                device="cpu").to_ell()
-            monkeypatch.setattr(sparse, "_on_card", lambda mat: True)
-            sparse.SparseMatrix(rows, cols, vals, shape,
-                                device="cpu").to_ell()
+            for _ in range(2):
+                sparse.SparseMatrix(rows, cols, vals, shape,
+                                    device="cpu").to_ell()
         recs = timing.spans()
     finally:
         timing.reset_trace()
     assert [r["name"] for r in recs] == ["SparseMatrix::to_ell"] * 2
-    assert recs[0]["counters"] == {}
-    assert recs[1]["counters"] == {"SparseMatrix::to_ell::triplets": 500,
-                                   "SparseMatrix::to_ell::entries": nu}
+    for r in recs:
+        assert r["counters"] == {"SparseMatrix::to_ell::triplets": 500,
+                                 "SparseMatrix::to_ell::entries": nu}
     assert nu < 500 - 199
 
 
 @pytest.mark.cuda
 def test_kernel_equals_plain_and_host_on_the_card():
     """On the card, ``a.mat`` of the fictdom3d forms at nx=24: the kernel's
-    table equals the plain version's and the host's bit for bit (one
-    launch), and Jacobi-CG through it and through the host's table takes
-    the same iterations to the same bits, as does ``Inverse(free) * f``.
-    The made-up streams of the CPU cases give the host's tables too."""
+    table equals the plain version's, on the card and on the CPU (the
+    host's), bit for bit (one launch), and Jacobi-CG through it and through
+    the host's table takes the same iterations to the same bits, as does
+    ``Inverse(free) * f``.  The made-up streams of the CPU cases give the
+    host's tables too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     for case in ("repeat200", "empty_rows", "rectangular", "float32",

@@ -1,11 +1,13 @@
-"""The DIA product ``sparse.dia_matvec`` and its kernel ``csrc/dia_spmv.cu``.
+"""The DIA product ``dia_spmv.dia_matvec`` (``sparse.dia_matvec``) and its
+kernel ``csrc/dia_spmv.cu``.
 
 On the CPU ``dia_matvec`` runs ``dia_matvec_plain`` (counter
 ``dia_matvec::eager``, never ``::kernel``), keeps autograd for inputs that
 require a gradient, and ``dia_spmv.check``, the kernel's input check, raises
-``ValueError`` on what the kernel does not take; ``DiaMatvec``'s backward
-(the card's autograd path, its forward the plain version on the CPU) passes
-``gradcheck`` and ``gradgradcheck``.  The card cases (marked ``cuda``,
+``ValueError`` on what the kernel does not take; ``dia_spmv.DiaMatvec``'s
+backward (the card's autograd path, its forward the kernel, for which the
+plain version stands in on the CPU) passes ``gradcheck`` and
+``gradgradcheck``.  The card cases (marked ``cuda``,
 skipped without a card) hold the kernel to ``dia_matvec_plain`` bit for bit
 in float32 and float64, NaNs equal whatever their payload: the nx=12
 lattice table, random tables with offsets beyond n and in no order, up to
@@ -202,18 +204,19 @@ _GRAD_TABLES = {"inside": ([-4, -1, 0, 2, 9], 20),
 
 
 @pytest.mark.parametrize("table", sorted(_GRAD_TABLES))
-def test_dia_matvec_function_gradients(table):
-    """``DiaMatvec`` (the card's autograd path; its forward is the plain
-    version on the CPU): first and second derivatives by ``gradcheck`` and
-    ``gradgradcheck``, and its gradients those of autograd through
-    ``dia_matvec_plain`` to rounding."""
+def test_dia_matvec_function_gradients(table, monkeypatch):
+    """``DiaMatvec`` (the card's autograd path; its forward is the kernel,
+    for which its plain twin stands in on the CPU): first and second
+    derivatives by ``gradcheck`` and ``gradgradcheck``, and its gradients
+    those of autograd through ``dia_matvec_plain`` to rounding."""
+    monkeypatch.setattr(dia_spmv, "dia_spmv", dia_spmv.dia_matvec_plain)
     offs, n = _GRAD_TABLES[table]
     vals, x = _random(offs, n, torch.float64, "cpu", seed=n + len(offs))
     vals.requires_grad_(True)
     x.requires_grad_(True)
 
     def f(v, z):
-        return sparse.DiaMatvec.apply(v, z, offs)
+        return dia_spmv.DiaMatvec.apply(v, z, offs)
 
     assert torch.autograd.gradcheck(f, (vals, x))
     assert torch.autograd.gradgradcheck(f, (vals, x))

@@ -9,8 +9,8 @@ trailing padding, which for finite x changes nothing but the sign of an
 all-zero row), and both against the JAX package's ``ELLMatrix.matvec`` to
 the tolerances of ``test_ell_matvec_plain_matches_reference`` (f64 1e-14,
 f32 1e-6).  On the CPU no solver builds a layout (products sum the table
-itself); with ``ell_spmv.uses_layout`` patched to route products as on the
-card, ``ELLMatrix``, ``CGSolver``, ``MinResSolver`` and ``FunctionalELLMG``
+itself); with the card's policy taken (``sparse._on_card`` patched),
+``ELLMatrix``, ``CGSolver``, ``MinResSolver`` and ``FunctionalELLMG``
 build each layout once and give the unpatched results bit for bit.  The
 ``Inverse()`` classifier on the examples' matrices, the card's branch on
 CPU tensors against the host LU (1e-8), and ``ScatterPlan`` against a
@@ -156,7 +156,7 @@ def test_solvers_build_each_layout_once(monkeypatch):
     assert ell_spmv.layouts_built == built  # the CPU sums the table itself
     assert A.layout() is None
     # products routed as on the card: one layout for the one table
-    monkeypatch.setattr(ell_spmv, "uses_layout", lambda t: True)
+    monkeypatch.setattr(sparse, "_on_card", lambda t: True)
     got = solves()
     assert ell_spmv.layouts_built == built + 1
     assert A.layout() is A.layout() is not None
@@ -187,7 +187,7 @@ def test_functional_mg_builds_its_layouts_in_prepare(monkeypatch):
     z = M.apply(M.prepare_host(params), b)
     assert ell_spmv.layouts_built == built  # the CPU sums the tables
     # products routed as on the card: the layouts are built in prepare_host
-    monkeypatch.setattr(ell_spmv, "uses_layout", lambda t: True)
+    monkeypatch.setattr(sparse, "_on_card", lambda t: True)
     pp = M.prepare_host(params)
     assert ell_spmv.layouts_built == built + 5  # 2 levels, R, P, interface
     assert torch.equal(M.apply(pp, b), z)
@@ -360,7 +360,7 @@ def test_chip_smoke_ell_path_on_cpu(monkeypatch):
     from ngsxfem_tpu_torch.solvers.dia_cg import dia_cg_fused
 
     monkeypatch.setattr(cs, "MG_NX", (4, 8, 16))
-    monkeypatch.setattr(ell_spmv, "uses_layout", lambda t: True)
+    monkeypatch.setattr(sparse, "_on_card", lambda t: True)
     dev = torch.device("cpu")
     model, struct, V, _, b, dinv, _ = cs.flagship(16, dev)
     x, _ = dia_cg_fused(struct["offsets"], V, b, dinv, 50)

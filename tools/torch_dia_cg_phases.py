@@ -21,7 +21,6 @@ times of p.Ap (``a_spread``), and the whole iteration (``iteration``).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -35,7 +34,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from ngsxfem_tpu_torch.kernels import build  # noqa: E402
+from ngsxfem_tpu_torch.kernels import build, launch  # noqa: E402
 from ngsxfem_tpu_torch.solvers import dia_cg  # noqa: E402
 
 
@@ -47,10 +46,10 @@ def load_stamped(tmp):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    lib = dia_cg._bind(ctypes.CDLL(so))
-    lib.dia_cg_f32_set_stamps.restype = ctypes.c_int
-    lib.dia_cg_f32_set_stamps.argtypes = [ctypes.c_void_p]
-    return lib
+    entries = dict(dia_cg.LIB.entries,
+                   set_stamps=("dia_cg_f32_set_stamps", (launch.PTR,)))
+    return launch.Library("dia_cg", entries, prefix=dia_cg.LIB.prefix,
+                          path=so)
 
 
 def phases(lib, nx, iters, dev):
@@ -59,7 +58,7 @@ def phases(lib, nx, iters, dev):
     plan = dia_cg.cuda_plan(offs, V.shape[1], dev)
     xp, _ = dia_cg.dia_cg_fused_plain(offs, V, b, dinv, iters)
     st = torch.zeros((64, 8, plan.grid), dtype=torch.int64, device=dev)
-    cs.check(lib.dia_cg_f32_set_stamps(st.data_ptr()) == 0, "set_stamps")
+    lib.check("set_stamps", lib.fn("set_stamps")(st.data_ptr()))
     for _ in range(3):
         x, _ = dia_cg._dia_cg_cuda(offs, dia_cg._terms(offs), V, b, dinv,
                                    iters, lib=lib)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the host ELL conversion of a ``SparseMatrix`` against the card's.
+"""Time a ``SparseMatrix``'s ELL conversion on the host against the card's.
 
     python3 tools/torch_to_ell_before_after.py [--nx 48] [--reps 20]
 
@@ -9,9 +9,8 @@ It builds ``a.mat`` of ``examples.fictdom3d`` (the benchmark's
 converts it to the padded ``(n, K)`` ELL table in two ways, in turns
 (host, card, card, host, ...):
 
-- ``host``: ``SparseMatrix.to_ell`` with ``sparse._on_card`` held False,
-  the conversion it ran on the card before: the triplets copied to the
-  host, the native dedup, ``np.bincount``, the numpy placement, the table
+- ``host``: the triplets copied to the host, ``SparseMatrix.to_ell`` there
+  (``coo_ell.coo_to_ell`` with its plain step, ``place_plain``), the table
   copied back;
 - ``card``: ``SparseMatrix.to_ell`` on the card, ``coo_ell.coo_to_ell``:
   one stable sort, two host reads and the kernel ``csrc/coo_ell.cu``.
@@ -144,14 +143,10 @@ def main(argv=None):
     S = a.mat
     T = S.vals.shape[0]
 
-    on_card = sparse._on_card
-
     def host():
-        sparse._on_card = lambda mat: False
-        try:
-            return S.to_ell()
-        finally:
-            sparse._on_card = on_card
+        E = sparse.SparseMatrix(S.rows.cpu(), S.cols.cpu(), S.vals.cpu(),
+                                S.shape, device="cpu").to_ell()
+        return sparse.ELLMatrix(E.cols.to(dev), E.vals.to(dev), S.shape)
 
     def card():
         return S.to_ell()
