@@ -22,8 +22,10 @@ public-API paths the parity run with the JAX package's own tests repaired
 the assembly timers) in phase 30, and the card's ELL conversion of
 ``SparseMatrix.to_ell`` (every table built on the card in phases 3-31 held
 to its plain version and to ``to_ell`` on the CPU between phases, then timed on
-the nx=48 forms table) in phase 32, and the DIA product ``dia_matvec`` as one
-launch of its kernel on the nx=48 lattice table in phase 33:
+the nx=48 forms table) in phase 32, the DIA product ``dia_matvec`` as one
+launch of its kernel on the nx=48 lattice table in phase 33, and the lattice
+DIA assembly ``assemble_vals_lattice`` as one launch of its kernel at nx=48
+in phase 34:
 
 - the DIA path: ``UnfittedPoisson`` host setup -> ``dia_structure`` ->
   ``assemble_vals_lattice`` (DIA table) -> ``dia_cg_fused`` (hand-written
@@ -93,8 +95,9 @@ launch of its kernel on the nx=48 lattice table in phase 33:
 Phases, one line each:
 
 1. environment: a CUDA card, its name and power limit from nvidia-smi;
-2. build: compile csrc/dia_cg.cu, csrc/ell_spmv.cu and the row-major ELL
-   kernel B2 replaced (tools/torch_ell_spmv_rowmajor.cu, the "before" of
+2. build: compile csrc/dia_cg.cu, csrc/ell_spmv.cu, csrc/coo_ell.cu,
+   csrc/dia_spmv.cu, csrc/lattice_asm.cu and the row-major ELL kernel B2
+   replaced (tools/torch_ell_spmv_rowmajor.cu, the "before" of
    B2's times) with nvcc for sm_90a, all at once; B2's registers, shared
    memory and local memory (spills);
 3. DIA-PCG kernel (one persistent cooperative kernel per call) against its
@@ -104,8 +107,9 @@ Phases, one line each:
    part of the operator), iters 0/1/12/50: rel ||x_k - x_p|| <= 5e-4,
    |res_k - res_p| <= 5e-4 ||b||, two kernel runs bitwise equal, an
    asymmetric offset set raises; prints the launch plan at nx=48 and 64;
-4. the DIA path at nx=48 with the launch counters reset before it, then
-   checks of mesh size, ncut, DIA symmetry, residuals, kernel vs
+4. the DIA path at nx=48 with the launch counters reset before it (its
+   one assembly one ``lattice_asm`` launch, ``cg_ir``'s products one
+   ``dia_spmv`` launch each), then checks of mesh size, ncut, DIA symmetry, residuals, kernel vs
    ``krylov.cg`` + ``dia_matvec``, and the ``cg_ir`` residual;
 5. DIA-path times on the card with CUDA events (one warm-up, median of 5),
    and ``torch.profiler`` on PCG-50 calls: exactly one ``dia_cg`` device
@@ -399,11 +403,24 @@ Phases, one line each:
    autograd).  Alone: ``python3 -c "import time,
    torch, chip_smoke as c; d = torch.device('cuda', 0); _, s, V, *_ =
    c.flagship(48, d); c.phase_33(d, s['offsets'], V,
-   time.perf_counter())"``.
+   time.perf_counter())"``;
+34. ``assemble_vals_lattice`` on the card (``phase_34``): the nx=48
+   flagship in f32 (phase 4's model) and f64 (phase 13's), at the model's
+   sphere and a moved one: one launch of ``csrc/lattice_asm.cu`` a call,
+   the table and ``ncut`` bit for bit ``assemble_vals_lattice_plain``'s on
+   the card (+0 and -0 equal), exactly symmetric; the kernel's device us a
+   call beside its bytes bound, its launches a call, the call's ms and the
+   eager path's (the record's ``lattice_asm`` entry).  Alone: ``python3 -c
+   "import time, torch, chip_smoke as c; from
+   ngsxfem_tpu_torch.models.poisson import UnfittedPoisson as U; d =
+   torch.device('cuda', 0); ms = {t: U(nx=48, dtype=t, device=d) for t in
+   (torch.float32, torch.float64)}; c.phase_34(d, {t: (m,
+   m.dia_structure()) for t, m in ms.items()}, time.perf_counter())"``.
 
 Every failed check raises, so the script exits non-zero.  It imports nothing
 of JAX.  The line before the last is the kernel record
-``{"kernels": [...]}`` (B1, B2, ``coo_ell_place`` and ``dia_spmv``); the
+``{"kernels": [...]}`` (B1, B2, ``coo_ell_place``, ``dia_spmv`` and
+``lattice_asm``); the
 last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5362,6 +5379,114 @@ def phase_33(dev, offs, V32, t_start):
     return {"launches": launches, "max_abs_err": max_err, **out}
 
 
+LATTICE_ASM_CALLS = 50  # calls per timing of phase 34's kernel
+LATTICE_PLAIN_CALLS = 3  # calls per timing of the eager path beside it
+
+
+def lattice_asm_check(m, st, lset, label):
+    """The lattice kernel against the eager path on the card, at one level
+    set ``lset`` of the 3D order-1 model ``m`` (phase 34 and the card cases
+    of ``tests/test_torch_lattice_asm.py``): one call is one launch of
+    ``csrc/lattice_asm.cu``; its table and ``ncut`` (a card scalar) equal
+    ``assemble_vals_lattice_plain``'s on the card bit for bit (+0 and -0
+    taken as equal); the table is exactly symmetric and a second call
+    repeats it bit for bit.  Returns max |kernel - plain|."""
+    from ngsxfem_tpu_torch.models import lattice_asm
+
+    l0 = lattice_asm.launches
+    V, ncut = m.assemble_vals_lattice(m.vertices, lset, st)
+    torch.cuda.synchronize()
+    check(lattice_asm.launches == l0 + 1,
+          f"lattice_asm {label}: {lattice_asm.launches - l0} launches, not 1")
+    Vp, ncp = m.assemble_vals_lattice_plain(m.vertices, lset, st)
+    err = float((V - Vp).abs().max())
+    differ = int(((V + 0.0) != (Vp + 0.0)).sum())
+    check(V.dtype == Vp.dtype and torch.equal(V + 0.0, Vp + 0.0)
+          and ncut.is_cuda and int(ncut) == int(ncp),
+          f"lattice_asm {label} != assemble_vals_lattice_plain bit for bit "
+          f"({differ} entries differ, max |diff| {err}, ncut {int(ncut)} / "
+          f"{int(ncp)})")
+    check(is_symmetric(V, st["offsets"]),
+          f"lattice_asm {label}: table not exactly symmetric")
+    V2, _ = m.assemble_vals_lattice(m.vertices, lset, st)
+    check(torch.equal(V2, V), f"lattice_asm {label}: a repeat differs")
+    return err
+
+
+def phase_34(dev, models, t_start):
+    """Phase 34: ``assemble_vals_lattice`` on the card as one launch of the
+    kernel ``csrc/lattice_asm.cu``, on the nx=48 flagship in float32 (phase
+    4's model) and float64 (phase 13's): ``models`` maps the dtype to
+    (model, struct).  Per dtype, at the model's sphere and at a moved one
+    (centre + (0.031, -0.017, 0.023)), ``lattice_asm_check``; the kernel's
+    device us per call (``torch.profiler``, back to back: the kernel and the
+    fill that zeroes ``ncut``, the call's only device ops) beside its bytes
+    bound (the table written once, the vertices and the level set read
+    once, over 3.35 TB/s), its launches per call, the call's ms (CUDA
+    events, mean of ``LATTICE_ASM_CALLS``) and the eager path's ms, device
+    us and kernels per call.  Returns the numbers per dtype, the phase's
+    launches and the largest |kernel - plain| of its comparisons."""
+    from ngsxfem_tpu_torch.models import lattice_asm
+
+    t0 = time.perf_counter()
+    before = lattice_asm.launches
+    out = {}
+    max_err = 0.0
+    for dtype, (m, st) in models.items():
+        name = str(dtype)[6:]
+        x = m.vertices.double()
+        centre = torch.tensor([0.531, 0.483, 0.523], dtype=torch.float64,
+                              device=dev)
+        moved = (torch.linalg.vector_norm(x - centre, dim=1) - 0.4).to(dtype)
+        for label, lset in (("model's sphere", m.lset), ("moved", moved)):
+            max_err = max(max_err, lattice_asm_check(m, st, lset,
+                                                     f"{name} {label}"))
+
+        def kernel_call():
+            return m.assemble_vals_lattice(m.vertices, moved, st)
+
+        def plain_call():
+            return m.assemble_vals_lattice_plain(m.vertices, moved, st)
+
+        l0 = lattice_asm.launches
+        call_ms = per_call_ms(kernel_call, LATTICE_ASM_CALLS)
+        per_call = (lattice_asm.launches - l0) / (LATTICE_ASM_CALLS + 1)
+        check(per_call == 1, f"lattice_asm: {per_call} launches a call")
+        # the profiler may drop events of a window: per launch it recorded
+        kern, _ = device_kernels(kernel_call, LATTICE_ASM_CALLS)
+        asm = [v for k, v in kern.items() if "lattice_asm" in k]
+        fill = [k for k in kern if "lattice_asm" not in k]
+        check(len(asm) == 1 and len(fill) <= 1
+              and all("Fill" in k for k in fill),
+              f"profiled kernels of lattice_asm calls {kern}")
+        (count_, us), = asm
+        device_us = us / count_
+        plain_ms = per_call_ms(plain_call, LATTICE_PLAIN_CALLS)
+        kern, _ = device_kernels(plain_call, LATTICE_PLAIN_CALLS)
+        plain_kernels = sum(c for c, _ in kern.values()) / LATTICE_PLAIN_CALLS
+        plain_us = sum(us for _, us in kern.values()) / LATTICE_PLAIN_CALLS
+        n, item = m.vertices.shape[0], m.vertices.element_size()
+        nbytes = (len(st["offsets"]) * n + 4 * n) * item
+        bound_ms, bound_by = bound(nbytes, 0)
+        out[name] = {"device_us": device_us, "launches_per_call": per_call,
+                     "call_ms": call_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "plain_ms": plain_ms, "plain_device_us": plain_us,
+                     "plain_kernels": plain_kernels}
+        print(f"[34 lattice_asm] {card()} | nx=48 flagship {name}: table "
+              f"(27, {n}) and ncut == assemble_vals_lattice_plain bit for bit "
+              f"(model's sphere, moved), exactly symmetric, repeated, "
+              f"{per_call:g} launch and one fill a call; kernel {device_us:.3f} us device a call, bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}); call {call_ms:.3f} ms "
+              f"(events, mean of {LATTICE_ASM_CALLS}); eager path "
+              f"{plain_ms:.3f} ms a call, {plain_us:.1f} us device in "
+              f"{plain_kernels:.1f} kernels", flush=True)
+    launches = lattice_asm.launches - before
+    print(f"[34 lattice_asm] launches {launches} in this phase, max |kernel - "
+          f"plain| {max_err} | wall {time.perf_counter() - t0:.2f} s, of the "
+          f"whole run {time.perf_counter() - t_start:.2f} s", flush=True)
+    return {"launches": launches, "max_abs_err": max_err, **out}
+
 def phase_31_system(nx, dev):
     """Phase 31's inputs built as the whole script builds them (phase 4's
     flagship DIA table, b and dinv; phase 7's ELL table of the same model
@@ -5563,6 +5688,7 @@ def main():
               file=sys.stderr)
         return 1
     from ngsxfem_tpu_torch.kernels import build
+    from ngsxfem_tpu_torch.models import lattice_asm
     from ngsxfem_tpu_torch.solvers import dia_cg, dia_spmv, ell_spmv
     from ngsxfem_tpu_torch.solvers.krylov import cg, cg_ir
     from ngsxfem_tpu_torch.solvers.sparse import dia_matvec
@@ -5573,13 +5699,13 @@ def main():
     print(f"[1 env] {gpu} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| devices {torch.cuda.device_count()}", flush=True)
 
-    # 2. build, one nvcc per source, all started together: the four
+    # 2. build, one nvcc per source, all started together: the five
     # kernels and the row-major ELL kernel that B2 replaced (the "before" of
     # its timings)
     t0 = time.perf_counter()
     rowmajor = os.path.join(TOOLS, "torch_ell_spmv_rowmajor.cu")
     built = build.build_all(["dia_cg", "ell_spmv", "coo_ell", "dia_spmv",
-                             "ell_spmv_rowmajor"],
+                             "lattice_asm", "ell_spmv_rowmajor"],
                             {"ell_spmv_rowmajor": rowmajor})
     parts = []
     for name, (so, build_s, log) in built.items():
@@ -5663,9 +5789,14 @@ def main():
     dia_cg.launches = 0
     ell_spmv.launches = 0
     dia_spmv.launches = 0
+    lattice_asm.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, struct, V, ncut, b, dinv, setup_s = flagship(NX, dev)
+    lattice_asm_launches = lattice_asm.launches
+    check(lattice_asm_launches == 1,
+          f"the flagship's one assembly launched lattice_asm "
+          f"{lattice_asm_launches} times")
     offs = struct["offsets"]
     x, res = dia_cg.dia_cg_fused(offs, V, b, dinv, CG_ITERS)
     V64 = V.double()
@@ -6143,6 +6274,9 @@ def main():
     audit.__exit__()
     sl17 = phase_32(dev, forms48, t_start)
     sl18 = phase_33(dev, offs, V, t_start)
+    sl19 = phase_34(dev, {torch.float32: (model, struct),
+                          torch.float64: (f64["model"], f64["struct"])},
+                    t_start)
     check(sl17["launches_before"] == audit.launching,
           f"coo_ell launched {sl17['launches_before']} times in phases 3-31, "
           f"for {audit.launching} tables with an entry")
@@ -6241,6 +6375,22 @@ def main():
         "library_ms": None,
         "float32": sl18["float32"],
         "float64": sl18["float64"],
+    }, {
+        "name": "lattice_asm",
+        "route": "cuda",
+        "source": "ngsxfem_tpu_torch/csrc/lattice_asm.cu",
+        "replaces": "ngsxfem_tpu/models/poisson.py assemble_vals_lattice "
+                    "(jnp code that XLA fuses; no TPU kernel)",
+        "launches": lattice_asm_launches,
+        "max_abs_err": sl19["max_abs_err"],
+        "ms": sl19["float32"]["device_us"] / 1e3,
+        "device_us": sl19["float32"]["device_us"],
+        "plain_ms": sl19["float32"]["plain_ms"],
+        "bound_ms": sl19["float32"]["bound_ms"],
+        "bound_by": sl19["float32"]["bound_by"],
+        "library_ms": None,
+        "float32": sl19["float32"],
+        "float64": sl19["float64"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -34,7 +34,8 @@ from ..fem.basis import ndof_el, lagrange_element, shapes, dshapes
 from ..integrate import vertex_local_ids
 from ..mesh.mesh import map_points, det_and_inv, pointwise_pow, small_matmul
 from ..ops.straightcut import cut_rule_element, eps_guard, eps_guard_list
-from ..utils.timing import Timer, traced
+from ..utils.timing import Timer, count, traced
+from . import lattice_asm
 
 
 def cut_poisson_elmats(et: str, order: int, coords, vals, lam_nitsche=20.0):
@@ -1544,7 +1545,30 @@ class UnfittedPoisson(nn.Module):
         and ghost-penalty patches all lie in the box (two planes from its
         ends, or at the lattice's own end) equal the whole table's rows
         bit for bit; ``ncut`` counts the box's cut elements.
+
+        On CUDA tensors of the 3D lattice without ``planes`` and without a
+        gradient asked for (``lattice_asm.takes``) the table is one launch
+        of the hand-written kernel ``csrc/lattice_asm.cu``, the bits of
+        ``assemble_vals_lattice_plain`` on the card (signed zeros aside),
+        and counts ``UnfittedPoisson::assemble_vals_lattice::kernel``;
+        everything else runs ``assemble_vals_lattice_plain`` and counts
+        ``::eager``.
         """
+        vertices, lset_vertex = self._inputs(vertices, lset_vertex)
+        if lattice_asm.takes(self, vertices, lset_vertex, planes):
+            count("UnfittedPoisson::assemble_vals_lattice::kernel")
+            return lattice_asm.assemble(self, vertices, lset_vertex,
+                                        struct["offsets"])
+        count("UnfittedPoisson::assemble_vals_lattice::eager")
+        return self.assemble_vals_lattice_plain(vertices, lset_vertex, struct,
+                                                planes)
+
+    def assemble_vals_lattice_plain(self, vertices, lset_vertex, struct,
+                                    planes=None):
+        """``assemble_vals_lattice`` in eager PyTorch, on any device and
+        under autograd: the closed forms over the lattice windows of each
+        tet and facet type, then a windowed add per group of table
+        entries."""
         vertices, lset_vertex = self._inputs(vertices, lset_vertex)
         et = self.et
         d = ET_DIM[et]

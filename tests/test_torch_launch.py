@@ -1,11 +1,11 @@
 """The launcher of the port's CUDA kernels (``kernels/launch.py``) and the
-four bindings that call it, on the CPU.
+five bindings that call it, on the CPU.
 
 No card and no ``nvcc``: each binding's ``Library`` is bound to a stand-in
 library object whose entries record their arguments and return the code a
 case asks for, and ``torch.cuda``'s device guard and current stream are
-stood in for.  For each of ``ell_spmv``, ``dia_spmv``, ``coo_ell`` and
-``dia_cg``: its entries' C names and argument types equal ``SIGNATURES``
+stood in for.  For each of ``ell_spmv``, ``dia_spmv``, ``coo_ell``,
+``dia_cg`` and ``lattice_asm``: its entries' C names and argument types equal ``SIGNATURES``
 (the C interfaces, each found in ``csrc/<name>.cu`` with as many
 parameters); a launch through the module's own path enters the guard of
 its tensor's device once, reads the stream once and passes it last, and
@@ -26,9 +26,12 @@ import torch
 
 from ngsxfem_tpu_torch.kernels import build
 from ngsxfem_tpu_torch.kernels.launch import Library
+from ngsxfem_tpu_torch.models import lattice_asm
+from ngsxfem_tpu_torch.models.poisson import UnfittedPoisson
 from ngsxfem_tpu_torch.solvers import coo_ell, dia_cg, dia_spmv, ell_spmv
 
 P, I, U, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+D = ctypes.c_double
 STREAM = 0x5EED
 
 # binding -> (error-text entry, {C entry: argument types})
@@ -48,9 +51,12 @@ SIGNATURES = {
                       + [P, P, I, P, P, P, U, P, P],
         "dia_cg_f32_exchange_words": [],
         "dia_cg_f32_device_info": [P]}),
+    "lattice_asm": ("lattice_asm_error_string", {
+        "lattice_asm_f32": [P] * 5 + [I, I, D, D, D, P],
+        "lattice_asm_f64": [P] * 5 + [I, I, D, D, D, P]}),
 }
 MODULES = {"ell_spmv": ell_spmv, "dia_spmv": dia_spmv, "coo_ell": coo_ell,
-           "dia_cg": dia_cg}
+           "dia_cg": dia_cg, "lattice_asm": lattice_asm}
 # what dia_cg_f32_device_info writes: an H100's SMs and shared memory
 DEVICE_INFO = [132, 232448, 1, 1024, 40, 0, 0]
 
@@ -135,6 +141,10 @@ def _launch(name):
         coo_ell.coo_to_ell(torch.tensor([0, 1, 0]), torch.tensor([1, 0, 1]),
                            vals, (2, 2))
         return "coo_ell_place_f32", vals
+    if name == "lattice_asm":
+        m = UnfittedPoisson(nx=2, dim=3, order=1, device="cpu")
+        m.assemble_vals_lattice(m.vertices, m.lset, m.dia_structure())
+        return "lattice_asm_f32", m.vertices
     V = torch.zeros((3, 8), dtype=torch.float32)
     V[1] = 2.0
     b = torch.ones(8, dtype=torch.float32)
