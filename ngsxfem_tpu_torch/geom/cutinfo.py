@@ -133,33 +133,35 @@ class CutInfo:
 
         mesh = self.mesh
         sp = levelset.space
-        vals_st = lset_st_vertex_values(levelset)  # (E, ndt, nvel)
-        ts = np.concatenate([sp.tfe.nodes,
-                             gauss_legendre_01(max(2, sp.k_t + 1))[0]])
-        Bt = torch.as_tensor(sp.tfe.eval_np(ts), dtype=vals_st.dtype,
-                             device=vals_st.device)  # (nt, ndt)
-        # "tm,emv->etv", then the sign-collapsing zero guard of the rule's
-        # eps_guard (|v| < 1e-14 -> +1e-14, the reference's
-        # spacetimecutrule.cpp:132), so that this classification and the
-        # rule agree
-        g = eps_guard((Bt[None, :, :, None] * vals_st[:, None]).sum(2))
-        has_neg = (g < 0).any(2).any(1)
-        has_pos = (g > 0).any(2).any(1)
-        self.dt_of_elem = _dt(has_neg, has_pos)
-        to = time_order if time_order >= 0 else sp.k_t
-        split = spacetime_split(vals_st, sp.k_t, to)
-        ratio = (split == 0).to(vals_st.dtype)
-        cut = torch.nonzero(split < 0)[:, 0]
-        rule = spacetime_cut_rule(mesh.et, vals_st[cut], sp.k_t, 0, to)
-        ratio[cut] = (rule.w * (rule.side == 0)).sum(1) / rule.w.sum(1)
-        self.cut_ratio = ratio.cpu().numpy()
-        f2e = mesh.facet2el_np
-        dtl = self.dt_of_elem[f2e[:, 0]]
-        dtr = np.where(f2e[:, 1] >= 0,
-                       self.dt_of_elem[np.maximum(f2e[:, 1], 0)], dtl)
-        self.cdt_of_facet = (
-            np.left_shift(1, dtl.astype(np.int32))
-            | np.left_shift(1, dtr.astype(np.int32))).astype(np.int8)
+        with Timer("CutInfo::Update::classify", block=False):
+            vals_st = lset_st_vertex_values(levelset)  # (E, ndt, nvel)
+            ts = np.concatenate([sp.tfe.nodes,
+                                 gauss_legendre_01(max(2, sp.k_t + 1))[0]])
+            Bt = torch.as_tensor(sp.tfe.eval_np(ts), dtype=vals_st.dtype,
+                                 device=vals_st.device)  # (nt, ndt)
+            # "tm,emv->etv", then the sign-collapsing zero guard of the
+            # rule's eps_guard (|v| < 1e-14 -> +1e-14, the reference's
+            # spacetimecutrule.cpp:132), so that this classification and
+            # the rule agree
+            g = eps_guard((Bt[None, :, :, None] * vals_st[:, None]).sum(2))
+            has_neg = (g < 0).any(2).any(1)
+            has_pos = (g > 0).any(2).any(1)
+            to = time_order if time_order >= 0 else sp.k_t
+            split = spacetime_split(vals_st, sp.k_t, to)
+            ratio = (split == 0).to(vals_st.dtype)
+            cut = torch.nonzero(split < 0)[:, 0]
+            rule = spacetime_cut_rule(mesh.et, vals_st[cut], sp.k_t, 0, to)
+            ratio[cut] = (rule.w * (rule.side == 0)).sum(1) / rule.w.sum(1)
+        with Timer("CutInfo::Update::marks", block=False):
+            self.dt_of_elem = _dt(has_neg, has_pos)
+            self.cut_ratio = ratio.cpu().numpy()
+            f2e = mesh.facet2el_np
+            dtl = self.dt_of_elem[f2e[:, 0]]
+            dtr = np.where(f2e[:, 1] >= 0,
+                           self.dt_of_elem[np.maximum(f2e[:, 1], 0)], dtl)
+            self.cdt_of_facet = (
+                np.left_shift(1, dtl.astype(np.int32))
+                | np.left_shift(1, dtr.astype(np.int32))).astype(np.int8)
         self.dt_of_vertex = None
         self.dt_of_belem = None
         self.cut_ratio_bnd = None

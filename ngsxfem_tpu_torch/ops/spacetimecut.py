@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.timing import count, traced
 from .gauss import gauss_legendre_01
 from .straightcut import cut_rule_element, cut_rule_simplices, eps_guard
 
@@ -160,6 +161,7 @@ def _st_slices(coefs, kt: int, order_time: int):
     return tpts, twts, vv, roots
 
 
+@traced("SpaceTimeCutRule")
 def spacetime_cut_rule(et: str, vals_st, kt: int, order_space: int,
                        order_time: int, policy: str = "OPTIMAL"):
     """Space-time cut rule for a batch of elements.
@@ -169,9 +171,11 @@ def spacetime_cut_rule(et: str, vals_st, kt: int, order_space: int,
     time point is ``cut_rule_element``, the same dispatch as the stationary
     integrator (simplex tables; the multilinear QUAD/HEX rules under
     ``policy``), so stationary and space-time integrals agree on identical
-    vertex values.
+    vertex values.  A span ``SpaceTimeCutRule``, counting its elements
+    (``SpaceTimeCutRule::elements``).
     """
     E, ndt, nvel = vals_st.shape
+    count("SpaceTimeCutRule::elements", E)
     coefs = _st_coefs(eps_guard(vals_st), kt)
     tpts, twts, vv, _ = _st_slices(coefs, kt, order_time)
     T = tpts.shape[1]

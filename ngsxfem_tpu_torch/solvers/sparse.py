@@ -34,7 +34,7 @@ from ..config import as_input, config, resolve_device
 # of the rows, the sliced layouts) on CPU tensors, whose products stay plain
 from ..kernels.launch import on_card as _on_card
 from ..ops.scatter import ScatterPlan
-from ..utils.timing import count, traced
+from ..utils.timing import Timer, count, traced
 from .coo_ell import coo_to_ell
 from .dia_spmv import dia_matvec, dia_matvec_plain  # noqa: F401 (public)
 from .ell_spmv import ell_matvec, prepare_ell, transpose_ell
@@ -325,8 +325,10 @@ class InverseMatrix:
 
             A = self.mat.to_scipy().tocsr()
             idx = np.nonzero(self.free)[0]
-            Af = A[idx][:, idx].tocsc()
+            # factorized in float64, the right-hand side's dtype here
+            Af = A[idx][:, idx].tocsc().astype(np.float64, copy=False)
             self._factor = (splu(Af), idx)
+            count("InverseMatrix::host_lu::rows", len(idx))
         return self._factor
 
     @traced("InverseMatrix::Solve")
@@ -346,12 +348,16 @@ class InverseMatrix:
                         f"not {tol:.0e}, in {iters} iterations; ask for the "
                         f"host LU with inverse=\"umfpack\"")
             return x
-        rhs_np = torch.as_tensor(rhs).detach().cpu().numpy().astype(np.float64)
-        lu, idx = self._factorize()
-        out = np.zeros_like(rhs_np)
-        out[idx] = lu.solve(rhs_np[idx])
-        return torch.as_tensor(out, dtype=config.dtype,
-                               device=self.mat.vals.device)
+        # the host LU: factorized at the first solve (to_scipy, the free
+        # block, splu), then a triangular solve with its copies each call
+        with Timer("InverseMatrix::host_lu", block=False):
+            rhs_np = torch.as_tensor(rhs).detach().cpu().numpy().astype(
+                np.float64)
+            lu, idx = self._factorize()
+            out = np.zeros_like(rhs_np)
+            out[idx] = lu.solve(rhs_np[idx])
+            return torch.as_tensor(out, dtype=config.dtype,
+                                   device=self.mat.vals.device)
 
     def __mul__(self, rhs):
         return self.solve(rhs)

@@ -17,6 +17,7 @@ from ..cf.coefficient import CF, wrap
 from ..fem.space import BitArray, DeviceViews
 from ..fem.basis import shapes, dshapes
 from ..mesh.mesh import small_matmul
+from ..utils.timing import traced
 from .timefe import ScalarTimeFE
 
 
@@ -164,6 +165,7 @@ class SpaceTimeFESpace(DeviceViews):
             return outs[0]
         return torch.stack(outs, dim=-2 if grad else -1)
 
+    @traced("RestrictGFInTime")
     def RestrictGFInTime(self, spacetime_gf, reference_time, space_gf):
         vec = spacetime_gf._arr.reshape(self.ndof_t, self.ndof_s)
         bt = torch.as_tensor(
@@ -322,6 +324,7 @@ def RestrictGFInTime(spacetime_gf=None, reference_time=0.0, space_gf=None):
     spacetime_gf.space.RestrictGFInTime(spacetime_gf, reference_time, space_gf)
 
 
+@traced("SpaceTimeInterpolateToP1")
 def SpaceTimeInterpolateToP1(levelset, tref_var, gf_st):
     """Interpolate a time-dependent level set into a space-time P1
     GridFunction, node by node in time (cf.
