@@ -231,7 +231,10 @@ Phases, one line each:
    (24, 8) and the deformed one (32, 8) / (64, 16), each L2 error below
    phase 20's and halving over each doubling; ``heateq_cg_spacetime`` (64,
    16) / (128, 32), card == CPU at (64, 16) (its scheme stops converging
-   past (24, 16), in the JAX package too); every slab solve on the host LU,
+   past (24, 16), in the JAX package too); every slab solve on the card
+   the dense LU (``device_lu``: every free block here fits
+   ``_dense_lu_budget``), on the CPU the host LU, the path and free rows
+   printed per example,
    ``a.mat.shape == (W_t.ndof, W_i.ndof)`` for every Petrov-Galerkin form,
    no shift-Newton warning; per slab ``CutInfo.Update`` and both
    ``Assemble`` by CUDA events, ``Inverse()`` (its ``to_ell``),
@@ -426,6 +429,7 @@ last line is
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
@@ -2293,8 +2297,9 @@ class SlabClock:
     ``LinearForm.Assemble`` by CUDA events (by the host clock without a
     card); by the host clock ``a.mat.Inverse(free)`` (on the card it builds
     the ELL view, ``to_ell``, to test for an SPD free block), the host LU's
-    ``SparseMatrix.to_scipy``, ``splu`` and whole ``InverseMatrix.solve``;
-    the path of every solve,
+    ``SparseMatrix.to_scipy``, ``splu``, whole ``InverseMatrix.solve`` and
+    the solve without its ``to_scipy`` (``lu``); the path and free rows of
+    every solve,
     and each rectangular form's (shape, (test ndof, trial ndof)).  With
     ``profile_call`` = k, the k-th ``BilinearForm.Assemble`` is run once
     more under ``torch.profiler`` (device kernels, busy ms, wall ms)."""
@@ -2316,7 +2321,8 @@ class SlabClock:
             (sparse.InverseMatrix, "solve", "solve", False),
         ]
         self.times = {key: [] for _, _, key, _ in self.targets}
-        self.paths, self.rect = [], []
+        self.times["lu"] = []
+        self.paths, self.nfree, self.rect = [], [], []
         self.profile_call, self.profile = profile_call, None
         self.saved = []
 
@@ -2326,6 +2332,8 @@ class SlabClock:
         def run(*args, **kw):
             if key == "solve":
                 clock.paths.append(args[0].path)
+                clock.nfree.append(int(np.count_nonzero(args[0].free)))
+                scipy_calls = len(clock.times["to_scipy"])
             if events:
                 out, ms = event_ms(lambda: orig(*args, **kw))
             else:
@@ -2337,6 +2345,9 @@ class SlabClock:
                     torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
             clock.times[key].append(ms)
+            if key == "solve":
+                clock.times["lu"].append(
+                    ms - sum(clock.times["to_scipy"][scipy_calls:]))
             if key == "bfi":
                 form = args[0]
                 if form.space_u is not form.space_v:
@@ -2365,12 +2376,11 @@ class SlabClock:
             setattr(obj, name, orig)
 
     def split(self):
-        """{step: (median ms per call, total ms, calls)}; ``lu`` is the
-        solve without ``to_scipy`` (factorization + triangular solves)."""
-        t = dict(self.times)
-        t["lu"] = [a - b for a, b in zip(t["solve"], t["to_scipy"])]
+        """{step: (median ms per call, total ms, calls)}; ``lu`` is each
+        solve without its ``to_scipy`` (factorization + triangular solves,
+        on either LU)."""
         return {k: (statistics.median(v) if v else 0.0, sum(v), len(v))
-                for k, v in t.items()}
+                for k, v in self.times.items()}
 
 
 def st_rule_parity(T, device):
@@ -2484,8 +2494,13 @@ def st_card(T, device, par):
                    "wall_s": time.perf_counter() - t0,
                    "peak_gib": peak_gib(device), "clock": clock}
             check(np.isfinite(row["err"]), f"{name} nx={nx}: L2 {row['err']}")
-            check(set(clock.paths) == {"host_lu"} and len(clock.paths) > 0,
-                  f"{name} nx={nx}: slab solves took {set(clock.paths)}")
+            # every slab's free block fits the card's dense LU at these
+            # sizes (2 nf^2 x 8 B at most ~12 GB against a budget of ~21 GB)
+            lu = "device_lu" if device.type == "cuda" else "host_lu"
+            check(set(clock.paths) == {lu},
+                  f"{name} nx={nx}: slab solves took {set(clock.paths)}, "
+                  f"not {lu}; free rows {min(clock.nfree, default=0)}-"
+                  f"{max(clock.nfree, default=0)}")
             for shape, want in clock.rect:
                 check(shape == want, f"{name}: a.mat.shape {shape} != "
                                      f"(W_t.ndof, W_i.ndof) {want}")
@@ -2556,8 +2571,12 @@ def phases_20_21(T, dev, t_start):
                 f"{prof[0]} device kernels, device busy {prof[1]:.3f} ms of "
                 f"{prof[2]:.3f} ms wall (idle share "
                 f"{1 - prof[1] / prof[2]:.3f})")
+        paths = collections.Counter(r["clock"].paths)
         print(f"[21 slab split] {card()} | {name} nx={r['nx']} nslab="
-              f"{r['nslab']}, median per call (total, calls): "
+              f"{r['nslab']}, slab solves "
+              + ", ".join(f"{p} x{k}" for p, k in sorted(paths.items()))
+              + f" ({min(r['clock'].nfree)}-{max(r['clock'].nfree)} free "
+              f"rows), median per call (total, calls): "
               + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]:.1f} ms, {v[2]})"
                           for k, v in sp.items())
               + f" | 2nd BilinearForm.Assemble under torch.profiler: {ptxt}",
@@ -2566,7 +2585,7 @@ def phases_20_21(T, dev, t_start):
     check(dia_cg.launches == 0, f"the space-time path launched dia_cg "
                                 f"{dia_cg.launches} times")
     print(f"[21 launches] space-time path: ell_spmv {launches}, dia_cg "
-          f"{dia_cg.launches} (every slab solve is the host LU); wall of "
+          f"{dia_cg.launches} (every slab solve is an LU); wall of "
           f"phase 21 {time.perf_counter() - t0:.2f} s, of the whole run "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     return launches

@@ -5,8 +5,8 @@ workload, ``py_tutorials/stokesxfem.py``): P2/P1 velocity and pressure on
 the background mesh, active dofs from CutInfo, Nitsche no-slip on the
 implicit boundary, facet-patch ghost penalties for both fields, and a
 manufactured divergence-free solution on a disk.  The saddle-point system is
-symmetric indefinite: the default solve is the host LU of
-``a.mat.Inverse``; ``MinResSolver`` solves it on the device, with the
+symmetric indefinite: the default solve of ``a.mat.Inverse`` is an LU
+(dense on the card where it fits, the host's otherwise); ``MinResSolver`` solves it on the device, with the
 block-diagonal preconditioner of ``minres_preconditioner``.
 
 Run: ``python -m ngsxfem_tpu_torch.examples.stokescutfem``.

@@ -17,11 +17,14 @@ the CPU sums the table itself), on the card the kernel ``csrc/ell_spmv.cu``
 autograd its transposed product runs the same kernel on the cached
 transposed table (``ELLMatrix.transposed``).  ``dia_matvec`` is
 ``dia_spmv.dia_matvec`` (on the card the kernel ``csrc/dia_spmv.cu``).
-``InverseMatrix`` keeps the reference's dispatch with one change on the
+``InverseMatrix`` keeps the reference's dispatch with two changes on the
 card: the named direct solvers factorize on the host with
 scipy, ``"cg"`` runs Jacobi-CG on the ELL view of the matrix through that
 kernel, and the default ``""`` does the same for a matrix on the card whose
-free block is symmetric with a positive diagonal (the host LU otherwise).
+free block is symmetric with a positive diagonal; any other free block it
+factors densely on the card (``torch.linalg.lu_factor_ex``, a library's
+LU as the reference leaves its dense products to XLA) where that fits
+``_dense_lu_budget``, on the host with scipy where it does not.
 """
 from __future__ import annotations
 
@@ -276,19 +279,55 @@ def spd_free_block(ell, free):
     return bool(ok)
 
 
+def _dense_lu_budget(device):
+    """Bytes the dense LU of the default ``Inverse()`` may hold on
+    ``device``: the smaller of a quarter of the card's memory and what is
+    free there (``torch.cuda.mem_get_info``'s free bytes and the caching
+    allocator's reserved but unallocated ones); 0 off CUDA."""
+    if device.type != "cuda":
+        return 0
+    free, total = torch.cuda.mem_get_info(device)
+    spare = (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    return min(total // 4, free + spare)
+
+
+def _dense_lu_bytes(nf, ell):
+    """Bytes the dense LU of an ``nf``-row free block of ``ell`` holds on
+    the card at most: the float64 input and its factor, ``2 nf^2`` values
+    alive together in ``lu_factor_ex``, and the four (n, K) temporaries of
+    8 bytes that write the input (the free-index map of the columns, the
+    flat positions, their product, the values in float64)."""
+    return 8 * (2 * nf * nf + 4 * ell.cols.numel())
+
+
 class InverseMatrix:
     """Solver object: `inv * rhs` solves on the free dofs (zero elsewhere).
 
     method: NGSolve direct-solver names ("sparsecholesky", "umfpack",
     "pardiso", "masterinverse") dispatch to the host scipy LU; "cg" runs
     the device Jacobi-CG path (``krylov._cg_ell`` on the ELL view, every
-    product through ``ell_matvec``) to ``INVERSE_CG_TOL``.  The
-    default "" takes that device path for a matrix on the card whose free
-    block passes ``spd_free_block`` (checked once, here), and raises
-    ``RuntimeError`` if the solve misses ``INVERSE_CG_TOL`` within its
-    steps; any other matrix, and every matrix on the CPU, gets the host LU,
-    the reference's default.  ``path`` records the choice: "device_cg" or
-    "host_lu".  Unknown names raise instead of being silently ignored.
+    product through ``ell_matvec``) to ``INVERSE_CG_TOL``.  The default ""
+    chooses, once, here, between three paths (``path`` records it):
+
+    - "device_cg": a matrix on the card whose free block passes
+      ``spd_free_block``; the solve raises ``RuntimeError`` if it misses
+      ``INVERSE_CG_TOL`` within its steps;
+    - "device_lu": any other matrix on the card whose dense LU fits the
+      card: ``_dense_lu_bytes`` (the input and its factor, ``2 nf^2``
+      float64 values for ``nf`` free rows, and the temporaries that write
+      the input) within ``_dense_lu_budget``, read here.  At the first
+      solve the free block of the ELL view is written into a dense float64
+      matrix on the card and factored with partial pivoting
+      (``torch.linalg.lu_factor_ex``); each solve is ``lu_solve`` there, with
+      no host round trip;
+    - "host_lu": everything else, and every matrix on the CPU: the
+      reference's default, scipy's ``splu`` of the free block in float64,
+      factored at the first solve.
+
+    Both LUs raise ``RuntimeError`` on an exactly singular free block and
+    return ``config.dtype``.  Unknown names raise instead of being silently
+    ignored.
     """
 
     _DIRECT = ("", "sparsecholesky", "umfpack", "pardiso", "masterinverse")
@@ -318,6 +357,11 @@ class InverseMatrix:
             self._free_t = torch.as_tensor(self.free, device=mat.vals.device)
             if self.method == "cg" or spd_free_block(mat.ell(), self._free_t):
                 self.path = "device_cg"
+            else:
+                nf = int(np.count_nonzero(self.free))
+                if (_dense_lu_bytes(nf, mat.ell())
+                        <= _dense_lu_budget(mat.vals.device)):
+                    self.path = "device_lu"
 
     def _factorize(self):
         if self._factor is None:
@@ -329,6 +373,38 @@ class InverseMatrix:
             Af = A[idx][:, idx].tocsc().astype(np.float64, copy=False)
             self._factor = (splu(Af), idx)
             count("InverseMatrix::host_lu::rows", len(idx))
+        return self._factor
+
+    def _factorize_on_card(self):
+        """The dense LU of the free block where the matrix lies: the ELL
+        view's entries (``to_ell`` summed each (row, col) once, padding
+        holds zeros) written through a free-index map into a zeroed
+        float64 (nf, nf) matrix, then ``lu_factor_ex``; one read of its
+        ``info``."""
+        if self._factor is None:
+            ell = self.mat.ell()
+            dev = ell.vals.device
+            idx = torch.as_tensor(np.flatnonzero(self.free), device=dev)
+            nf = idx.numel()
+            pos = torch.full((self.mat.shape[0],), -1, dtype=torch.long,
+                             device=dev)
+            pos[idx] = torch.arange(nf, device=dev)
+            r = pos[:, None].expand_as(ell.cols)
+            c = pos[ell.cols.long()]
+            keep = (r >= 0) & (c >= 0) & (ell.vals != 0)
+            # entries off the free block go to one spare slot past the end
+            flat = torch.where(keep, r * nf + c, nf * nf)
+            A = torch.zeros(nf * nf + 1, dtype=torch.float64, device=dev)
+            A[flat] = ell.vals.to(torch.float64)
+            del pos, r, c, keep, flat
+            LU, piv, info = torch.linalg.lu_factor_ex(A[:-1].view(nf, nf))
+            del A
+            if int(info):
+                raise RuntimeError(
+                    f"Inverse(): the free block is exactly singular (pivot "
+                    f"{int(info)} of {nf} is zero in its LU on the card)")
+            self._factor = (LU, piv, idx)
+            count("InverseMatrix::device_lu::rows", nf)
         return self._factor
 
     @traced("InverseMatrix::Solve")
@@ -348,6 +424,15 @@ class InverseMatrix:
                         f"not {tol:.0e}, in {iters} iterations; ask for the "
                         f"host LU with inverse=\"umfpack\"")
             return x
+        if self.path == "device_lu":  # no host round trip either
+            with Timer("InverseMatrix::device_lu", block=False), \
+                    torch.no_grad():
+                LU, piv, idx = self._factorize_on_card()
+                b = rhs.to(torch.float64)[idx, None]
+                out = torch.zeros(self.mat.shape[0], dtype=torch.float64,
+                                  device=idx.device)
+                out[idx] = torch.linalg.lu_solve(LU, piv, b)[:, 0]
+                return out.to(config.dtype)
         # the host LU: factorized at the first solve (to_scipy, the free
         # block, splu), then a triangular solve with its copies each call
         with Timer("InverseMatrix::host_lu", block=False):

@@ -14,11 +14,19 @@ against the benchmark's plain reference ``benchmark/reference/stcut.py``:
   ``RestrictGFInTime`` and ``CutInfo::Update::marks`` are recorded, the
   counter ``SpaceTimeCutRule::elements`` counts the cut elements of the
   three rules a slab builds, and ``InverseMatrix::host_lu::rows`` the
-  free rows.
+  free rows;
+- the default ``Inverse()``'s dense LU on the card (path ``"device_lu"``),
+  taken on CPU tensors with ``sparse._on_card`` and
+  ``sparse._dense_lu_budget`` patched: its solution against the host LU's
+  on the slab at nx=6 and on ``stokescutfem`` at nx=4, the budget rule,
+  the explicit direct names, a singular block on both paths, its span and
+  counter; and, on a card only (marker ``cuda``), the slab at nx=8.
 """
+import contextlib
 import os
 import sys
 import warnings
+from unittest import mock
 
 import pytest
 import torch
@@ -171,3 +179,171 @@ def test_host_lu_of_a_float32_matrix():
     assert torch.allclose(x[torch.float64][free], want, rtol=1e-13,
                           atol=0)
     assert torch.allclose(x[torch.float32][free], want, rtol=1e-5, atol=0)
+
+
+@pytest.fixture(scope="module")
+def slab6():
+    """The slab at nx=6 of ``SLABS[1]``: (matrix, right-hand side, free
+    dofs), on the CPU."""
+    drv, sizes, traffic = _driver(6)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        st = drv.setup(sizes, traffic, CPU)
+        st.prev = SLABS[1][0]
+        out = drv.step(st, Step(1, SLABS[1][1], NO_LOAD), Spans(None))
+    return out["mat"], out["rhs"], out["geom"]["free"]
+
+
+def _stokes4():
+    """``stokescutfem`` at nx=4: (matrix, right-hand side, free dofs, the
+    pressure's first dof)."""
+    from ngsxfem_tpu_torch.examples import stokescutfem
+
+    a, f, X, free = stokescutfem.system(nx=4, device="cpu")[:4]
+    a.Assemble()
+    f.Assemble()
+    return a.mat, f.vec.data, free, X.components[0].ndof
+
+
+@contextlib.contextmanager
+def _card_policy(budget=None):
+    """The card's policy on CPU tensors (``sparse._on_card`` patched), with
+    a dense LU budget of ``budget`` bytes (the CPU's, 0, for None)."""
+    from ngsxfem_tpu_torch.solvers import sparse
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(sparse, "_on_card",
+                                              lambda t: True))
+        if budget is not None:
+            stack.enter_context(mock.patch.object(
+                sparse, "_dense_lu_budget", lambda device: budget))
+        yield
+
+
+def _rel(x, y):
+    return float(torch.linalg.vector_norm(x - y)
+                 / torch.linalg.vector_norm(y))
+
+
+def _without_free_mean(x, free, first):
+    """``x`` less the mean of its free entries from ``first`` on."""
+    fr = torch.as_tensor(free)
+    fr[:first] = False
+    return x - torch.where(fr, x[fr].mean(), 0.0)
+
+
+@pytest.mark.parametrize("name", ["st", "stokes"])
+def test_default_inverse_dense_lu(name, slab6):
+    """On the card's policy, a non-symmetric free block within the budget
+    takes the dense LU: residual 1e-12 of the right-hand side on the free
+    rows, the host LU's solution to 1e-12, zero off the free rows, the
+    default dtype.  Stokes' free block (condition ~1e11 at nx=4) nearly
+    leaves the pressure's constant free, and along it the two LUs differ
+    by ~5e-7: they are compared with the free pressure's mean taken out."""
+    A, b, free, first = (*slab6, None) if name == "st" else _stokes4()
+    x_lu = A.Inverse(free, inverse="umfpack") * b
+    with _card_policy(1 << 50):
+        inv = A.Inverse(free)
+        assert inv.path == "device_lu"
+        x = inv * b
+    fr = torch.as_tensor(inv.free)
+    assert x.dtype == torch.float64 and torch.all(x[~fr] == 0)
+    assert _rel((A * x)[fr], b[fr]) <= 1e-12
+    if first is not None:
+        x, x_lu = (_without_free_mean(v, fr, first) for v in (x, x_lu))
+    assert _rel(x, x_lu) <= 1e-12
+
+
+# budget as a function of the dense LU's bytes, ``sparse._dense_lu_bytes``
+@pytest.mark.parametrize("methods,budget,path", [
+    (("",), None, "host_lu"),             # the CPU's budget, 0
+    (("",), lambda need: need - 1, "host_lu"),
+    (("",), lambda need: need, "device_lu"),
+    (("umfpack", "sparsecholesky", "pardiso", "masterinverse"),
+     lambda need: 2 * need, "host_lu"),
+])
+def test_default_inverse_dense_lu_rule(methods, budget, path, slab6):
+    from ngsxfem_tpu_torch.solvers import sparse
+
+    A, _, free = slab6
+    assert sparse._dense_lu_budget(A.vals.device) == 0
+    need = sparse._dense_lu_bytes(int(free.np.sum()), A.ell())
+    for method in methods:
+        assert A.Inverse(free, inverse=method).path == "host_lu"
+        with _card_policy(None if budget is None else budget(need)):
+            assert A.Inverse(free, inverse=method).path == path
+
+
+@pytest.mark.parametrize("budget,path", [(1 << 50, "device_lu"),
+                                         (0, "host_lu")])
+def test_default_inverse_singular_block_raises(budget, path):
+    """A non-symmetric free block with a zero row: both LUs raise."""
+    from ngsxfem_tpu_torch.solvers.sparse import SparseMatrix
+
+    n = 6
+    A = torch.diag(torch.arange(1.0, n + 1, dtype=torch.float64))
+    A[0, 1] = 0.5
+    A[3] = 0.0  # a free row of zeros
+    r, c = torch.nonzero(A != 0, as_tuple=True)
+    M = SparseMatrix(r, c, A[r, c], (n, n), device="cpu")
+    with _card_policy(budget):
+        inv = M.Inverse()
+        assert inv.path == path
+        with pytest.raises(RuntimeError, match="singular"):
+            inv * torch.ones(n, dtype=torch.float64)
+
+
+def test_dense_lu_span_and_counter(slab6):
+    """``InverseMatrix::device_lu`` once a solve inside
+    ``InverseMatrix::Solve``; its counter ``::rows`` once a factorization,
+    the free rows; no host LU."""
+    from ngsxfem_tpu_torch.utils import timing
+
+    A, b, free = slab6
+    timing.reset_trace()
+    with _card_policy(1 << 50), profile(activities=[ProfilerActivity.CPU]):
+        inv = A.Inverse(free)
+        inv * b
+        inv * b
+    recs = timing.spans()
+    tot = timing.counters()
+    timing.reset_trace()
+    names = [r["name"] for r in recs]
+    assert names.count("InverseMatrix::device_lu") == 2
+    assert "InverseMatrix::host_lu" not in names
+    for r in recs:
+        if r["name"] == "InverseMatrix::device_lu":
+            assert recs[r["parent"]]["name"] == "InverseMatrix::Solve"
+    counted = [r for r in recs if "InverseMatrix::device_lu::rows"
+               in r["counters"]]
+    assert len(counted) == 1
+    assert counted[0]["name"] == "InverseMatrix::device_lu"
+    assert tot["InverseMatrix::device_lu::rows"] == int(free.np.sum())
+    assert "InverseMatrix::host_lu::rows" not in tot
+
+
+@pytest.mark.cuda
+def test_dense_lu_on_the_card():
+    """The slab at nx=8 on the card: the default ``Inverse()`` takes the
+    dense LU and matches the host LU to 1e-12; with a budget of 0 it takes
+    the host LU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsxfem_tpu_torch.solvers import sparse
+
+    dev = torch.device("cuda")
+    drv, sizes, traffic = _driver(8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        st = drv.setup(sizes, traffic, dev)
+        st.prev = SLABS[1][0]
+        out = drv.step(st, Step(1, SLABS[1][1], NO_LOAD), Spans(None))
+    A, b, free = out["mat"], out["rhs"], out["geom"]["free"]
+    inv = A.Inverse(free)
+    assert inv.path == "device_lu"
+    x = inv * b
+    assert x.device.type == "cuda"
+    x_lu = A.Inverse(free, inverse="umfpack") * b
+    assert _rel(x, x_lu) <= 1e-12, _rel(x, x_lu)
+    with mock.patch.object(sparse, "_dense_lu_budget", lambda device: 0):
+        assert A.Inverse(free).path == "host_lu"
